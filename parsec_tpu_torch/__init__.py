@@ -13,7 +13,10 @@ Layer map:
   data/    — data copies/coherency, collections, tiled matrices
   device/  — device modules: the CPU and the CUDA card
   dsl/     — DTD insert_task
-  ops/     — tile bodies (gemm, potrf) and the CUDA kernels
+  ops/     — tile bodies (gemm, potrf) and the CUDA kernels (gemm_chain,
+             flash_attention)
+  parallel/ — the model layer: the GPT-class LM's serving path (forward,
+             loss, KV-cached generation) with the flash attention kernel
 
 The runtime runs on the card unless the caller asks for the CPU:
 ``Context()`` drives CUDA and raises without it; ``Context(device="cpu")``

@@ -8,6 +8,10 @@ on the CPU; it never falls back from one to the other.
   (``csrc/gemm_chain.cu``): a thread block owns an output sub-tile and keeps
   it in registers across the whole chain. It replaces the TPU kernel
   ``_gemm_chain_call`` of the reference package's ``ops/pallas_kernels.py``.
+* :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
+  (``csrc/flash_attention.cu``): a thread block owns a 64-row q tile and
+  streams k/v tiles past an online softmax held in registers. It replaces
+  the TPU kernel ``_flash_attn_call`` of the same module.
 
 The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``parsec_tpu_torch/build/`` and bound with ctypes through a plain C entry
@@ -18,6 +22,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import math
 import os
 import shutil
 import subprocess
@@ -120,6 +125,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # (c, a, b, out, kt, m, k, n, dtype, stream) -> cudaError_t
         lib.gemm_chain.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.gemm_chain.restype = ci
+    elif name == "flash_attention":
+        # (q, k, v, out, bh, sq, sk, d, causal, scale, q_off, k_off, dtype,
+        #  stream) -> cudaError_t
+        lib.flash_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
+                                        ctypes.c_float, ci, ci, ci, vp]
+        lib.flash_attention.restype = ci
 
 
 # ---------------------------------------------------------------------------
@@ -215,3 +226,134 @@ def gemm_chain(c, a_stack, b_stack):
 #: kernel launches since the last reset (the main path's proof that it ran
 #: through the kernel); only the wrapper's launch adds to it
 gemm_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# flash attention
+# ---------------------------------------------------------------------------
+
+#: head dims the kernel is built for
+FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: dtype codes of the C entry point
+_FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_flash(q, k, v) -> None:
+    if q.dim() < 2 or k.dim() < 2 or v.dim() < 2:
+        raise ValueError("flash_attention takes (..., seq, head_dim) operands")
+    if tuple(k.shape) != tuple(v.shape):
+        raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
+                         f"{tuple(v.shape)} differ")
+    bh = q.numel() // max(1, q.shape[-2] * q.shape[-1])
+    bhk = k.numel() // max(1, k.shape[-2] * k.shape[-1])
+    if q.shape[-1] != k.shape[-1] or bh != bhk:
+        raise ValueError(f"flash_attention: q {tuple(q.shape)} does not match "
+                         f"k/v {tuple(k.shape)}")
+    if q.shape[-2] < 1 or k.shape[-2] < 1:
+        raise ValueError("flash_attention needs sequence lengths >= 1")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"flash_attention takes one dtype of float32/bfloat16,"
+                        f" got {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("flash_attention operands lie on different devices")
+
+
+def _flash_weights(q, k, causal, scale, q_offset, k_offset):
+    """Dense float32 attention weights (bh, sq, sk): the global-offset
+    causal mask and a guarded softmax, so a fully masked row is all 0."""
+    dot_precision()
+    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    q3 = q.reshape(-1, sq, d).float()
+    k3 = k.reshape(-1, sk, d).float()
+    s = torch.matmul(q3, k3.transpose(1, 2)) * scale
+    if causal:
+        qp = q_offset + torch.arange(sq, device=q.device)[:, None]
+        kp = k_offset + torch.arange(sk, device=q.device)[None, :]
+        s = s.masked_fill(kp > qp, float("-inf"))
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(torch.isfinite(s),
+                    torch.exp(s - torch.where(torch.isfinite(m), m, 0.0)),
+                    0.0)
+    return p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+
+
+def flash_attention_plain(q, k, v, causal: bool = False, scale=None,
+                          q_offset: int = 0, k_offset: int = 0):
+    """The plain PyTorch version of :func:`flash_attention`: dense float32
+    scores, the global-offset causal mask, a guarded softmax (a fully masked
+    row gives zeros) and the output cast to q's dtype."""
+    w = _flash_weights(q, k, causal, scale, q_offset, k_offset)
+    v3 = v.reshape(-1, k.shape[-2], k.shape[-1]).float()
+    return torch.matmul(w, v3).to(q.dtype).reshape(q.shape)
+
+
+def flash_attention_bf16_tolerance(q, k, v, causal: bool = False, scale=None,
+                                   q_offset: int = 0, k_offset: int = 0):
+    """Elementwise bound on |kernel - plain| for bf16 operands: a float32
+    tensor of q's shape, on q's device.
+
+    The kernel rounds each weight of P to bf16 before P·V (relative error at
+    most u = 2**-8) and the plain version does not, so before the output is
+    rounded they differ by at most u·Σ_j w_j·|v_j| (w the softmax weights),
+    plus float32 noise, here allowed 1e-4 of that sum. Rounding both to
+    bf16 adds at most u·|y| each, y the plain float32 output. A row that sees
+    no key gets a bound of 0: it must be exactly 0. Every element of a sound
+    kernel lies within this bound; a skipped key tile or a lost correction
+    factor moves whole rows by far more."""
+    w = _flash_weights(q, k, causal, scale, q_offset, k_offset)
+    v3 = v.reshape(-1, k.shape[-2], k.shape[-1]).float()
+    u = 2.0 ** -8
+    spread = torch.matmul(w, v3.abs())
+    y = torch.matmul(w, v3).abs()
+    return ((1 + u) * (u + 1e-4) * spread + 2 * u * y).reshape(q.shape)
+
+
+def flash_attention(q, k, v, causal: bool = False, scale=None,
+                    q_offset: int = 0, k_offset: int = 0,
+                    block_q: int = 256, block_k: int = 512):
+    """Fused softmax(q·kᵀ·scale)·v over (..., seq, head_dim) operands; one
+    kernel launch on the current CUDA stream.
+
+    q is (..., sq, d), k and v (..., sk, d) with the same leading size; the
+    output has q's shape and dtype, and ``scale`` defaults to 1/sqrt(d).
+    ``q_offset``/``k_offset`` are the global positions of q's and k's first
+    rows, so the causal mask holds on sequence shards; a row that sees no
+    key returns zeros. ``block_q``/``block_k`` are accepted for the
+    reference's signature and change nothing: the kernel tiles by 64 and
+    masks its own ragged tails, so any sq, sk >= 1 runs.
+
+    CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
+    kernel (contiguous, head dim in :data:`FLASH_HEAD_DIMS`) or raise."""
+    del block_q, block_k
+    _check_flash(q, k, v)
+    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, scale, q_offset,
+                                     k_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention has no kernel for {q.device}")
+    if d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"flash_attention: head dim {d} is not one of the "
+                         f"kernel's {FLASH_HEAD_DIMS}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("flash_attention takes contiguous operands")
+    lib = _library("flash_attention")
+    out = torch.empty_like(q)
+    err = lib.flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.numel() // (sq * d), sq, sk, d, int(bool(causal)), float(scale),
+        int(q_offset), int(k_offset), _FLASH_DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
+                           f"{err}")
+    flash_attention.launches += 1
+    return out
+
+
+#: kernel launches since the last reset; only the wrapper's launch adds to it
+flash_attention.launches = 0

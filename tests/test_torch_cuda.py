@@ -1,5 +1,5 @@
-"""Card-only tests of the port: the hand-written kernel and the CUDA device
-module on a real card.
+"""Card-only tests of the port: the hand-written kernels, the CUDA device
+module and the LM serving path on a real card.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card
 (the kernel has no CPU mode). The file imports neither JAX nor the reference
@@ -7,6 +7,11 @@ package, so it runs on a machine that has neither:
 
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
+
+import ctypes
+import os
+import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -19,6 +24,8 @@ from parsec_tpu_torch.dsl.dtd import DTDTaskpool, RW
 from parsec_tpu_torch.ops import cuda_kernels as K
 from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
 from parsec_tpu_torch.ops.potrf import insert_potrf_tasks, make_spd
+from parsec_tpu_torch.parallel import model as TM
+from parsec_tpu_torch.parallel.transformer import flash_attention_core
 from parsec_tpu_torch.utils import mca
 
 pytestmark = pytest.mark.cuda
@@ -147,3 +154,173 @@ def test_stage_in_once_then_eviction_writes_back(gctx):
     assert d0.get_copy(0).version == d0.version
     assert np.allclose(A.to_dense(), np.vstack([np.full((32, 32), 4.0),
                                                 np.full((32, 32), 2.0)]))
+
+
+# (q shape, kv shape, causal, q_offset, k_offset, rows that see no key)
+FLASH_CASES = [
+    ((2, 2, 128, 64), (2, 2, 128, 64), False, 0, 0, 0),
+    ((3, 200, 64), (3, 200, 64), True, 0, 0, 0),
+    ((6, 64, 32), (6, 192, 32), False, 0, 0, 0),
+    ((1, 128, 32), (1, 256, 32), True, 128, 0, 0),
+    ((1, 128, 32), (1, 128, 32), True, 0, 128, 128),
+    ((1, 64, 32), (1, 64, 32), True, 0, 32, 32),
+    ((1, 257, 16), (1, 257, 16), True, 0, 0, 0),
+    ((2, 4, 16), (2, 4, 16), False, 0, 0, 0),
+    ((2, 130, 128), (2, 130, 128), True, 0, 0, 0),
+]
+
+
+def _flash_inputs(qs, ks, dtype):
+    gen = torch.Generator(device="cuda").manual_seed(sum(qs) + sum(ks))
+    return tuple(torch.randn(sh, device="cuda", generator=gen).to(dtype)
+                 for sh in (qs, ks, ks))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qs,ks,causal,q_off,k_off,masked", FLASH_CASES)
+def test_flash_kernel_matches_plain(dtype, qs, ks, causal, q_off, k_off,
+                                    masked):
+    """float32 within the reference's 2e-4 (FMA, no TF32); bf16 with every
+    element within ``flash_attention_bf16_tolerance`` (the rounding of P and
+    of the output); rows that see no key exactly zero."""
+    _need_card()
+    q, k, v = _flash_inputs(qs, ks, dtype)
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    before = K.flash_attention.launches
+    got = K.flash_attention(q, k, v, **kw)
+    assert K.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = K.flash_attention_plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+    else:
+        tol = K.flash_attention_bf16_tolerance(q, k, v, **kw)
+        assert ((got.float() - want.float()).abs() <= tol).all()
+    if masked:
+        assert (got.reshape(-1, *qs[-2:])[:, :masked] == 0).all()
+
+
+# planted faults in the bf16 kernel: (name, source text, its replacement)
+FLASH_FAULTS = [
+    ("skip the last key tile",
+     "for (int k0 = 0; k0 < kend; k0 += BK)",
+     "for (int k0 = 0; k0 < kend - BK; k0 += BK)"),
+    ("no correction of the accumulator",
+     "        o[n][2 * h] *= corr;\n        o[n][2 * h + 1] *= corr;\n", ""),
+    ("drop the last key of every tile",
+     "const bool keep = col < sk &&\n",
+     "const bool keep = col < sk && col % BK != BK - 1 &&\n"),
+]
+
+
+@pytest.fixture(scope="module")
+def flash_mutants(tmp_path_factory):
+    """One library per planted fault, built from a changed copy of the
+    kernel's source (all nvcc runs at once)."""
+    _need_card()
+    with open(os.path.join(K.CSRC_DIR, "flash_attention.cu")) as f:
+        src = f.read()
+    out = tmp_path_factory.mktemp("flash_mutants")
+
+    def build(i):
+        _, old, new = FLASH_FAULTS[i]
+        assert src.count(old) == 1
+        cu, so = out / f"fault{i}.cu", out / f"fault{i}.so"
+        cu.write_text(src.replace(old, new))
+        subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so), str(cu)],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        K._bind("flash_attention", lib)
+        return lib
+    with ThreadPoolExecutor(len(FLASH_FAULTS)) as pool:
+        return list(pool.map(build, range(len(FLASH_FAULTS))))
+
+
+@pytest.mark.parametrize("fault", range(len(FLASH_FAULTS)),
+                         ids=[f[0] for f in FLASH_FAULTS])
+def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
+                                                 monkeypatch):
+    """The bf16 check of the test above must fail a kernel with a planted
+    fault. Prints, per case, the fault's largest error and whether the
+    bound and the reference's looser 0.05 see it (``-s`` shows them)."""
+    monkeypatch.setitem(K._libs, "flash_attention", flash_mutants[fault])
+    rejected = []
+    for qs, ks, causal, q_off, k_off, _ in FLASH_CASES:
+        q, k, v = _flash_inputs(qs, ks, torch.bfloat16)
+        kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+        want = K.flash_attention_plain(q, k, v, **kw).float()
+        err = (K.flash_attention(q, k, v, **kw).float() - want).abs()
+        bound = bool((err > K.flash_attention_bf16_tolerance(q, k, v, **kw)
+                      ).any())
+        loose = bool((err > 0.05 + 0.05 * want.abs()).any())
+        print(f"{FLASH_FAULTS[fault][0]}: q {qs} kv {ks} causal={causal} "
+              f"offsets ({q_off}, {k_off}): max abs err "
+              f"{err.max().item():.3e}; rejected by the bound {bound}, by "
+              f"rtol/atol 0.05 {loose}")
+        rejected.append(bound)
+    assert any(rejected)
+
+
+def test_flash_kernel_raises_instead_of_falling_back():
+    _need_card()
+    q = torch.zeros(2, 64, 64, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        K.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
+                          q[..., :48].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        K.flash_attention(q.transpose(1, 2), q, q)
+    with pytest.raises(TypeError):
+        K.flash_attention(q.half(), q.half(), q.half())
+
+
+@pytest.mark.parametrize("compute_dtype", [None, torch.bfloat16])
+def test_lm_flash_core_matches_dense_on_the_card(compute_dtype):
+    """Small LM: the flash core launches once per block and agrees with the
+    dense core (logits within 2e-3 in f32); in bf16 the loss lies within 5%
+    of f32's, and the logits within rtol/atol 0.05 and a norm-wise 0.02 of
+    the f32 flash forward's, which a forward with zeroed attention fails."""
+    _need_card()
+    cfg = TM.ModelConfig(vocab_size=256, d_model=128, d_ff=512, n_heads=2,
+                         n_layers=3, max_seq=128)
+    params = TM.params_from_numpy(TM.init_lm_params(5, cfg))
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, 256, (2, 129)).astype(np.int64)
+                            ).cuda()
+    x, y = toks[:, :-1], toks[:, 1:]
+    before = K.flash_attention.launches
+    if compute_dtype is None:
+        got = TM.lm_apply(params, x, attention=flash_attention_core)
+        assert K.flash_attention.launches == before + cfg.n_layers
+        want = TM.lm_apply(params, x)
+        torch.testing.assert_close(got, want, rtol=2e-3, atol=2e-3)
+    else:
+        lbf = TM.lm_loss(params, x, y, attention=flash_attention_core,
+                         compute_dtype=compute_dtype)
+        assert K.flash_attention.launches == before + cfg.n_layers
+        lf = float(TM.lm_loss(params, x, y))
+        assert abs(float(lbf) - lf) < 0.05 * max(1.0, lf)
+        ref = TM.lm_apply(params, x, attention=flash_attention_core)
+
+        def close(core):
+            got = TM.lm_apply(params, x, attention=core,
+                              compute_dtype=compute_dtype)
+            return (bool(((got - ref).abs() <= 0.05 + 0.05 * ref.abs()).all())
+                    and ((got - ref).norm() / ref.norm()).item() <= 0.02)
+        assert close(flash_attention_core)
+        assert not close(lambda q, k, v, causal, scale: torch.zeros_like(q))
+
+
+def test_lm_generate_on_the_card_matches_full_recompute():
+    _need_card()
+    cfg = TM.ModelConfig(vocab_size=64, d_model=64, d_ff=128, n_heads=2,
+                         n_layers=2, max_seq=32)
+    params = TM.params_from_numpy(TM.init_lm_params(8, cfg))
+    prompt = torch.arange(16, device="cuda", dtype=torch.int32).reshape(2, 8)
+    out = TM.lm_generate(params, prompt, 10)
+    assert out.device.type == "cuda" and tuple(out.shape) == (2, 18)
+    logits = TM.lm_apply(params, out)
+    for t in range(8, 18):
+        row = logits[:, t - 1]
+        chosen = row.gather(1, out[:, t:t + 1].long()).squeeze(1)
+        assert (row.max(-1).values - chosen <= 1e-3).all()
