@@ -12,13 +12,21 @@ a user calls:
   task runs the ``gemm_chain`` kernel over a k-chain of 32) and the DTD tiled
   Cholesky (f32, N = 8192 in 256 x 256 tiles), with the 256-size
   correctness gates of the reference benchmark;
+* the DTD 1D Jacobi stencil (f32, N = 2^28 points in 16 tiles of 2^24, 8
+  iterations: every task runs the ``stencil1d`` kernel, 128 launches a DAG),
+  held bit for bit to the plain whole-row iteration; the DTD tiled LU
+  (getrf, no pivoting) and QR (geqrf) at N = 8192 in 256 x 256 tiles, each
+  held to its backward-error gate, which must also reject a copy of the DAG
+  with one trailing update left out; the apps (merge sort, all2all,
+  pingpong, haar tree, generalized reductions) on the card, against numpy;
 * the LM serving path at GPT-2 small's published widths (vocab 50257,
   d_model 768, 12 heads, d_ff 3072, 12 layers, max_seq 1024; random weights
   from a seed): a prefill/scoring forward of 8 x 1024 tokens through the
   ``flash_attention`` kernel (f32 against the dense core, then bf16 timed
   and its logits held to the f32 ones), and KV-cached greedy generation of
   64 tokens for 4 and for 32 prompts of 128 (the eager decode loop's step
-  time at two batch sizes).
+  time at two batch sizes);
+* the blocked ``matmul`` entry point at bf16 8192^3 and f32 4096^3.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -33,6 +41,7 @@ Needs one CUDA card; exits nonzero without one.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -47,6 +56,12 @@ PEAK_OPS_PER_S = {"bfloat16": 989e12, "float32": 67e12}
 GEMM_N, GEMM_TS = 16384, 512         # kt = 32: every GEMM_K task hits the kernel
 POTRF_N, POTRF_TS = GEMM_N // 2, GEMM_TS // 2
 REPS = 2
+# the reference benchmark's stencil leg (2^22 points, 2^18 tiles, 8
+# iterations) with both sizes scaled by 64: the same 16 tiles x 8
+# iterations = 128 tasks a DAG, on 1 GiB arrays
+STENCIL_N, STENCIL_TS, STENCIL_ITERS = 1 << 28, 1 << 24, 8
+LU_N, LU_TS = POTRF_N, POTRF_TS              # getrf and geqrf: POTRF's shape
+MATMUL_N, MATMUL_F32_N = 8192, 4096
 
 # GPT-2 small (openai-community/gpt2 config.json: n_embd 768, n_head 12,
 # n_layer 12, n_positions 1024, vocab 50257; n_inner null = 4 * n_embd)
@@ -241,6 +256,118 @@ def check_flash(K, torch, gen) -> None:
     torch.cuda.synchronize()
 
 
+def check_stencil1d(K, torch, gen) -> None:
+    """Kernel vs plain on the card, bit for bit in float32 and bf16 (every
+    product and sum rounded in the same order): rows 1 and 8; widths 1, 7,
+    4096 and 2^24; null halos, real halos of x's width, and a left halo
+    wider and a right one narrower than x."""
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype).replace("torch.", "")
+        for rows in (1, 8):
+            for cols in (1, 7, 4096, 1 << 24):
+                x = torch.randn(rows, cols, device="cuda", generator=gen
+                                ).to(dtype)
+                halos = {
+                    "null halos": (None, None),
+                    "real halos": tuple(torch.randn(
+                        rows, cols, device="cuda", generator=gen).to(dtype)
+                        for _ in range(2)),
+                    "wide left, narrow right": (
+                        torch.randn(rows, cols + 5, device="cuda",
+                                    generator=gen).to(dtype),
+                        torch.randn(rows, max(1, cols // 2), device="cuda",
+                                    generator=gen).to(dtype)),
+                }
+                for case, (left, right) in halos.items():
+                    for w in ((0.25, 0.5, 0.25), (0.3, 0.45, 0.25)):
+                        got = K.stencil1d(x, left, right, w)
+                        want = K.stencil1d_plain(x, left, right, w)
+                        if not torch.equal(got, want):
+                            err = (got.float() - want.float()).abs().max()
+                            raise AssertionError(
+                                f"stencil1d {name} ({rows}, {cols}) {case} "
+                                f"weights {w} differs from its plain version "
+                                f"(max abs err {err.item():.3e})")
+                del x, halos
+        log(f"kernel check stencil1d {name}: rows 1 and 8 x widths 1, 7, "
+            f"4096, 2^24 x (null halos, real halos, wide left / narrow "
+            f"right) x 2 weight sets: all bit-exact")
+    torch.cuda.synchronize()
+
+
+def hold_matmul(K, torch, a, b, got, block, gen, label: str) -> float:
+    """Hold ``got`` = K.matmul(a, b, block) against the plain version; raise
+    when it disagrees, else return the max abs error. float32: within
+    rtol/atol 1e-4. bf16: at most 0.1% of the elements beyond 2 bf16 ulps of
+    the running peak (gemm_chain's bound: the same per-step rounding), and
+    bit for bit on small-integer operands of the same shape (every float32
+    partial sum exact, so each step's rounding is deterministic)."""
+    m, k = a.shape
+    n = b.shape[1]
+    want = K.matmul_plain(a, b, block).float()
+    err = (got.float() - want).abs()
+    exact = None
+    if a.dtype == torch.float32:
+        bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
+        ok = bad == 0
+    else:
+        bk = min(block[2], k)
+        kt = k // bk
+        del want
+        tol = K.gemm_chain_bf16_tolerance(
+            torch.zeros(m, n, device="cuda", dtype=a.dtype),
+            a.view(m, kt, bk).permute(1, 0, 2).contiguous(),
+            b.view(kt, bk, n))
+        bad = int((err > tol).sum())
+        del tol
+        ai = torch.randint(-16, 17, (m, k), device="cuda",
+                           generator=gen).to(a.dtype)
+        bi = torch.randint(-16, 17, (k, n), device="cuda",
+                           generator=gen).to(a.dtype)
+        exact = torch.equal(K.matmul(ai, bi, block),
+                            K.matmul_plain(ai, bi, block))
+        ok = bad <= 1e-3 * err.numel() and exact
+    max_err = err.max().item()
+    log(f"{label} ({m}, {k}) x ({k}, {n}) block {block}: max abs err "
+        f"{max_err:.3e}, {bad} of {err.numel()} beyond tolerance"
+        + ("" if exact is None else
+           f"; integer data {'bit-exact' if exact else 'DIFFERS'}"))
+    if not ok:
+        raise AssertionError(f"{label} block {block} disagrees with its "
+                             f"plain version")
+    return max_err
+
+
+def check_matmul(K, torch, gen) -> None:
+    """Kernel vs plain on the card (:func:`hold_matmul`), blocks (256, 256,
+    256) and (64, 64, 32), A and B scaled by bk^-1/4 (each step's product of
+    unit variance, gemm_chain's f32 check). Then one shape the blocks do not
+    divide, which takes the library route and launches nothing."""
+    for block, (m, k, n) in (((256, 256, 256), (512, 2048, 768)),
+                             ((64, 64, 32), (192, 512, 320))):
+        s = block[2] ** -0.25
+        for dtype in (torch.float32, torch.bfloat16):
+            a = (torch.randn(m, k, device="cuda", generator=gen) * s).to(dtype)
+            b = (torch.randn(k, n, device="cuda", generator=gen) * s).to(dtype)
+            before = K.matmul.launches
+            got = K.matmul(a, b, block)
+            if K.matmul.launches != before + 1:
+                raise AssertionError("matmul did not launch its kernel")
+            hold_matmul(K, torch, a, b, got, block, gen,
+                        f"kernel check matmul {str(dtype)[6:]}")
+    a = torch.randn(300, 256, device="cuda", generator=gen)
+    b = torch.randn(256, 64, device="cuda", generator=gen)
+    before = K.matmul.launches
+    err = (K.matmul(a, b) - torch.matmul(a, b)).abs().max().item()
+    log(f"kernel check matmul f32 (300, 256) x (256, 64), blocks not "
+        f"dividing: library route, {K.matmul.launches - before} launches, "
+        f"max abs err against torch.matmul {err:.3e}")
+    if K.matmul.launches != before or err > 1e-4:
+        raise AssertionError("a non-dividing matmul did not take the "
+                             "library route")
+    torch.cuda.synchronize()
+
+
 def medians_in_turns(torch, fns, rounds: int = 6, warmup: int = 1) -> list:
     """Median time of one call of each of ``fns`` (CUDA events around the
     call, so device idle gaps inside it count), the functions run in turns
@@ -429,6 +556,34 @@ def greedy_decode(M, torch, params, cfg, n_params, prompt) -> None:
                              "recompute")
 
 
+def gemm_chain_entry(K, torch, gen, launches: int) -> dict:
+    """The chain kernel at the DTD GEMM's shape, C 512^2 and a chain of 32
+    bf16 tiles: error against plain, times, bound."""
+    kt, m, k, n = GEMM_N // GEMM_TS, GEMM_TS, GEMM_TS, GEMM_TS
+    bf16 = torch.bfloat16
+    c = torch.randn(m, n, device="cuda", generator=gen).to(bf16)
+    a = torch.randn(kt, m, k, device="cuda", generator=gen).to(bf16)
+    b = torch.randn(kt, k, n, device="cuda", generator=gen).to(bf16)
+    max_err = (K.gemm_chain(c, a, b).float()
+               - K.gemm_chain_plain(c, a, b).float()).abs().max().item()
+    kernel_ms = cuda_time_ms(lambda: K.gemm_chain(c, a, b))
+    plain_ms = cuda_time_ms(lambda: K.gemm_chain_plain(c, a, b))
+    a_cat = a.permute(1, 0, 2).reshape(m, kt * k)   # [A0 A1 ... ]
+    b_cat = b.reshape(kt * k, n)                    # [B0; B1; ...]
+    library_ms = cuda_time_ms(lambda: torch.addmm(c, a_cat, b_cat))
+    nbytes = (kt * (m * k + k * n) + 2 * m * n) * c.element_size()
+    ops = 2.0 * kt * m * k * n
+    entry = kernel_entry("gemm_chain", "parsec_tpu_torch/csrc/gemm_chain.cu",
+                         "parsec_tpu/ops/pallas_kernels.py:157", launches,
+                         max_err, kernel_ms, plain_ms, nbytes, ops,
+                         "bfloat16", library_ms)
+    log(f"gemm_chain bf16 C {m}^2 kt={kt}: kernel {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
+        f"{ops / kernel_ms / 1e6:.1f} GFLOP/s")
+    return entry
+
+
 def flash_entry(K, torch, gen, launches: int) -> dict:
     """The flash kernel at the LM path's shape, (96, 1024, 64) bf16 causal:
     error against plain, times, bound."""
@@ -448,30 +603,413 @@ def flash_entry(K, torch, gen, launches: int) -> dict:
         q4, k4, v4, is_causal=True))
     nbytes = 4 * bh * s * d * q.element_size()
     ops = 4.0 * d * bh * (s * (s + 1) / 2)      # q.k and p.v on the triangle
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    entry = kernel_entry("flash_attention",
+                         "parsec_tpu_torch/csrc/flash_attention.cu",
+                         "parsec_tpu/ops/pallas_kernels.py:329", launches,
+                         max_err, kernel_ms, plain_ms, nbytes, ops,
+                         "bfloat16", library_ms)
     log(f"flash_attention bf16 ({bh}, {s}, {d}) causal: kernel "
         f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}) -> {ops / kernel_ms / 1e9:.1f} "
-        f"TFLOP/s")
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
+        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s")
+    return entry
+
+
+def tiles_of(torch, M) -> "torch.Tensor":
+    """The newest copy of every tile of ``M``, assembled on the card."""
+    return torch.cat([torch.cat([M.data_of(m, n).newest_copy().payload.to(
+        "cuda") for n in range(M.nt)], dim=1) for m in range(M.mt)], dim=0)
+
+
+def dtd_stencil(ptt, K, torch, ctx, dev) -> int:
+    """The DTD 1D Jacobi stencil at N = 2^28, TS = 2^24, 8 iterations (f32);
+    returns the kernel's launches on it. Raises when a check fails."""
+    import torch.nn.functional as F
+    from parsec_tpu_torch.ops.stencil import (insert_stencil1d_tasks,
+                                              stencil_flops)
+    N, TS, IT = STENCIL_N, STENCIL_TS, STENCIL_ITERS
+    nt = N // TS
+    w = (0.25, 0.5, 0.25)
+    t0 = time.perf_counter()
+    # made in bulk on the card; the tiles' home copies are views of it
+    x0 = torch.randn(1, N, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    A = ptt.TiledMatrix("SA", 1, N, 1, TS, device="cuda")
+    B = ptt.TiledMatrix("SB", 1, N, 1, TS, device="cuda")
+    A.fill(lambda m, n: x0[:, n * TS:(n + 1) * TS])
+    B.fill(lambda m, n: torch.zeros(1, TS, device="cuda"))
+    torch.cuda.synchronize()
+    log(f"DTD stencil f32 N=2^{N.bit_length() - 1} TS=2^"
+        f"{TS.bit_length() - 1} ({nt} tiles) x {IT} iterations: A and B "
+        f"{N * 4 / 2**30:.0f} GiB each, made on the card in "
+        f"{time.perf_counter() - t0:.3f} s")
+    counts = {"dags": 0, "inserted": 0, "insert_s": {}}
+
+    def run_dags(n_dags: int) -> float:
+        tp = ptt.DTDTaskpool(ctx, "stencil")
+        t = time.perf_counter()
+        for _ in range(n_dags):
+            counts["inserted"] += insert_stencil1d_tasks(tp, A, B, IT, w)
+        counts["insert_s"].setdefault(n_dags, []).append(
+            time.perf_counter() - t)
+        tp.wait(); tp.close(); ctx.wait()
+        torch.cuda.synchronize()
+        counts["dags"] += n_dags
+        return time.perf_counter() - t
+
+    K.stencil1d.launches = 0
+    executed0 = dev.executed_tasks
+    t_first = run_dags(1)
+    # the first DAG against the plain version iterated over the whole row:
+    # every element sees the same operations, so they agree bit for bit
+    got = tiles_of(torch, A)                     # IT even: the result is in A
+    want = x0
+    for _ in range(IT):
+        want = K.stencil1d_plain(want, None, None, w)
+    exact = torch.equal(got, want)
+    err = (got - want).abs().max().item()
+    log(f"DTD stencil first DAG ({t_first:.3f} s) against {IT} plain "
+        f"whole-row iterations: {'bit-exact' if exact else 'DIFFERS'} (max "
+        f"abs err {err:.3e}), finite {bool(torch.isfinite(got).all())}")
+    if not exact:
+        raise AssertionError("the DTD stencil differs from the plain "
+                             "whole-row iteration")
+    del got, want
+    st_s, t_lo, t_hi = slope(run_dags)
+    launches = K.stencil1d.launches
+    executed = dev.executed_tasks - executed0
+    per_dag = nt * IT
+    log(f"DTD stencil f32: T1 {t_lo * 1e3:.3f} ms, T3 {t_hi * 1e3:.3f} ms, "
+        f"slope {st_s * 1e3:.3f} ms/DAG -> "
+        f"{stencil_flops(N, IT) / 1e9 / st_s:.1f} GFLOP/s "
+        f"({per_dag} tasks a DAG, {st_s / per_dag * 1e6:.1f} us a task)")
+    log(f"stencil1d launches {launches} over {counts['dags']} DAGs "
+        f"({launches / counts['dags']:.0f}/DAG), device executed {executed} "
+        f"of {counts['inserted']} inserted tasks")
+    if launches != per_dag * counts["dags"]:
+        raise AssertionError(f"stencil1d launched {launches} times, expected "
+                             f"{per_dag} per DAG")
+    if executed != counts["inserted"]:
+        raise AssertionError("not every stencil task ran on the CUDA device")
+    ins = min(counts["insert_s"][1])
+    bound_ms = IT * 2 * N * 4 / PEAK_BYTES_PER_S * 1e3
+    log(f"DTD stencil breakdown: insertion {ins * 1e3:.3f} ms of the "
+        f"one-DAG run's {t_lo * 1e3:.3f} ms; byte bound of a DAG "
+        f"{bound_ms:.3f} ms ({IT} x (read + write) of {N * 4 / 2**30:.0f} "
+        f"GiB at 3.35 TB/s)")
+    log(idle_line("DTD stencil one DAG",
+                  *device_profile(torch, lambda: run_dags(1))[:2]))
+    K.dot_precision()                      # cuDNN without TF32
+    wk = torch.tensor(w, device="cuda").view(1, 1, 3)
+
+    def conv_iterations():
+        y = x0.view(1, 1, N)
+        for _ in range(IT):
+            y = F.conv1d(y, wk, padding=1)
+        return y
+    conv_ms = cuda_time_ms(conv_iterations, iters=3, warmup=1)
+    log(f"yardstick: {IT} x torch.nn.functional.conv1d over the zero-padded "
+        f"row: {conv_ms:.3f} ms -> {stencil_flops(N, IT) / 1e6 / conv_ms:.1f}"
+        f" GFLOP/s")
+    del A, B, x0
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lu_test_matrix(torch, n: int, seed: int) -> "torch.Tensor":
+    """2I + (G + 11^T)/sqrt(n), G standard normal, on the card: safe for LU
+    without pivoting (the eigenvalues of 2I + G/sqrt(n) lie near the disk
+    |z - 2| <= 1, and the rank-one term only adds sqrt(n) along the ones
+    vector), and the all-ones term gives every tile's trailing update a
+    coherent part, so that one update left out moves L U - A far past the
+    gate (make_dd's diagonal of about n would hide it)."""
+    g = torch.randn(n, n, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(seed))
+    a = (g + 1.0) / math.sqrt(n)
+    a.diagonal().add_(2.0)
+    return a
+
+
+class SkipOne:
+    """A taskpool that leaves out the ``index``-th insert (from 1) of the
+    task class named ``name``: a planted fault in a copy of a DAG."""
+
+    def __init__(self, tp, name: str, index: int = 1) -> None:
+        self.tp, self.name, self.index, self.seen = tp, name, index, 0
+
+    def __getattr__(self, attr):
+        return getattr(self.tp, attr)
+
+    def insert_task(self, fn, *args, name=None, **kw):
+        if name == self.name:
+            self.seen += 1
+            if self.seen == self.index:
+                return None
+        return self.tp.insert_task(fn, *args, name=name, **kw)
+
+
+def factor_once(ptt, torch, ctx, insert, a, ts, name, skip=None) -> tuple:
+    """One DAG of ``insert`` over a tiled copy of ``a`` (tiles on the card),
+    optionally with one task left out; returns (the factored matrix
+    assembled, tasks, seconds)."""
+    n = a.shape[0]
+    M = ptt.TiledMatrix(name, n, n, ts, ts, device="cuda")
+    M.fill(lambda m, k: a[m * ts:(m + 1) * ts, k * ts:(k + 1) * ts])
+    torch.cuda.synchronize()
+    tp = ptt.DTDTaskpool(ctx, name)
+    t = time.perf_counter()
+    ntasks = insert(SkipOne(tp, *skip) if skip else tp, M)
+    tp.wait(); tp.close(); ctx.wait()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    return tiles_of(torch, M), ntasks, secs
+
+
+def lu_residual(torch, packed, a) -> float:
+    """||L U - A||_F / ||A||_F in float64 on the card."""
+    p = packed.double()
+    lower = p.tril(-1)
+    lower.diagonal().fill_(1.0)
+    a64 = a.double()
+    return (torch.linalg.norm(lower @ p.triu() - a64)
+            / torch.linalg.norm(a64)).item()
+
+
+def qr_residuals(torch, packed, a, ts) -> tuple:
+    """(||R^T R - A^T A||_F / ||A^T A||_F in float64 on the card, the
+    largest |entry| of the below-diagonal tiles over max|A|)."""
+    r = packed.double().triu()
+    a64 = a.double()
+    ata = a64.mT @ a64
+    resid = (torch.linalg.norm(r.mT @ r - ata) / torch.linalg.norm(ata)).item()
+    n = a.shape[0]
+    below = max(packed[m * ts:(m + 1) * ts, :m * ts].abs().max().item()
+                for m in range(1, n // ts))
+    return resid, below / a.abs().max().item()
+
+
+def dtd_factorizations(ptt, K, torch, ctx, dev) -> None:
+    """DTD getrf and geqrf at N = 8192, TS = 256 (f32): one DAG each after a
+    small warm-up DAG, timed, held to its gate, and a copy of the DAG with
+    one trailing update left out that the gate must reject. Raises when a
+    check fails."""
+    from parsec_tpu_torch.ops.geqrf import geqrf_flops, insert_geqrf_tasks
+    from parsec_tpu_torch.ops.getrf import getrf_flops, insert_getrf_tasks
+    N, TS = LU_N, LU_TS
+    gate = N * 2.0 ** -24
+    K.dot_precision()
+    legs = (("getrf", insert_getrf_tasks, getrf_flops, "GEMM",
+             lambda n, s: lu_test_matrix(torch, n, s)),
+            ("geqrf", insert_geqrf_tasks, geqrf_flops, "TSMQR",
+             lambda n, s: torch.randn(n, n, device="cuda",
+                                      generator=torch.Generator(
+                                          device="cuda").manual_seed(s))))
+    for name, insert, flops, fault, make in legs:
+        factor_once(ptt, torch, ctx, insert, make(4 * TS, 1), TS,
+                    f"{name}-warm")                       # handles, caches
+        a = make(N, 2)
+        executed0 = dev.executed_tasks
+        packed, ntasks, secs = factor_once(ptt, torch, ctx, insert, a, TS,
+                                           name)
+        if dev.executed_tasks - executed0 != ntasks:
+            raise AssertionError(f"not every {name} task ran on the CUDA "
+                                 f"device")
+        bad, _, _ = factor_once(ptt, torch, ctx, insert, a, TS,
+                                f"{name}-fault", skip=(fault, 1))
+        if name == "getrf":
+            resid, resid_bad = lu_residual(torch, packed, a), \
+                lu_residual(torch, bad, a)
+            extra, below_ok = "", True
+            what = "||LU - A||_F / ||A||_F"
+        else:
+            (resid, below), (resid_bad, _) = qr_residuals(torch, packed, a,
+                                                          TS), \
+                qr_residuals(torch, bad, a, TS)
+            below_ok = below <= 1e-3
+            extra = f"; below-diagonal tiles at most {below:.3e} of max|A|"
+            what = "||R^T R - A^T A||_F / ||A^T A||_F"
+        finite = bool(torch.isfinite(packed).all())
+        log(f"DTD {name} f32 N={N} TS={TS}: {ntasks} tasks, one DAG "
+            f"{secs:.3f} s -> {flops(N) / 1e9 / secs:.1f} GFLOP/s "
+            f"({secs / ntasks * 1e6:.1f} us a task); {what} = {resid:.3e} "
+            f"(gate N 2^-24 = {gate:.3e}){extra}, finite {finite}")
+        log(f"DTD {name} planted fault (the first {fault} task left out): "
+            f"{what} = {resid_bad:.3e} -> "
+            f"{'rejected' if resid_bad >= gate else 'NOT rejected'}")
+        if not (resid < gate and below_ok and finite):
+            raise AssertionError(f"DTD {name} fails its gate")
+        if not resid_bad >= gate:
+            raise AssertionError(f"the {name} gate passes a DAG with a "
+                                 f"{fault} task left out")
+        if name == "getrf":
+            lib_ms = cuda_time_ms(
+                lambda: torch.linalg.lu_factor(a, pivot=False), iters=3,
+                warmup=1)
+            lib = "torch.linalg.lu_factor(pivot=False)"
+        else:
+            lib_ms = cuda_time_ms(lambda: torch.linalg.qr(a, mode="r"),
+                                  iters=3, warmup=1)
+            lib = "torch.linalg.qr(mode='r')"
+        log(f"yardstick {lib} of the whole {N}^2 matrix: {lib_ms:.3f} ms -> "
+            f"{flops(N) / 1e6 / lib_ms:.1f} GFLOP/s")
+        del a, packed, bad
+        torch.cuda.empty_cache()
+
+
+def dtd_apps(ptt, torch, ctx, dev) -> None:
+    """The apps at the CPU tests' sizes on the card context, against numpy;
+    raises when one disagrees, or when a tensor-body task (every task but
+    merge sort's host-code ones) did not run on the CUDA device."""
+    import functools
+    from parsec_tpu_torch import apps
+
+    def host(tile):
+        return tile.data.newest_copy().payload.cpu().numpy()
+
+    rng = np.random.default_rng(22)
+    checks = {}
+    executed0 = dev.executed_tasks
+    tp = ptt.DTDTaskpool(ctx, "apps")
+    chunks = [rng.standard_normal(17).astype(np.float32) for _ in range(5)]
+    sorted_tile = apps.merge_sort(tp, chunks)
+    n_host = tp.inserted            # the jit=False sort and merge tasks
+    A2 = ptt.TiledMatrix("A2A", 1, 32, 1, 8)
+    B2 = ptt.TiledMatrix("B2A", 1, 32, 1, 8)
+    A2.fill(lambda m, n: np.full((1, 8), float(n + 1), np.float32))
+    B2.fill(lambda m, n: np.zeros((1, 8), np.float32))
+    apps.all2all(tp, A2, B2)
+    PP = ptt.TiledMatrix("PP", 8, 4, 4, 4)
+    PP.fill(lambda m, n: np.zeros((4, 4), np.float32))
+    apps.pingpong(tp, PP, 7)
+    leaves = [tp.tile_new(np.full((1,), float(i), np.float32))
+              for i in range(8)]
+    roots = apps.haar_transform(tp, leaves)
+    vals = rng.standard_normal((13, 8)).astype(np.float32)
+    red = apps.generalized_reduction(tp, [tp.tile_new(v) for v in vals])
+    mats = [rng.standard_normal((4, 4)).astype(np.float32) * 0.5
+            for _ in range(5)]
+    prod = apps.generalized_reduction(tp, [tp.tile_new(m) for m in mats],
+                                      op=lambda x, y: x @ y)
+    n_card = tp.inserted - n_host
+    tp.wait(); tp.close(); ctx.wait()
+    torch.cuda.synchronize()
+    on_card = dev.executed_tasks - executed0
+    checks[f"{on_card} of {n_card} tensor tasks on the card"] = \
+        on_card == n_card
+    checks["merge sort"] = np.array_equal(host(sorted_tile),
+                                          np.sort(np.concatenate(chunks)))
+    checks["all2all"] = np.array_equal(B2.to_dense(), np.full((1, 32), 10.0))
+    checks["pingpong"] = np.array_equal(
+        PP.data_of(1, 0).newest_copy().payload.cpu().numpy(),
+        np.full((4, 4), 7.0))
+    checks["haar"] = np.allclose(host(roots[-1]), 3.5)
+    checks["reduction"] = np.allclose(host(red), vals.sum(axis=0), rtol=1e-5,
+                                      atol=1e-5)
+    checks["ordered product"] = np.allclose(
+        host(prod), functools.reduce(lambda x, y: x @ y, mats), rtol=1e-4,
+        atol=1e-5)
+    log("apps on the card: " + ", ".join(
+        f"{k} {'ok' if v else 'WRONG'}" for k, v in checks.items()))
+    if not all(checks.values()):
+        raise AssertionError("an app disagrees with numpy on the card")
+
+
+def kernel_entry(name, source, replaces, launches, max_err, kernel_ms,
+                 plain_ms, nbytes, ops, dtype, library_ms) -> dict:
+    """One entry of the kernels line; the bound is the larger of the bytes
+    over the memory rate and the operations over the dtype's peak."""
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[dtype] * 1e3
     return {
-        "name": "flash_attention",
+        "name": name,
         "route": "cuda",
-        "source": "parsec_tpu_torch/csrc/flash_attention.cu",
-        "replaces": "parsec_tpu/ops/pallas_kernels.py:329",
+        "source": source,
+        "replaces": replaces,
         "launches": launches,
         "max_abs_err": max_err,
         "max_err": max_err,
         "ms": kernel_ms,
         "kernel_ms": kernel_ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": library_ms,
     }
+
+
+def stencil_entry(K, torch, gen, launches: int) -> dict:
+    """The stencil kernel at the DTD path's tile, (1, 2^24) float32 with both
+    halos: error against plain, times, bound."""
+    import torch.nn.functional as F
+    cols = STENCIL_TS
+    x, left, right = (torch.randn(1, cols, device="cuda", generator=gen)
+                      for _ in range(3))
+    w = (0.25, 0.5, 0.25)
+    max_err = (K.stencil1d(x, left, right, w)
+               - K.stencil1d_plain(x, left, right, w)).abs().max().item()
+    kernel_ms = cuda_time_ms(lambda: K.stencil1d(x, left, right, w))
+    plain_ms = cuda_time_ms(lambda: K.stencil1d_plain(x, left, right, w))
+    K.dot_precision()
+    xpad = torch.cat([left[:, -1:], x, right[:, :1]], dim=1).view(1, 1, -1)
+    wk = torch.tensor(w, device="cuda").view(1, 1, 3)
+    library_ms = cuda_time_ms(lambda: F.conv1d(xpad, wk))
+    # x read once, the two halo columns, out written once
+    entry = kernel_entry("stencil1d", "parsec_tpu_torch/csrc/stencil1d.cu",
+                         "parsec_tpu/ops/pallas_kernels.py:273", launches,
+                         max_err, kernel_ms, plain_ms, (2 * cols + 2) * 4,
+                         5.0 * cols, "float32", library_ms)
+    log(f"stencil1d f32 (1, 2^24) with halos: kernel {kernel_ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, conv1d {library_ms:.4f} ms, bound "
+        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
+        f"{(2 * cols + 2) * 4 / kernel_ms / 1e9:.3f} TB/s")
+    return entry
+
+
+def matmul_main(K, torch, gen) -> dict:
+    """The blocked matmul's path, its entry point at bf16 8192^3 (32
+    roundings a product) and f32 4096^3, 256^3 blocks: one launch each with
+    the count set to 0 just before, each output held against the plain
+    version (:func:`hold_matmul`), then kernel, plain and torch.matmul
+    timed. Returns the kernels line's entry: bf16, the f32 figures beside."""
+    runs = []
+    K.matmul.launches = 0
+    for n, dtype in ((MATMUL_N, torch.bfloat16),
+                     (MATMUL_F32_N, torch.float32)):
+        a = torch.randn(n, n, device="cuda", generator=gen).to(dtype)
+        b = torch.randn(n, n, device="cuda", generator=gen).to(dtype)
+        runs.append((a, b, K.matmul(a, b)))
+    torch.cuda.synchronize()
+    launches = K.matmul.launches
+    rows = {}
+    while runs:
+        a, b, got = runs.pop(0)
+        n, name = a.shape[0], str(a.dtype).replace("torch.", "")
+        max_err = hold_matmul(K, torch, a, b, got, (256, 256, 256), gen,
+                              f"matmul entry point {name}")
+        del got
+        kernel_ms = cuda_time_ms(lambda: K.matmul(a, b), iters=5, warmup=1)
+        plain_ms = cuda_time_ms(lambda: K.matmul_plain(a, b), iters=3,
+                                warmup=1)
+        library_ms = cuda_time_ms(lambda: torch.matmul(a, b), iters=5,
+                                  warmup=1)
+        rows[name] = kernel_entry(
+            "matmul", "parsec_tpu_torch/csrc/gemm_chain.cu",
+            "parsec_tpu/ops/pallas_kernels.py:219", launches, max_err,
+            kernel_ms, plain_ms, 3 * n * n * a.element_size(),
+            2.0 * n ** 3, name, library_ms)
+        e = rows[name]
+        log(f"matmul {name} {n}^3 block 256^3: kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.matmul {library_ms:.4f} ms, "
+            f"bound {e['bound_ms']:.4f} ms ({e['bound_by']}) -> "
+            f"{2.0 * n ** 3 / kernel_ms / 1e9:.1f} TFLOP/s; max abs err "
+            f"against plain {max_err:.3e}")
+        del a, b
+    entry = rows["bfloat16"]
+    entry["float32_4096"] = {k: rows["float32"][k] for k in
+                             ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                              "bound_by", "library_ms")}
+    return entry
 
 
 def main() -> int:
@@ -498,7 +1036,7 @@ def main() -> int:
 
     # ---- 2. kernel check ------------------------------------------------
     t0 = time.perf_counter()
-    names = ("gemm_chain", "flash_attention")
+    names = ("gemm_chain", "flash_attention", "stencil1d")
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(K.build, names))
     log(f"built {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
@@ -508,6 +1046,11 @@ def main() -> int:
                             (32, 256, 128, 512)):
             check_gemm_chain(K, torch, dtype, kt, m, k, n, gen)
     check_flash(K, torch, gen)
+    check_stencil1d(K, torch, gen)
+    check_matmul(K, torch, gen)
+    # the device module sizes its tile budget from the memory free when the
+    # context starts: hand the checks' cached blocks back first
+    torch.cuda.empty_cache()
 
     # ---- 3. scheduled DTD GEMM at full width (the main path) ------------
     ptt.mca.set("device_load_balance_allow_cpu", False)
@@ -657,43 +1200,26 @@ def main() -> int:
     # ---- 6. LM serving at GPT-2 small width ----------------------------
     flash_launches = lm_serving(K, torch)
 
-    # ---- 7. kernel line at the main paths' shapes -----------------------
-    kt, m, k, n = GEMM_N // GEMM_TS, GEMM_TS, GEMM_TS, GEMM_TS
-    bf16 = torch.bfloat16
-    c = torch.randn(m, n, device="cuda", generator=gen).to(bf16)
-    a = torch.randn(kt, m, k, device="cuda", generator=gen).to(bf16)
-    b = torch.randn(kt, k, n, device="cuda", generator=gen).to(bf16)
-    max_err = (K.gemm_chain(c, a, b).float()
-               - K.gemm_chain_plain(c, a, b).float()).abs().max().item()
-    kernel_ms = cuda_time_ms(lambda: K.gemm_chain(c, a, b))
-    plain_ms = cuda_time_ms(lambda: K.gemm_chain_plain(c, a, b))
-    a_cat = a.permute(1, 0, 2).reshape(m, kt * k)   # [A0 A1 ... ]
-    b_cat = b.reshape(kt * k, n)                    # [B0; B1; ...]
-    library_ms = cuda_time_ms(lambda: torch.addmm(c, a_cat, b_cat))
-    nbytes = (kt * (m * k + k * n) + 2 * m * n) * c.element_size()
-    ops = 2.0 * kt * m * k * n
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_OPS_PER_S["bfloat16"] * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    log(f"gemm_chain bf16 C {m}^2 kt={kt}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms, bound "
-        f"{bound_ms:.4f} ms ({'bytes' if t_bytes >= t_ops else 'operations'})"
-        f" -> {ops / kernel_ms / 1e6:.1f} GFLOP/s")
-    kernels = [{
-        "name": "gemm_chain",
-        "route": "cuda",
-        "source": "parsec_tpu_torch/csrc/gemm_chain.cu",
-        "replaces": "parsec_tpu/ops/pallas_kernels.py:157",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "max_err": max_err,
-        "ms": kernel_ms,
-        "kernel_ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms,
-    }, flash_entry(K, torch, gen, flash_launches)]
+    # ---- 7. the stencil and the other tile algorithms, on a new context
+    # (after the earlier paths, which so run as they did before them) -----
+    ctx = ptt.Context(nb_cores=1)
+    dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
+    stencil_launches = dtd_stencil(ptt, K, torch, ctx, dev)
+    dtd_factorizations(ptt, K, torch, ctx, dev)
+    dtd_apps(ptt, torch, ctx, dev)
+    ctx.fini()
+
+    # ---- 8. the blocked matmul's entry point, held and timed ------------
+    matmul = matmul_main(K, torch, gen)
+
+    # ---- 9. kernel line at the main paths' shapes -----------------------
+    kernels = [gemm_chain_entry(K, torch, gen, launches),
+               flash_entry(K, torch, gen, flash_launches),
+               stencil_entry(K, torch, gen, stencil_launches),
+               matmul]
+    for e in kernels:
+        if not e["launches"]:
+            raise AssertionError(f"{e['name']} was not launched on its path")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

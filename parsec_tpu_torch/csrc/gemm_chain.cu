@@ -32,8 +32,22 @@
 // pipelining yet: loads and math alternate, separated by barriers, which is
 // what a later optimisation removes.
 //
-// C entry point (ctypes): gemm_chain(c, a, b, out, kt, m, k, n, dtype,
-// stream) with dtype 0 = float32, 1 = bf16; returns cudaGetLastError().
+// C entry points (ctypes), dtype 0 = float32, 1 = bf16, each returning
+// cudaGetLastError():
+//   gemm_chain(c, a, b, out, kt, m, k, n, dtype, stream)
+//   blocked_matmul(a, b, out, m, k, n, bk, dtype, stream)
+//
+// blocked_matmul replaces the TPU kernel `_matmul_call` / `matmul` of the
+// same module (pallas_call at :236): there a (m/bm, n/bn, k/bk) grid adds
+// each bk step's float32 product, rounded to the output dtype, into the
+// output block in that dtype. That is this chain with C = 0, kt = k / bk
+// steps, A's step s the column block [s*bk, (s+1)*bk) of the (m, k) matrix
+// (leading dimension k) and B's step s its row block, so it runs the same
+// two kernels, with the per-step rounding they already do; bm and bn only
+// tiled the TPU's work and have no counterpart. Bound: 2*m*k*n operations
+// against (m*k + k*n + m*n) elements, so at the 8192^3 bf16 shape of the
+// smoke run the tensor-core rate bounds it (1.11 ms at 989 TFLOP/s); float32
+// runs at the 67 TFLOP/s SIMT rate. Speed is a later step, as for the chain.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -53,7 +67,7 @@ constexpr int F_BK = 32;        // k depth per shared-memory stage
 __global__ void __launch_bounds__(THREADS)
 gemm_chain_f32(const float* __restrict__ c, const float* __restrict__ a,
                const float* __restrict__ b, float* __restrict__ out,
-               int kt, int m, int kdim, int n) {
+               int kt, int m, int kdim, int n, int lda, size_t a_step) {
   __shared__ float As[BM][F_BK + 1];   // +1: conflict-free column reads
   __shared__ float Bs[F_BK][BN];
   const int tid = threadIdx.x;
@@ -67,19 +81,20 @@ gemm_chain_f32(const float* __restrict__ c, const float* __restrict__ a,
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const int r = row0 + 2 * ty + i, cc = col0 + tx + 16 * j;
-      run[i][j] = (r < m && cc < n) ? c[(size_t)r * n + cc] : 0.f;
+      run[i][j] = (c != nullptr && r < m && cc < n) ? c[(size_t)r * n + cc]
+                                                    : 0.f;
     }
   }
 
   for (int s = 0; s < kt; ++s) {
-    const float* as = a + (size_t)s * m * kdim;
+    const float* as = a + (size_t)s * a_step;
     const float* bs = b + (size_t)s * kdim * n;
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     for (int k0 = 0; k0 < kdim; k0 += F_BK) {
       for (int e = tid; e < BM * F_BK; e += THREADS) {
         const int r = e / F_BK, kk = e % F_BK;
         const int gr = row0 + r, gk = k0 + kk;
-        As[r][kk] = (gr < m && gk < kdim) ? as[(size_t)gr * kdim + gk] : 0.f;
+        As[r][kk] = (gr < m && gk < kdim) ? as[(size_t)gr * lda + gk] : 0.f;
       }
       for (int e = tid; e < F_BK * BN; e += THREADS) {
         const int kk = e / BN, cc = e % BN;
@@ -157,7 +172,8 @@ gemm_chain_bf16(const __nv_bfloat16* __restrict__ c,
                 const __nv_bfloat16* __restrict__ a,
                 const __nv_bfloat16* __restrict__ b,
                 __nv_bfloat16* __restrict__ out,
-                int kt, int m, int kdim, int n, bool vec) {
+                int kt, int m, int kdim, int n, int lda, size_t a_step,
+                bool vec) {
   __shared__ __align__(32) __nv_bfloat16 As[BM * A_LD];
   __shared__ __align__(32) __nv_bfloat16 Bs[H_BK * B_LD];
   __shared__ __align__(32) float Cs[BM * C_LD];
@@ -170,8 +186,9 @@ gemm_chain_bf16(const __nv_bfloat16* __restrict__ c,
   for (int e = tid; e < BM * BN; e += THREADS) {
     const int r = e / BN, cc = e % BN;
     const int gr = row0 + r, gc = col0 + cc;
-    Cs[r * C_LD + cc] =
-        (gr < m && gc < n) ? __bfloat162float(c[(size_t)gr * n + gc]) : 0.f;
+    Cs[r * C_LD + cc] = (c != nullptr && gr < m && gc < n)
+                            ? __bfloat162float(c[(size_t)gr * n + gc])
+                            : 0.f;
   }
   __syncthreads();
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> run, acc;
@@ -181,11 +198,11 @@ gemm_chain_bf16(const __nv_bfloat16* __restrict__ c,
                          wmma::mem_row_major);
 
   for (int s = 0; s < kt; ++s) {
-    const __nv_bfloat16* as = a + (size_t)s * m * kdim;
+    const __nv_bfloat16* as = a + (size_t)s * a_step;
     const __nv_bfloat16* bs = b + (size_t)s * kdim * n;
     wmma::fill_fragment(acc, 0.f);
     for (int k0 = 0; k0 < kdim; k0 += H_BK) {
-      stage_bf16(As, A_LD, as, kdim, row0, k0, BM, H_BK, m, kdim, vec);
+      stage_bf16(As, A_LD, as, lda, row0, k0, BM, H_BK, m, kdim, vec);
       stage_bf16(Bs, B_LD, bs, n, k0, col0, H_BK, BN, kdim, n, vec);
       __syncthreads();
 #pragma unroll
@@ -222,29 +239,48 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15u) == 0;
 }
 
+// The chain over kt steps of (m x kdim) A blocks, row i of step s at
+// a + s * a_step + i * lda, and (kdim x n) B blocks stored one after the
+// other; c == nullptr starts the output at zero.
+int launch_chain(const void* c, const void* a, const void* b, void* out,
+                 int kt, int m, int kdim, int n, int lda, size_t a_step,
+                 int dtype, cudaStream_t st) {
+  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
+  if (dtype == 0) {
+    gemm_chain_f32<<<grid, THREADS, 0, st>>>(
+        static_cast<const float*>(c), static_cast<const float*>(a),
+        static_cast<const float*>(b), static_cast<float*>(out), kt, m, kdim,
+        n, lda, a_step);
+  } else if (dtype == 1) {
+    // vector loads need every row start of A and B 16-byte aligned: aligned
+    // bases, and row lengths and step offsets that are multiples of 8
+    const bool vec = aligned16(a) && aligned16(b) && lda % 8 == 0 &&
+                     a_step % 8 == 0 && n % 8 == 0;
+    gemm_chain_bf16<<<grid, THREADS, 0, st>>>(
+        static_cast<const __nv_bfloat16*>(c),
+        static_cast<const __nv_bfloat16*>(a),
+        static_cast<const __nv_bfloat16*>(b),
+        static_cast<__nv_bfloat16*>(out), kt, m, kdim, n, lda, a_step, vec);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int gemm_chain(const void* c, const void* a, const void* b,
                           void* out, int kt, int m, int k, int n, int dtype,
                           void* stream) {
   if (kt < 1 || m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
-  const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) {
-    gemm_chain_f32<<<grid, THREADS, 0, st>>>(
-        static_cast<const float*>(c), static_cast<const float*>(a),
-        static_cast<const float*>(b), static_cast<float*>(out), kt, m, k, n);
-  } else if (dtype == 1) {
-    // vector loads need every row start of A (ld k) and B (ld n) 16-byte
-    // aligned: aligned bases and row lengths that are multiples of 8
-    const bool vec = aligned16(a) && aligned16(b) && k % 8 == 0 && n % 8 == 0;
-    gemm_chain_bf16<<<grid, THREADS, 0, st>>>(
-        static_cast<const __nv_bfloat16*>(c),
-        static_cast<const __nv_bfloat16*>(a),
-        static_cast<const __nv_bfloat16*>(b),
-        static_cast<__nv_bfloat16*>(out), kt, m, k, n, vec);
-  } else {
+  return launch_chain(c, a, b, out, kt, m, k, n, k, (size_t)m * k, dtype,
+                      static_cast<cudaStream_t>(stream));
+}
+
+extern "C" int blocked_matmul(const void* a, const void* b, void* out, int m,
+                              int k, int n, int bk, int dtype, void* stream) {
+  if (m < 1 || k < 1 || n < 1 || bk < 1 || k % bk != 0)
     return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch_chain(nullptr, a, b, out, k / bk, m, bk, n, k, (size_t)bk,
+                      dtype, static_cast<cudaStream_t>(stream));
 }

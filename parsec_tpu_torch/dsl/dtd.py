@@ -138,6 +138,13 @@ class DTDTaskClass(TaskClass):
             self.add_flow(Flow(f"f{i}", acc))
 
 
+def _on_host(payload):
+    """A tensor payload on the host (the CPU chore's inputs)."""
+    if isinstance(payload, torch.Tensor) and payload.device.type != "cpu":
+        return payload.cpu()
+    return payload
+
+
 def _as_outputs(outs) -> List[Any]:
     """A body's result as a list of tensors, one per WRITE flow."""
     if outs is None:
@@ -434,10 +441,13 @@ class DTDTaskpool(Taskpool):
 
     def _cpu_hook(self, stream, task: DTDTask) -> int:
         """CPU chore: run the body on host tensors and land its outputs in
-        the tiles' host copies."""
+        the tiles' host copies. An input whose newest version lives on the
+        card comes home first (a copy that waits for it), so the body never
+        computes on the card outside the device module's stream, and a host
+        copy never holds a device tensor."""
         tc: DTDTaskClass = task.task_class
-        payloads = [s.data_in.payload if s.data_in is not None else None
-                    for s in task.data]
+        payloads = [_on_host(s.data_in.payload) if s.data_in is not None
+                    else None for s in task.data]
         outs = _as_outputs(tc.fn(*self._gather_args(task, payloads)))
         oi = 0
         for i, acc in enumerate(tc.flow_accesses):

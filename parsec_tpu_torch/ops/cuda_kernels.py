@@ -12,6 +12,13 @@ on the CPU; it never falls back from one to the other.
   (``csrc/flash_attention.cu``): a thread block owns a 64-row q tile and
   streams k/v tiles past an online softmax held in registers. It replaces
   the TPU kernel ``_flash_attn_call`` of the same module.
+* :func:`matmul` — blocked A·B with the output accumulated in its own dtype
+  per k block, a second entry point of ``csrc/gemm_chain.cu`` that runs the
+  chain's tile loop with C = 0 over the k blocks of A. It replaces
+  ``_matmul_call``.
+* :func:`stencil1d` — the fused 3-point weighted stencil over a tile with
+  halo columns from its neighbours (``csrc/stencil1d.cu``), one thread per
+  output element. It replaces ``_stencil_call``.
 
 The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``parsec_tpu_torch/build/`` and bound with ctypes through a plain C entry
@@ -125,6 +132,16 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         # (c, a, b, out, kt, m, k, n, dtype, stream) -> cudaError_t
         lib.gemm_chain.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
         lib.gemm_chain.restype = ci
+        # (a, b, out, m, k, n, bk, dtype, stream) -> cudaError_t
+        lib.blocked_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        lib.blocked_matmul.restype = ci
+    elif name == "stencil1d":
+        # (x, left, right, out, rows, cols, lcols, rcols, w0, w1, w2, dtype,
+        #  stream) -> cudaError_t
+        cf = ctypes.c_float
+        lib.stencil1d.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, cf, cf, cf,
+                                  ci, vp]
+        lib.stencil1d.restype = ci
     elif name == "flash_attention":
         # (q, k, v, out, bh, sq, sk, d, causal, scale, q_off, k_off, dtype,
         #  stream) -> cudaError_t
@@ -226,6 +243,166 @@ def gemm_chain(c, a_stack, b_stack):
 #: kernel launches since the last reset (the main path's proof that it ran
 #: through the kernel); only the wrapper's launch adds to it
 gemm_chain.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# blocked matmul
+# ---------------------------------------------------------------------------
+
+def _check_matmul(a, b) -> None:
+    if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
+        raise ValueError(f"matmul takes A (m, k) and B (k, n), got "
+                         f"{tuple(a.shape)} and {tuple(b.shape)}")
+    if min(a.shape[0], a.shape[1], b.shape[1]) < 1:
+        raise ValueError("matmul needs non-empty operands")
+    if a.dtype != b.dtype or a.dtype not in _GEMM_CHAIN_DTYPES:
+        raise TypeError(f"matmul takes one dtype of float32/bfloat16, got "
+                        f"{a.dtype}, {b.dtype}")
+    if a.device != b.device:
+        raise ValueError("matmul operands lie on different devices")
+
+
+def _matmul_blocks(a, b, block):
+    """The reference's block clipping: (bm, bn, bk), each at most the
+    operand's own extent."""
+    m, k = a.shape
+    n = b.shape[1]
+    return min(block[0], m), min(block[1], n), min(block[2], k)
+
+
+def matmul_plain(a, b, block=(256, 256, 256)):
+    """The plain PyTorch version of :func:`matmul` on shapes the kernel
+    takes: the output starts at zero and each bk-wide step's product is
+    summed in float32, rounded to the output dtype and added in that
+    dtype."""
+    _check_matmul(a, b)
+    _, _, bk = _matmul_blocks(a, b, block)
+    k = a.shape[1]
+    if k % bk:
+        raise ValueError(f"matmul_plain: k = {k} is not a multiple of "
+                         f"bk = {bk}")
+    dot_precision()
+    out = torch.zeros(a.shape[0], b.shape[1], dtype=a.dtype, device=a.device)
+    for k0 in range(0, k, bk):
+        out = out + torch.matmul(a[:, k0:k0 + bk].float(),
+                                 b[k0:k0 + bk].float()).to(a.dtype)
+    return out
+
+
+def matmul(a, b, block=(256, 256, 256)):
+    """Blocked A @ B with (bm, bn, bk) = ``block`` clipped to the shape; one
+    kernel launch on the current CUDA stream.
+
+    Same function as the TPU kernel: the output accumulates in its own
+    dtype, one rounded float32 step product per bk-wide block of k, so a
+    bf16 output rounds k/bk times; bm and bn only tile the work. Shapes that
+    the blocks do not divide take the reference's own route, one
+    ``torch.matmul`` with float32 accumulation and a single rounding. Else
+    CPU tensors take :func:`matmul_plain`, and CUDA tensors launch the
+    kernel (contiguous operands) or raise."""
+    _check_matmul(a, b)
+    bm, bn, bk = _matmul_blocks(a, b, block)
+    m, k = a.shape
+    n = b.shape[1]
+    if m % bm or n % bn or k % bk:
+        dot_precision()
+        return torch.matmul(a.float(), b.float()).to(a.dtype)
+    if a.device.type == "cpu":
+        return matmul_plain(a, b, block)
+    if a.device.type != "cuda":
+        raise ValueError(f"matmul has no kernel for {a.device}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("matmul takes contiguous operands")
+    lib = _library("gemm_chain")
+    out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    err = lib.blocked_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             m, k, n, bk, _GEMM_CHAIN_DTYPES[a.dtype],
+                             torch.cuda.current_stream(a.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
+    matmul.launches += 1
+    return out
+
+
+#: kernel launches since the last reset; only the wrapper's launch adds to it
+matmul.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# fused 1D stencil
+# ---------------------------------------------------------------------------
+
+#: dtype codes of the C entry point
+_STENCIL_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _check_stencil(x, left, right) -> None:
+    if x.dim() != 2 or min(x.shape) < 1:
+        raise ValueError(f"stencil1d takes a non-empty (rows, cols) tile, got "
+                         f"{tuple(x.shape)}")
+    if x.dtype not in _STENCIL_DTYPES:
+        raise TypeError(f"stencil1d takes float32 or bfloat16, got {x.dtype}")
+    for side, h in (("left", left), ("right", right)):
+        if h is None:
+            continue
+        if h.dim() != 2 or h.shape[0] != x.shape[0] or h.shape[1] < 1:
+            raise ValueError(f"stencil1d: {side} halo tile {tuple(h.shape)} "
+                             f"does not border x {tuple(x.shape)}")
+        if h.dtype != x.dtype or h.device != x.device:
+            raise TypeError(f"stencil1d: {side} halo tile is {h.dtype} on "
+                            f"{h.device}, x {x.dtype} on {x.device}")
+
+
+def stencil1d_plain(x, left, right, weights=(0.25, 0.5, 0.25)):
+    """The plain PyTorch version of :func:`stencil1d`. The weights are
+    rounded to x's dtype first, and every product and sum is rounded to it,
+    in the order (w0·xm + w1·x) + w2·xp — what the TPU kernel computes on
+    weakly typed weights, bf16 included."""
+    _check_stencil(x, left, right)
+    w0, w1, w2 = torch.tensor(weights, dtype=x.dtype, device=x.device)
+    zero = x.new_zeros(x.shape[0], 1)
+    lcol = left[:, -1:] if left is not None else zero
+    rcol = right[:, :1] if right is not None else zero
+    xm = torch.cat([lcol, x[:, :-1]], dim=1)
+    xp = torch.cat([x[:, 1:], rcol], dim=1)
+    return (w0 * xm + w1 * x) + w2 * xp
+
+
+def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
+    """out = w0·xm + w1·x + w2·xp over a (rows, cols) tile, xm/xp the tile
+    shifted right/left by one column with the halo columns ``left[:, -1]``
+    and ``right[:, 0]`` at its ends; ``None`` for a halo is a zero column
+    (the domain boundary). One kernel launch on the current CUDA stream.
+
+    Bit for bit the function of :func:`stencil1d_plain` (the kernel rounds
+    every product and sum, never fusing them). CPU tensors take the plain
+    version; CUDA tensors launch the kernel (contiguous tiles) or raise."""
+    _check_stencil(x, left, right)
+    if x.device.type == "cpu":
+        return stencil1d_plain(x, left, right, weights)
+    if x.device.type != "cuda":
+        raise ValueError(f"stencil1d has no kernel for {x.device}")
+    if not all(t is None or t.is_contiguous() for t in (x, left, right)):
+        raise ValueError("stencil1d takes contiguous tiles")
+    lib = _library("stencil1d")
+    rows, cols = x.shape
+    out = torch.empty_like(x)
+    w0, w1, w2 = (float(w) for w in weights)
+    err = lib.stencil1d(
+        x.data_ptr(), None if left is None else left.data_ptr(),
+        None if right is None else right.data_ptr(), out.data_ptr(),
+        rows, cols, 0 if left is None else left.shape[1],
+        0 if right is None else right.shape[1], w0, w1, w2,
+        _STENCIL_DTYPES[x.dtype],
+        torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"stencil1d kernel launch failed: CUDA error {err}")
+    stencil1d.launches += 1
+    return out
+
+
+#: kernel launches since the last reset; only the wrapper's launch adds to it
+stencil1d.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -324,3 +324,211 @@ def test_lm_generate_on_the_card_matches_full_recompute():
         row = logits[:, t - 1]
         chosen = row.gather(1, out[:, t:t + 1].long()).squeeze(1)
         assert (row.max(-1).values - chosen <= 1e-3).all()
+
+
+# --- stencil1d and matmul (the stencil / tile-algorithm slice) -------------
+
+# (rows, cols, left/right halo widths; 0 is a null halo)
+STENCIL_SHAPES = [(1, 1, 0, 0), (1, 7, 3, 2), (8, 7, 0, 9), (1, 4096, 4096, 4096),
+                  (8, 4096, 0, 0), (8, 4099, 5000, 17), (3, 1000, 1, 1)]
+
+
+def _stencil_operands(rows, cols, lw, rw, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, left, right = (torch.randn(rows, max(w, 1), device="cuda",
+                                  generator=gen).to(dtype)
+                      for w in (cols, lw, rw))
+    return x, left if lw else None, right if rw else None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,cols,lw,rw", STENCIL_SHAPES)
+def test_stencil1d_kernel_matches_plain_bit_for_bit(dtype, rows, cols, lw, rw):
+    """Every product and sum rounded in the plain version's order (no FMA
+    contraction): bit for bit, null halos, halo tiles wider and narrower
+    than x, ragged widths and unaligned row starts included."""
+    _need_card()
+    x, left, right = _stencil_operands(rows, cols, lw, rw, dtype, rows + cols)
+    for w in ((0.25, 0.5, 0.25), (0.3, 0.45, 0.25)):
+        before = K.stencil1d.launches
+        got = K.stencil1d(x, left, right, w)
+        assert K.stencil1d.launches == before + 1
+        assert torch.equal(got, K.stencil1d_plain(x, left, right, w))
+
+
+def test_stencil1d_kernel_at_the_path_width():
+    """(1, 2^24) float32 with both halos, the DTD stencil's tile."""
+    _need_card()
+    x, left, right = _stencil_operands(1, 1 << 24, 1 << 24, 1 << 24,
+                                       torch.float32, 24)
+    assert torch.equal(K.stencil1d(x, left, right),
+                       K.stencil1d_plain(x, left, right))
+
+
+@pytest.fixture(scope="module")
+def stencil_without_right_halo(tmp_path_factory):
+    """The stencil kernel built from a copy of its source in which the
+    right halo column is dropped (read as zero)."""
+    _need_card()
+    with open(os.path.join(K.CSRC_DIR, "stencil1d.cu")) as f:
+        src = f.read()
+    old = "right != nullptr ? E::get(right[(size_t)r * rcols]) : 0.f"
+    assert src.count(old) == 1
+    out = tmp_path_factory.mktemp("stencil_fault")
+    cu, so = out / "fault.cu", out / "fault.so"
+    cu.write_text(src.replace(old, "0.f"))
+    subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so), str(cu)],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(so))
+    K._bind("stencil1d", lib)
+    return lib
+
+
+def test_stencil1d_check_rejects_a_dropped_halo(stencil_without_right_halo,
+                                                monkeypatch):
+    """The bit-for-bit check sees a kernel that drops the right halo column:
+    it passes where there is no right halo and fails where there is one."""
+    monkeypatch.setitem(K._libs, "stencil1d", stencil_without_right_halo)
+    for rw, same in ((0, True), (64, False)):
+        x, left, right = _stencil_operands(2, 64, 64, rw, torch.float32, 5)
+        assert torch.equal(K.stencil1d(x, left, right),
+                           K.stencil1d_plain(x, left, right)) == same
+
+
+def test_stencil1d_kernel_raises_instead_of_falling_back():
+    _need_card()
+    x = torch.zeros(4, 64, device="cuda")
+    with pytest.raises(ValueError, match="contiguous"):
+        K.stencil1d(x[:, ::2], None, None)
+    with pytest.raises(TypeError):
+        K.stencil1d(x.half(), None, None)
+    with pytest.raises(TypeError):
+        K.stencil1d(x, x.cpu(), None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n,block", [(256, 512, 256, (256, 256, 256)),
+                                         (128, 256, 192, (64, 64, 32)),
+                                         (96, 64, 40, (32, 8, 16))])
+def test_matmul_kernel_matches_plain(dtype, m, k, n, block):
+    """float32 within rtol/atol 1e-4 with A and B scaled by bk^-1/4 (each
+    step's product has unit variance); bf16 with at most 0.1% of elements
+    beyond 2 ulps of the running peak (gemm_chain's bound, the same
+    per-step rounding); bf16 on small integers bit for bit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(m + k + n)
+    bk = min(block[2], k)
+    s = bk ** -0.25
+    a = (torch.randn(m, k, device="cuda", generator=gen) * s).to(dtype)
+    b = (torch.randn(k, n, device="cuda", generator=gen) * s).to(dtype)
+    before = K.matmul.launches
+    got = K.matmul(a, b, block).float()
+    assert K.matmul.launches == before + 1
+    want = K.matmul_plain(a, b, block).float()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        # the chain's view of the same product: C = 0, k/bk steps
+        kt = k // bk
+        a_st = a.view(m, kt, bk).permute(1, 0, 2).contiguous()
+        b_st = b.view(kt, bk, n)
+        tol = K.gemm_chain_bf16_tolerance(torch.zeros(m, n, device="cuda",
+                                                      dtype=dtype), a_st, b_st)
+        assert ((got - want).abs() > tol).float().mean().item() <= 1e-3
+        ai = torch.randint(-16, 17, (m, k), device="cuda", generator=gen
+                           ).to(dtype)
+        bi = torch.randint(-16, 17, (k, n), device="cuda", generator=gen
+                           ).to(dtype)
+        assert torch.equal(K.matmul(ai, bi, block),
+                           K.matmul_plain(ai, bi, block))
+
+
+def test_matmul_shapes_on_the_card():
+    """100x60 by 60x90 (the reference's odd-shape test): the clipped blocks
+    divide it, so it launches the kernel, ragged edges masked; 300x256 by
+    256x64 (300 % 256) takes the library route and launches nothing."""
+    _need_card()
+    a = torch.randn(100, 60, device="cuda")
+    b = torch.randn(60, 90, device="cuda")
+    before = K.matmul.launches
+    torch.testing.assert_close(K.matmul(a, b), a @ b, rtol=1e-4, atol=1e-4)
+    assert K.matmul.launches == before + 1
+    a = torch.randn(300, 256, device="cuda")
+    b = torch.randn(256, 64, device="cuda")
+    torch.testing.assert_close(K.matmul(a, b), a @ b, rtol=1e-4, atol=1e-4)
+    assert K.matmul.launches == before + 1
+
+
+def test_dtd_stencil1d_launches_once_per_task_on_the_card(gctx):
+    """8 tiles x 5 iterations: 40 launches (boundary tiles included), every
+    task on the device, bit for bit the plain whole-row iteration."""
+    from parsec_tpu_torch.ops.stencil import insert_stencil1d_tasks
+    NT, TS, ITERS = 8, 1000, 5
+    x0 = torch.randn(1, NT * TS, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(8))
+    A = TiledMatrix("SA", 1, NT * TS, 1, TS, device="cuda")
+    B = TiledMatrix("SB", 1, NT * TS, 1, TS, device="cuda")
+    A.fill(lambda m, n: x0[:, n * TS:(n + 1) * TS])
+    B.fill(lambda m, n: torch.zeros(1, TS))
+    torch.cuda.synchronize()
+    before = K.stencil1d.launches
+    tp = DTDTaskpool(gctx, "stencil")
+    n = insert_stencil1d_tasks(tp, A, B, ITERS)
+    _drain(gctx, tp)
+    assert K.stencil1d.launches - before == n == NT * ITERS
+    assert _dev(gctx).executed_tasks == n
+    out = B if ITERS % 2 else A
+    got = torch.cat([out.data_of(0, i).newest_copy().payload
+                     for i in range(NT)], dim=1)
+    want = x0
+    for _ in range(ITERS):
+        want = K.stencil1d_plain(want, None, None)
+    assert torch.equal(got, want)
+
+
+def test_dtd_getrf_and_geqrf_on_the_card(gctx):
+    from parsec_tpu_torch.ops.geqrf import insert_geqrf_tasks
+    from parsec_tpu_torch.ops.getrf import insert_getrf_tasks, make_dd
+    a = make_dd(512, seed=4)
+    LU = collection_from_numpy("LU", a, 128, 128)
+    tp = DTDTaskpool(gctx, "getrf")
+    n_lu = insert_getrf_tasks(tp, LU)
+    _drain(gctx, tp)
+    packed = LU.to_dense().astype(np.float64)
+    Lf = np.tril(packed, -1) + np.eye(512)
+    assert np.linalg.norm(Lf @ np.triu(packed) - a) / np.linalg.norm(a) < \
+        512 * 2.0 ** -24
+    q = np.random.default_rng(4).standard_normal((512, 512)).astype(np.float32)
+    QR = collection_from_numpy("QR", q, 128, 128)
+    tp = DTDTaskpool(gctx, "geqrf")
+    n_qr = insert_geqrf_tasks(tp, QR)
+    _drain(gctx, tp)
+    R = np.triu(QR.to_dense()).astype(np.float64)
+    ata = q.astype(np.float64).T @ q
+    assert np.linalg.norm(R.T @ R - ata) / np.linalg.norm(ata) < \
+        512 * 2.0 ** -24
+    assert _dev(gctx).executed_tasks == n_lu + n_qr
+
+
+def test_cpu_chore_gets_host_tensors_of_device_written_tiles(gctx):
+    """A host-code task (jit=False) reading a tile whose newest version a
+    device task wrote gets it as a host tensor, and its output lands in the
+    host copy as one; the next device task stages that version back in."""
+    A = TiledMatrix("HC", 4, 4, 4, 4)
+    A.fill(lambda m, n: np.ones((4, 4), np.float32))
+    seen = []
+
+    def host_double(x):
+        seen.append(x.device.type)
+        return x * 2.0
+
+    tp = DTDTaskpool(gctx, "host-chore")
+    t = tp.tile_of(A, 0, 0)
+    tp.insert_task(lambda x: x + 1.0, (t, RW))            # on the card
+    tp.insert_task(host_double, (t, RW), jit=False)       # on the CPU chore
+    tp.insert_task(lambda x: x + 3.0, (t, RW))            # on the card
+    _drain(gctx, tp)
+    assert seen == ["cpu"]
+    assert A.data_of(0, 0).get_copy(0).payload.device.type == "cpu"
+    assert np.array_equal(A.to_dense(), np.full((4, 4), 7.0))
+    assert _dev(gctx).executed_tasks == 2

@@ -123,3 +123,219 @@ def test_dot_precision_policy():
             K.dot_precision()
     finally:
         mca.params.unset("tile_dot_precision")
+
+
+# --- stencil1d -------------------------------------------------------------
+
+def _stencil_reference(x, left, right, weights, dtype):
+    """The reference kernel in interpret mode (pallas_strict: no silent
+    XLA fallback). It takes zero tiles where the port takes ``None``."""
+    from parsec_tpu.utils import mca as ref_mca
+    z = np.zeros_like(x[:, :1])
+    left = z if left is None else left
+    right = z if right is None else right
+    ref_mca.set("pallas_strict", True)
+    try:
+        out = PK.stencil1d(*(jnp.asarray(v, dtype) for v in (x, left, right)),
+                           weights)
+    finally:
+        ref_mca.params.unset("pallas_strict")
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _stencil_inputs(rows, cols, halos, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, cols)).astype(np.float32)
+    if not halos:
+        return x, None, None
+    return (x, rng.standard_normal((rows, cols)).astype(np.float32),
+            rng.standard_normal((rows, cols)).astype(np.float32))
+
+
+def _stencil_port(x, left, right, weights, dtype):
+    t = [None if v is None else torch.from_numpy(v).to(dtype)
+         for v in (x, left, right)]
+    return K.stencil1d(*t, weights).float().numpy()
+
+
+STENCIL_CASES = [(1, 64, False), (1, 32, True), (8, 256, False),
+                 (8, 256, True), (1, 1, True), (3, 7, False)]
+STENCIL_WEIGHTS = [(0.25, 0.5, 0.25), (0.3, 0.45, 0.25)]
+
+
+@pytest.mark.parametrize("weights", STENCIL_WEIGHTS)
+@pytest.mark.parametrize("rows,cols,halos", STENCIL_CASES)
+def test_stencil1d_bf16_bit_exact_against_pallas(rows, cols, halos, weights):
+    """bf16: the reference rounds its weakly typed weights to bf16 and every
+    product and sum to bf16; the port rounds the same values in the same
+    order, so the two agree bit for bit."""
+    x, left, right = _stencil_inputs(rows, cols, halos, rows + cols)
+    np.testing.assert_array_equal(
+        _stencil_port(x, left, right, weights, torch.bfloat16),
+        _stencil_reference(x, left, right, weights, jnp.bfloat16))
+
+
+@pytest.mark.parametrize("weights", STENCIL_WEIGHTS)
+@pytest.mark.parametrize("rows,cols,halos", STENCIL_CASES)
+def test_stencil1d_f32_matches_pallas(rows, cols, halos, weights):
+    """float32 within 4 ulps of sum |w_i x_i| per element: the compiled
+    interpret-mode kernel may fuse a product into a sum (one rounding fewer
+    than the port's op-by-op order), about 1 ulp of that sum."""
+    x, left, right = _stencil_inputs(rows, cols, halos, 2 * rows + cols)
+    got = _stencil_port(x, left, right, weights, torch.float32)
+    want = _stencil_reference(x, left, right, weights, jnp.float32)
+    z = np.zeros((rows, 1), np.float32)
+    lcol = z if left is None else left[:, -1:]
+    rcol = z if right is None else right[:, :1]
+    xm = np.concatenate([lcol, x[:, :-1]], axis=1)
+    xp = np.concatenate([x[:, 1:], rcol], axis=1)
+    w0, w1, w2 = weights
+    mag = np.abs(w0 * xm) + np.abs(w1 * x) + np.abs(w2 * xp)
+    assert (np.abs(got - want) <= 4 * np.spacing(mag.astype(np.float32))).all()
+
+
+def test_stencil1d_reference_cases():
+    """tests/test_pallas.py's two stencil cases, at their tolerance 1e-5."""
+    from parsec_tpu_torch.ops.stencil import reference_stencil1d
+    rng = np.random.default_rng(33)
+    x = rng.standard_normal((1, 64)).astype(np.float32)
+    out = K.stencil1d(torch.from_numpy(x), None, None).numpy()
+    np.testing.assert_allclose(out, reference_stencil1d(x, 1), rtol=1e-5,
+                               atol=1e-5)
+    rng = np.random.default_rng(34)
+    x, l, r = (rng.standard_normal((1, 32)).astype(np.float32)
+               for _ in range(3))
+    out = K.stencil1d(*(torch.from_numpy(v) for v in (x, l, r))).numpy()
+    xm = np.concatenate([l[:, -1:], x[:, :-1]], axis=1)
+    xp = np.concatenate([x[:, 1:], r[:, :1]], axis=1)
+    np.testing.assert_allclose(out, 0.25 * xm + 0.5 * x + 0.25 * xp,
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_stencil1d_takes_halo_edges_of_wider_and_narrower_tiles():
+    """The halo columns are left[:, -1] and right[:, 0] whatever the
+    neighbours' widths."""
+    x = torch.arange(12.0).reshape(2, 6)
+    left = torch.full((2, 9), 100.0)
+    left[:, -1] = torch.tensor([7.0, 8.0])
+    right = torch.tensor([[50.0, 1.0], [60.0, 2.0]])
+    out = K.stencil1d(x, left, right, (1.0, 0.0, 0.0))
+    assert out[:, 0].tolist() == [7.0, 8.0]
+    out = K.stencil1d(x, left, right, (0.0, 0.0, 1.0))
+    assert out[:, -1].tolist() == [50.0, 60.0]
+
+
+def test_stencil1d_cpu_takes_plain_version_without_launch():
+    x, l, r = (torch.from_numpy(v) for v in _stencil_inputs(2, 16, True, 1))
+    before = K.stencil1d.launches
+    out = K.stencil1d(x, l, r)
+    assert K.stencil1d.launches == before
+    assert torch.equal(out, K.stencil1d_plain(x, l, r))
+
+
+@pytest.mark.parametrize("case", ["rank", "rows", "dtype", "halo dtype",
+                                  "empty"])
+def test_stencil1d_rejects_what_the_kernel_does_not_take(case):
+    x = torch.zeros(2, 8)
+    args, exc = {
+        "rank": ((x[0], None, None), ValueError),
+        "rows": ((x, torch.zeros(3, 8), None), ValueError),
+        "dtype": ((x.double(), None, None), TypeError),
+        "halo dtype": ((x, None, torch.zeros(2, 8).bfloat16()), TypeError),
+        "empty": ((x[:, :0], None, None), ValueError),
+    }[case]
+    with pytest.raises(exc):
+        K.stencil1d(*args)
+
+
+# --- blocked matmul --------------------------------------------------------
+
+def _matmul_reference(a, b, block, dtype=jnp.float32):
+    from parsec_tpu.utils import mca as ref_mca
+    ref_mca.set("pallas_strict", True)
+    try:
+        out = PK.matmul(jnp.asarray(a, dtype), jnp.asarray(b, dtype),
+                        block=block)
+    finally:
+        ref_mca.params.unset("pallas_strict")
+    return np.asarray(out.astype(jnp.float32))
+
+
+def test_blocked_matmul():
+    """tests/test_pallas.py's case: 128x64 by 64x128 in (64, 64, 32) blocks,
+    rtol/atol 1e-4 against numpy and against the reference kernel."""
+    rng = np.random.default_rng(31)
+    a = rng.standard_normal((128, 64)).astype(np.float32)
+    b = rng.standard_normal((64, 128)).astype(np.float32)
+    out = K.matmul(torch.from_numpy(a), torch.from_numpy(b),
+                   block=(64, 64, 32)).numpy()
+    np.testing.assert_allclose(out, a @ b, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out, _matmul_reference(a, b, (64, 64, 32)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_blocked_matmul_odd_shapes():
+    """tests/test_pallas.py's odd shapes, 100x60 by 60x90 with the default
+    blocks: clipped to the shape, the blocks divide it (one block), so the
+    kernel's semantics apply, as in the reference; rtol/atol 1e-4 against
+    numpy and the reference kernel."""
+    rng = np.random.default_rng(32)
+    a = rng.standard_normal((100, 60)).astype(np.float32)
+    b = rng.standard_normal((60, 90)).astype(np.float32)
+    out = K.matmul(torch.from_numpy(a), torch.from_numpy(b)).numpy()
+    np.testing.assert_allclose(out, a @ b, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(out, _matmul_reference(a, b, (256, 256, 256)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_blocked_matmul_non_dividing_shapes_take_the_library_route():
+    """Shapes the clipped blocks do not divide (300 % 256) take one float32
+    torch.matmul and a single rounding, the reference's jnp.dot route: a
+    bf16 product on small integers equals the once-rounded exact product."""
+    rng = np.random.default_rng(33)
+    a = rng.integers(-16, 17, (300, 512)).astype(np.float32)
+    b = rng.integers(-16, 17, (512, 64)).astype(np.float32)
+    got = K.matmul(torch.from_numpy(a).bfloat16(),
+                   torch.from_numpy(b).bfloat16()).float().numpy()
+    np.testing.assert_array_equal(
+        got, torch.from_numpy(a @ b).bfloat16().float().numpy())
+    np.testing.assert_array_equal(
+        got, _matmul_reference(a, b, (256, 256, 256), jnp.bfloat16))
+
+
+@pytest.mark.parametrize("block", [(64, 64, 32), (256, 256, 256),
+                                   (32, 64, 16)])
+def test_blocked_matmul_bf16_rounds_every_k_block(block):
+    """bf16 on small integers (every float32 partial sum exact in any
+    order): the output accumulates in bf16, one rounding per bk block, bit
+    for bit as the reference kernel does it, and visibly apart from a
+    single rounding of the whole product."""
+    rng = np.random.default_rng(sum(block))
+    a = rng.integers(-16, 17, (128, 512)).astype(np.float32)
+    b = rng.integers(-16, 17, (512, 128)).astype(np.float32)
+    got = K.matmul(torch.from_numpy(a).bfloat16(),
+                   torch.from_numpy(b).bfloat16(), block=block).float().numpy()
+    np.testing.assert_array_equal(
+        got, _matmul_reference(a, b, block, jnp.bfloat16))
+    once = torch.from_numpy(a @ b).bfloat16().float().numpy()
+    assert (got != once).any()
+
+
+def test_matmul_cpu_takes_plain_version_without_launch():
+    a, b = torch.randn(64, 32), torch.randn(32, 48)
+    before = K.matmul.launches
+    out = K.matmul(a, b, block=(32, 16, 8))
+    assert K.matmul.launches == before
+    assert torch.equal(out, K.matmul_plain(a, b, block=(32, 16, 8)))
+
+
+@pytest.mark.parametrize("case", ["shape", "dtype", "rank"])
+def test_matmul_rejects_what_the_kernel_does_not_take(case):
+    a, b = torch.zeros(16, 8), torch.zeros(8, 16)
+    args, exc = {
+        "shape": ((a, b[:4]), ValueError),
+        "dtype": ((a.double(), b.double()), TypeError),
+        "rank": ((a[0], b), ValueError),
+    }[case]
+    with pytest.raises(exc):
+        K.matmul(*args)
