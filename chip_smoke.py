@@ -4,12 +4,16 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``parsec_tpu_torch/csrc`` with nvcc (one
-nvcc per source, all started together), holds each against its plain
-PyTorch version, then drives the port's main paths through the entry points
-a user calls:
+nvcc per source, all started together), checks with ``cuobjdump -sass`` that
+the chain's bf16 kernel runs on Hopper's tensor-core and TMA instructions
+(HGMMA, UTMALDG), holds each kernel against its plain PyTorch version
+(``gemm_chain`` on its tile, split and general routes), then drives the
+port's main paths through the entry points a user calls:
 
 * the DTD tiled GEMM (bf16, N = 16384 in 512 x 512 tiles, so every GEMM_K
-  task runs the ``gemm_chain`` kernel over a k-chain of 32) and the DTD tiled
+  task runs the ``gemm_chain`` kernel over a k-chain of 32, on its split
+  route; the device time a task is split into the chain's two phases and
+  the ``torch.stack`` copies) and the DTD tiled
   Cholesky (f32, N = 8192 in 256 x 256 tiles), with the 256-size
   correctness gates of the reference benchmark;
 * the DTD 1D Jacobi stencil (f32, N = 2^28 points in 16 tiles of 2^24, 8
@@ -42,6 +46,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -175,6 +180,9 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
     random walk, so at most 0.1% of the elements may lie beyond 2 bf16 ulps
     of the largest |C| their chain passed through."""
     name = str(dtype).replace("torch.", "")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    route = K.chain_route(kt, m, k, n, k, m * k, 4 if name == "float32" else 2,
+                          True, sms)
     s = k ** -0.25
     c = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
     a = (torch.randn(kt, m, k, device="cuda", generator=gen) * s).to(dtype)
@@ -194,10 +202,12 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
                                       (-4, 5, (kt, k, n)))]
         exact = torch.equal(K.gemm_chain(*ints), K.gemm_chain_plain(*ints))
         ok = ok and exact
-        log(f"kernel check gemm_chain {name} kt={kt} C {m}x{n} k={k}, "
-            f"integer data: {'bit-exact' if exact else 'DIFFERS'}")
+        log(f"kernel check gemm_chain {name} kt={kt} C {m}x{n} k={k} "
+            f"({route} route), integer data: "
+            f"{'bit-exact' if exact else 'DIFFERS'}")
     torch.cuda.synchronize()
-    log(f"kernel check gemm_chain {name} kt={kt} C {m}x{n} k={k}: "
+    log(f"kernel check gemm_chain {name} kt={kt} C {m}x{n} k={k} ({route} "
+        f"route): "
         f"max abs err {err.max().item():.3e}, {bad} of {err.numel()} "
         f"elements beyond tolerance")
     if not ok:
@@ -341,10 +351,12 @@ def hold_matmul(K, torch, a, b, got, block, gen, label: str) -> float:
 def check_matmul(K, torch, gen) -> None:
     """Kernel vs plain on the card (:func:`hold_matmul`), blocks (256, 256,
     256) and (64, 64, 32), A and B scaled by bk^-1/4 (each step's product of
-    unit variance, gemm_chain's f32 check). Then one shape the blocks do not
-    divide, which takes the library route and launches nothing."""
+    unit variance, gemm_chain's f32 check): two shapes on the split route,
+    1024^3 on the tile route. Then one shape the blocks do not divide,
+    which takes the library route and launches nothing."""
     for block, (m, k, n) in (((256, 256, 256), (512, 2048, 768)),
-                             ((64, 64, 32), (192, 512, 320))):
+                             ((64, 64, 32), (192, 512, 320)),
+                             ((256, 256, 256), (1024, 1024, 1024))):
         s = block[2] ** -0.25
         for dtype in (torch.float32, torch.bfloat16):
             a = (torch.randn(m, k, device="cuda", generator=gen) * s).to(dtype)
@@ -556,32 +568,76 @@ def greedy_decode(M, torch, params, cfg, n_params, prompt) -> None:
                              "recompute")
 
 
-def gemm_chain_entry(K, torch, gen, launches: int) -> dict:
+def gemm_chain_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
     """The chain kernel at the DTD GEMM's shape, C 512^2 and a chain of 32
-    bf16 tiles: error against plain, times, bound."""
+    tiles: error against plain, times, bound, in bf16 (the entry) and in
+    float32 (its ``float32`` sub-entry), each beside ``torch.addmm`` on the
+    concatenated stacks in the same dtype."""
     kt, m, k, n = GEMM_N // GEMM_TS, GEMM_TS, GEMM_TS, GEMM_TS
-    bf16 = torch.bfloat16
-    c = torch.randn(m, n, device="cuda", generator=gen).to(bf16)
-    a = torch.randn(kt, m, k, device="cuda", generator=gen).to(bf16)
-    b = torch.randn(kt, k, n, device="cuda", generator=gen).to(bf16)
-    max_err = (K.gemm_chain(c, a, b).float()
-               - K.gemm_chain_plain(c, a, b).float()).abs().max().item()
-    kernel_ms = cuda_time_ms(lambda: K.gemm_chain(c, a, b))
-    plain_ms = cuda_time_ms(lambda: K.gemm_chain_plain(c, a, b))
-    a_cat = a.permute(1, 0, 2).reshape(m, kt * k)   # [A0 A1 ... ]
-    b_cat = b.reshape(kt * k, n)                    # [B0; B1; ...]
-    library_ms = cuda_time_ms(lambda: torch.addmm(c, a_cat, b_cat))
-    nbytes = (kt * (m * k + k * n) + 2 * m * n) * c.element_size()
-    ops = 2.0 * kt * m * k * n
-    entry = kernel_entry("gemm_chain", "parsec_tpu_torch/csrc/gemm_chain.cu",
-                         "parsec_tpu/ops/pallas_kernels.py:157", launches,
-                         max_err, kernel_ms, plain_ms, nbytes, ops,
-                         "bfloat16", library_ms)
-    log(f"gemm_chain bf16 C {m}^2 kt={kt}: kernel {kernel_ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
-        f"{ops / kernel_ms / 1e6:.1f} GFLOP/s")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        c = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
+        a = torch.randn(kt, m, k, device="cuda", generator=gen).to(dtype)
+        b = torch.randn(kt, k, n, device="cuda", generator=gen).to(dtype)
+        max_err = (K.gemm_chain(c, a, b).float()
+                   - K.gemm_chain_plain(c, a, b).float()).abs().max().item()
+        kernel_ms = cuda_time_ms(lambda: K.gemm_chain(c, a, b))
+        plain_ms = cuda_time_ms(lambda: K.gemm_chain_plain(c, a, b))
+        a_cat = a.permute(1, 0, 2).reshape(m, kt * k)   # [A0 A1 ... ]
+        b_cat = b.reshape(kt * k, n)                    # [B0; B1; ...]
+        K.dot_precision()                               # no TF32 for addmm
+        library_ms = cuda_time_ms(lambda: torch.addmm(c, a_cat, b_cat))
+        nbytes = (kt * (m * k + k * n) + 2 * m * n) * c.element_size()
+        ops = 2.0 * kt * m * k * n
+        rows[name] = kernel_entry(
+            "gemm_chain", "parsec_tpu_torch/csrc/gemm_chain.cu",
+            "parsec_tpu/ops/pallas_kernels.py:157", launches, max_err,
+            kernel_ms, plain_ms, nbytes, ops, name, library_ms)
+        e = rows[name]
+        log(f"gemm_chain {name} C {m}^2 kt={kt}: kernel {kernel_ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms, torch.addmm {library_ms:.4f} ms, bound "
+            f"{e['bound_ms']:.4f} ms ({e['bound_by']}) -> "
+            f"{ops / kernel_ms / 1e9:.1f} TFLOP/s; max abs err against plain "
+            f"{max_err:.3e}")
+        del c, a, b, a_cat, b_cat
+    entry = rows["bfloat16"]
+    entry["launches_by_route"] = by_route
+    entry["float32"] = {k: rows["float32"][k] for k in
+                        ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms")}
     return entry
+
+
+def sass_check(K) -> dict:
+    """The SASS of the chain library that the wrappers load, by kernel:
+    the bf16 tile/split kernel must hold Hopper's tensor-core instruction
+    (HGMMA) and TMA loads (UTMALDG), the float32 one cp.async (LDGSTS).
+    Returns the counts; raises when one is missing."""
+    so = K.build("gemm_chain")
+    if K._library("gemm_chain")._name != so:
+        raise AssertionError("the loaded gemm_chain library is not the built "
+                             "one")
+    tool = os.path.join(os.path.dirname(K.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            continue
+        for kernel in ("chain_bf16_wgmma", "chain_f32_tiled"):
+            if name and kernel in name:
+                for op in ("HGMMA", "UTMALDG", "LDGSTS"):
+                    if op in line:
+                        key = f"{kernel} {op}"
+                        counts[key] = counts.get(key, 0) + 1
+    log(f"SASS of {os.path.basename(so)}: {counts}")
+    for need in ("chain_bf16_wgmma HGMMA", "chain_bf16_wgmma UTMALDG",
+                 "chain_f32_tiled LDGSTS"):
+        if not counts.get(need):
+            raise AssertionError(f"the chain library has no {need}")
+    return counts
 
 
 def flash_entry(K, torch, gen, launches: int) -> dict:
@@ -974,6 +1030,7 @@ def matmul_main(K, torch, gen) -> dict:
     timed. Returns the kernels line's entry: bf16, the f32 figures beside."""
     runs = []
     K.matmul.launches = 0
+    K.matmul.launches_by_route = dict.fromkeys(K.CHAIN_ROUTES, 0)
     for n, dtype in ((MATMUL_N, torch.bfloat16),
                      (MATMUL_F32_N, torch.float32)):
         a = torch.randn(n, n, device="cuda", generator=gen).to(dtype)
@@ -981,6 +1038,8 @@ def matmul_main(K, torch, gen) -> dict:
         runs.append((a, b, K.matmul(a, b)))
     torch.cuda.synchronize()
     launches = K.matmul.launches
+    by_route = dict(K.matmul.launches_by_route)
+    log(f"matmul entry point: {launches} launches, by route {by_route}")
     rows = {}
     while runs:
         a, b, got = runs.pop(0)
@@ -1006,6 +1065,7 @@ def matmul_main(K, torch, gen) -> dict:
             f"against plain {max_err:.3e}")
         del a, b
     entry = rows["bfloat16"]
+    entry["launches_by_route"] = by_route
     entry["float32_4096"] = {k: rows["float32"][k] for k in
                              ("max_abs_err", "ms", "plain_ms", "bound_ms",
                               "bound_by", "library_ms")}
@@ -1040,11 +1100,22 @@ def main() -> int:
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(K.build, names))
     log(f"built {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
+    sass_check(K)
     gen = torch.Generator(device="cuda").manual_seed(0)
+    # the split route (C 512^2 and 256 x 512), the tile route (36 output
+    # tiles) and the general route (a 36-byte bf16 / 72-byte float32 pitch)
     for dtype in (torch.float32, torch.bfloat16):
+        before = dict(K.gemm_chain.launches_by_route)
         for kt, m, k, n in ((17, 512, 512, 512), (32, 512, 512, 512),
-                            (32, 256, 128, 512)):
+                            (32, 256, 128, 512), (4, 768, 256, 768),
+                            (5, 64, 64, 18)):
             check_gemm_chain(K, torch, dtype, kt, m, k, n, gen)
+        moved = {r: K.gemm_chain.launches_by_route[r] - before[r]
+                 for r in before}
+        log(f"kernel checks gemm_chain {str(dtype)[6:]}: launches by route "
+            f"{moved}")
+        if not all(moved.values()):
+            raise AssertionError("the gemm_chain checks missed a route")
     check_flash(K, torch, gen)
     check_stencil1d(K, torch, gen)
     check_matmul(K, torch, gen)
@@ -1082,21 +1153,26 @@ def main() -> int:
         return time.perf_counter() - t
 
     K.gemm_chain.launches = 0
+    K.gemm_chain.launches_by_route = dict.fromkeys(K.CHAIN_ROUTES, 0)
     executed0 = dev.executed_tasks
     t_warm = run_dags(1)            # stages the tiles in
     gemm_s, t_lo, t_hi = slope(run_dags)
     launches = K.gemm_chain.launches
+    gemm_by_route = dict(K.gemm_chain.launches_by_route)
     executed = dev.executed_tasks - executed0
     tiles = (N // TS) ** 2
     log(f"DTD GEMM bf16 N={N} TS={TS} kt={kt}: warm {t_warm:.3f} s, "
         f"T1 {t_lo:.3f} s, T3 {t_hi:.3f} s, slope {gemm_s * 1e3:.1f} ms/DAG "
         f"-> {gemm_flops(N, N, N) / 1e9 / gemm_s:.1f} GFLOP/s")
     log(f"gemm_chain launches {launches} over {counts['dags']} DAGs "
-        f"({launches / counts['dags']:.0f}/DAG), device executed {executed} "
-        f"of {counts['inserted']} inserted tasks")
+        f"({launches / counts['dags']:.0f}/DAG; by route {gemm_by_route}), "
+        f"device executed {executed} of {counts['inserted']} inserted tasks")
     if launches != tiles * counts["dags"]:
         raise AssertionError(f"gemm_chain launched {launches} times, "
                              f"expected {tiles} per DAG")
+    if gemm_by_route["split"] != launches:
+        raise AssertionError("the DTD GEMM's chains did not all take the "
+                             "split route (TMA + wgmma)")
     if executed != counts["inserted"]:
         raise AssertionError("not every task ran on the CUDA device")
     # one DAG (1024 tasks) fits the insert window: its insertion runs alone,
@@ -1105,8 +1181,19 @@ def main() -> int:
     ins = min(counts["insert_s"][1])
     log(f"DTD GEMM breakdown: insertion {ins * 1e3:.1f} ms of the one-DAG "
         f"run's {t_lo * 1e3:.1f} ms; the card waits during it")
-    log(idle_line("DTD GEMM one DAG",
-                  *device_profile(torch, lambda: run_dags(1))[:2]))
+    busy, window, by_name = device_profile(torch, lambda: run_dags(1))
+    log(idle_line("DTD GEMM one DAG", busy, window))
+
+    def device_ms(*keys):
+        return sum(ms for name, ms in by_name.items()
+                   if any(key in name for key in keys))
+    log(f"DTD GEMM device time a task ({tiles} tasks): chain phase 1 "
+        f"{device_ms('chain_bf16_wgmma') / tiles * 1e3:.2f} us, phase 2 "
+        f"{device_ms('ordered_sum') / tiles * 1e3:.2f} us, torch.stack "
+        f"copies {device_ms('CatArrayBatchedCopy') / tiles * 1e3:.2f} us "
+        f"(2 stacks of {kt} tiles), device busy {busy / tiles * 1e3:.2f} us")
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:6]:
+        log(f"  device {ms:8.3f} ms  {name[:100]}")
     a_dev = torch.from_numpy(a_host).to("cuda", torch.bfloat16)
     b_dev = torch.from_numpy(b_host).to("cuda", torch.bfloat16)
     mm_ms = cuda_time_ms(lambda: torch.matmul(a_dev, b_dev), iters=5)
@@ -1213,7 +1300,7 @@ def main() -> int:
     matmul = matmul_main(K, torch, gen)
 
     # ---- 9. kernel line at the main paths' shapes -----------------------
-    kernels = [gemm_chain_entry(K, torch, gen, launches),
+    kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
                flash_entry(K, torch, gen, flash_launches),
                stencil_entry(K, torch, gen, stencil_launches),
                matmul]

@@ -4,9 +4,14 @@ Each kernel sits beside its plain PyTorch version. The wrapper launches the
 kernel for tensors on the card and takes the plain version only for tensors
 on the CPU; it never falls back from one to the other.
 
-* :func:`gemm_chain` — the fused k-chain  C + Σ_k A[k]·B[k]  as ONE kernel
-  (``csrc/gemm_chain.cu``): a thread block owns an output sub-tile and keeps
-  it in registers across the whole chain. It replaces the TPU kernel
+* :func:`gemm_chain` — the fused k-chain  C + Σ_k A[k]·B[k]
+  (``csrc/gemm_chain.cu``), on one of three routes chosen from the shapes
+  before the launch (:func:`chain_route`): ``tile`` (bf16: TMA ring and
+  ``wgmma``; float32: a register-tiled SIMT kernel), a block walking every
+  step of a 128 x 128 output tile; ``split``, one work unit per (tile,
+  step) and a second pass that sums the rounded step products in step
+  order, for outputs too small to fill the card; ``general`` for row
+  pitches TMA cannot address. It replaces the TPU kernel
   ``_gemm_chain_call`` of the reference package's ``ops/pallas_kernels.py``.
 * :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
   (``csrc/flash_attention.cu``): a thread block owns a 64-row q tile and
@@ -14,7 +19,7 @@ on the CPU; it never falls back from one to the other.
   the TPU kernel ``_flash_attn_call`` of the same module.
 * :func:`matmul` — blocked A·B with the output accumulated in its own dtype
   per k block, a second entry point of ``csrc/gemm_chain.cu`` that runs the
-  chain's tile loop with C = 0 over the k blocks of A. It replaces
+  chain's routes with C = 0 over the k blocks of A. It replaces
   ``_matmul_call``.
 * :func:`stencil1d` — the fused 3-point weighted stencil over a tile with
   halo columns from its neighbours (``csrc/stencil1d.cu``), one thread per
@@ -129,11 +134,15 @@ def _library(name: str) -> ctypes.CDLL:
 def _bind(name: str, lib: ctypes.CDLL) -> None:
     vp, ci = ctypes.c_void_p, ctypes.c_int
     if name == "gemm_chain":
-        # (c, a, b, out, kt, m, k, n, dtype, stream) -> cudaError_t
-        lib.gemm_chain.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        # (c, a, b, out, scratch, kt, m, k, n, dtype, route, sms, stream)
+        # -> cudaError_t
+        lib.gemm_chain.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                   ci, vp]
         lib.gemm_chain.restype = ci
-        # (a, b, out, m, k, n, bk, dtype, stream) -> cudaError_t
-        lib.blocked_matmul.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci, vp]
+        # (a, b, out, scratch, m, k, n, bk, dtype, route, sms, stream)
+        # -> cudaError_t
+        lib.blocked_matmul.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, ci,
+                                       ci, vp]
         lib.blocked_matmul.restype = ci
     elif name == "stencil1d":
         # (x, left, right, out, rows, cols, lcols, rcols, w0, w1, w2, dtype,
@@ -156,6 +165,45 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 
 #: dtype codes of the C entry point
 _GEMM_CHAIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: route codes of the C entry points
+CHAIN_ROUTES = {"general": 0, "tile": 1, "split": 2}
+#: output tile of the tile and split routes
+CHAIN_TILE = 128
+
+
+def chain_route(kt: int, m: int, k: int, n: int, lda: int, a_step: int,
+                elem_size: int, aligned: bool, sms: int) -> str:
+    """The route of a chain of ``kt`` (m x k) @ (k x n) steps, row i of A's
+    step s at ``s * a_step + i * lda`` elements: a pure function of the
+    shapes, the operands' 16-byte alignment and the card's SM count.
+
+    ``general`` where TMA and cp.async cannot address the operands (a row
+    pitch or step offset that is not a multiple of 16 bytes, or a base that
+    is not 16-byte aligned); else ``split`` where the 128 x 128 output tiles
+    would fill at most a quarter of the SMs and there is more than one step
+    to spread, since a block per tile would leave three quarters of the
+    card idle for the whole chain; else ``tile``."""
+    pitches = (k, n, lda, a_step)
+    if not aligned or any(p * elem_size % 16 for p in pitches):
+        return "general"
+    tiles = -(-m // CHAIN_TILE) * -(-n // CHAIN_TILE)
+    return "split" if kt > 1 and 4 * tiles <= sms else "tile"
+
+
+_SM_COUNTS: Dict[int, int] = {}
+
+
+def _sm_count(device) -> int:
+    """The SM count of a CUDA device (looked up once a device)."""
+    n = _SM_COUNTS.get(device.index)
+    if n is None:
+        n = _SM_COUNTS[device.index] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return n
+
+
+def _aligned16(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_gemm_chain(c, a_stack, b_stack) -> None:
@@ -213,8 +261,10 @@ def gemm_chain_bf16_tolerance(c, a_stack, b_stack):
 
 
 def gemm_chain(c, a_stack, b_stack):
-    """C + Σ_k A[k] @ B[k], returned as a new tensor; one kernel launch on
-    the current CUDA stream, C kept in registers throughout.
+    """C + Σ_k A[k] @ B[k], returned as a new tensor, computed on the
+    current CUDA stream by the route :func:`chain_route` picks: ``tile`` and
+    ``general`` are one kernel; ``split`` is two (the step products into a
+    scratch tensor, then their sum in step order from C).
 
     Same function as the TPU kernel, per-step rounding included: each
     step's product is summed in float32 (float32 FMA, never TF32), rounded
@@ -229,20 +279,32 @@ def gemm_chain(c, a_stack, b_stack):
     lib = _library("gemm_chain")
     kt, m, k = a_stack.shape
     n = b_stack.shape[2]
+    sms = _sm_count(c.device)
+    route = chain_route(kt, m, k, n, k, m * k, c.element_size(),
+                        _aligned16(c, a_stack, b_stack), sms)
     out = torch.empty_like(c)
+    scratch = (torch.empty(kt, m, n, dtype=c.dtype, device=c.device)
+               if route == "split" else None)
     err = lib.gemm_chain(c.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
-                         out.data_ptr(), kt, m, k, n,
-                         _GEMM_CHAIN_DTYPES[c.dtype],
+                         out.data_ptr(),
+                         None if scratch is None else scratch.data_ptr(),
+                         kt, m, k, n, _GEMM_CHAIN_DTYPES[c.dtype],
+                         CHAIN_ROUTES[route], sms,
                          torch.cuda.current_stream(c.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"gemm_chain kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"gemm_chain kernel launch failed ({route} route):"
+                           f" CUDA error {err}")
     gemm_chain.launches += 1
+    gemm_chain.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches since the last reset (the main path's proof that it ran
-#: through the kernel); only the wrapper's launch adds to it
+#: wrapper calls that launched the kernel since the last reset (the main
+#: path's proof that it ran through the kernel), one per call whatever the
+#: route; only the wrapper's launch adds to it
 gemm_chain.launches = 0
+#: the same calls by route (:func:`chain_route`)
+gemm_chain.launches_by_route = dict.fromkeys(CHAIN_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------
@@ -290,12 +352,13 @@ def matmul_plain(a, b, block=(256, 256, 256)):
 
 
 def matmul(a, b, block=(256, 256, 256)):
-    """Blocked A @ B with (bm, bn, bk) = ``block`` clipped to the shape; one
-    kernel launch on the current CUDA stream.
+    """Blocked A @ B with (bm, bn, bk) = ``block`` clipped to the shape,
+    computed on the current CUDA stream by :func:`gemm_chain`'s kernels.
 
     Same function as the TPU kernel: the output accumulates in its own
     dtype, one rounded float32 step product per bk-wide block of k, so a
-    bf16 output rounds k/bk times; bm and bn only tile the work. Shapes that
+    bf16 output rounds k/bk times; bm and bn only tile the work. The route
+    is :func:`chain_route`'s, with the bk-wide column blocks of A as steps. Shapes that
     the blocks do not divide take the reference's own route, one
     ``torch.matmul`` with float32 accumulation and a single rounding. Else
     CPU tensors take :func:`matmul_plain`, and CUDA tensors launch the
@@ -314,18 +377,31 @@ def matmul(a, b, block=(256, 256, 256)):
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul takes contiguous operands")
     lib = _library("gemm_chain")
+    kt = k // bk
+    sms = _sm_count(a.device)
+    route = chain_route(kt, m, bk, n, k, bk, a.element_size(),
+                        _aligned16(a, b), sms)
     out = torch.empty(m, n, dtype=a.dtype, device=a.device)
+    scratch = (torch.empty(kt, m, n, dtype=a.dtype, device=a.device)
+               if route == "split" else None)
     err = lib.blocked_matmul(a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                             None if scratch is None else scratch.data_ptr(),
                              m, k, n, bk, _GEMM_CHAIN_DTYPES[a.dtype],
+                             CHAIN_ROUTES[route], sms,
                              torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"matmul kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"matmul kernel launch failed ({route} route): "
+                           f"CUDA error {err}")
     matmul.launches += 1
+    matmul.launches_by_route[route] += 1
     return out
 
 
-#: kernel launches since the last reset; only the wrapper's launch adds to it
+#: wrapper calls that launched the kernel since the last reset, one per
+#: call whatever the route; only the wrapper's launch adds to it
 matmul.launches = 0
+#: the same calls by route (:func:`chain_route`)
+matmul.launches_by_route = dict.fromkeys(CHAIN_ROUTES, 0)
 
 
 # ---------------------------------------------------------------------------

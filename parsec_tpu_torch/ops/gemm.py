@@ -38,8 +38,9 @@ def tile_gemm_chain(c, a_stack, b_stack):
     The task-batching analogue (ref: parsec_gpu_task_collect_batch,
     device_gpu.c:2229): a whole k-chain of compatible GEMM tasks collapses
     into one device call, the hand-written kernel
-    :func:`parsec_tpu_torch.ops.cuda_kernels.gemm_chain`, which keeps C in
-    registers across all k steps.
+    :func:`parsec_tpu_torch.ops.cuda_kernels.gemm_chain` (at a 512 x 512
+    tile its split route: one work unit per output tile and k step, then
+    the ordered sum of the rounded step products).
     """
     return gemm_chain(c.contiguous(), a_stack, b_stack)
 

@@ -8,6 +8,7 @@ package, so it runs on a machine that has neither:
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
 import ctypes
 import os
 import subprocess
@@ -56,20 +57,40 @@ def _drain(ctx, tp):
     tp.wait(); tp.close(); ctx.wait()
 
 
+# (kt, m, k, n, the route on a 132-SM card): the split route for outputs of
+# few 128 x 128 tiles (the DTD GEMM's C 512^2 among them), the tile route
+# for 36 tiles, the general route for a row pitch of 36 bytes (bf16) or 72
+# bytes (float32)
+CHAIN_CASES = [(17, 256, 128, 512, "split"), (32, 96, 64, 40, "split"),
+               (17, 512, 512, 512, "split"), (32, 512, 512, 512, "split"),
+               (4, 768, 256, 768, "tile"), (5, 64, 64, 18, "general")]
+
+
+@contextlib.contextmanager
+def _counted_on(fn, route):
+    """Asserts that the wrapper ``fn`` counted one launch in the block, on
+    ``route``."""
+    before = dict(fn.launches_by_route), fn.launches
+    yield
+    assert fn.launches == before[1] + 1
+    assert {r: fn.launches_by_route[r] - before[0][r]
+            for r in before[0]} == {r: int(r == route) for r in before[0]}
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("kt,m,k,n", [(17, 256, 128, 512), (32, 96, 64, 40)])
-def test_kernel_matches_plain(dtype, kt, m, k, n):
-    """Unit-scale random data: float32 within rtol/atol 1e-4; bf16 with at
-    most 0.1% of elements beyond 2 ulps of the running peak |C|."""
+@pytest.mark.parametrize("kt,m,k,n,route", CHAIN_CASES)
+def test_kernel_matches_plain(dtype, kt, m, k, n, route):
+    """Unit-scale random data on every route: float32 within rtol/atol
+    1e-4; bf16 with at most 0.1% of elements beyond 2 ulps of the running
+    peak |C|. The launch is counted once, on the route the shape takes."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(kt + m)
     s = k ** -0.25
     c = torch.randn(m, n, device="cuda", generator=gen).to(dtype)
     a = (torch.randn(kt, m, k, device="cuda", generator=gen) * s).to(dtype)
     b = (torch.randn(kt, k, n, device="cuda", generator=gen) * s).to(dtype)
-    before = K.gemm_chain.launches
-    got = K.gemm_chain(c, a, b).float()
-    assert K.gemm_chain.launches == before + 1
+    with _counted_on(K.gemm_chain, route):
+        got = K.gemm_chain(c, a, b).float()
     want = K.gemm_chain_plain(c, a, b).float()
     torch.cuda.synchronize()
     if dtype == torch.float32:
@@ -79,18 +100,112 @@ def test_kernel_matches_plain(dtype, kt, m, k, n):
         assert ((got - want).abs() > tol).float().mean().item() <= 1e-3
 
 
-@pytest.mark.parametrize("kt", [17, 32])
-def test_kernel_bf16_bit_exact_on_integers(kt):
-    """Small integers: every float32 partial sum is exact in any order, so
-    the per-step bf16 rounding must agree bit for bit."""
-    _need_card()
-    gen = torch.Generator(device="cuda").manual_seed(kt)
-    m, k, n = 128, 512, 192
+def _integer_chain(kt, m, k, n, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
     c = torch.randint(-8, 9, (m, n), device="cuda", generator=gen)
     a = torch.randint(-4, 5, (kt, m, k), device="cuda", generator=gen)
     b = torch.randint(-4, 5, (kt, k, n), device="cuda", generator=gen)
-    args = [x.to(torch.bfloat16) for x in (c, a, b)]
-    assert torch.equal(K.gemm_chain(*args), K.gemm_chain_plain(*args))
+    return [x.to(torch.bfloat16) for x in (c, a, b)]
+
+
+# the bit-exact cases: both split shapes of the DTD GEMM's tile, the first
+# test shape, 36 tiles (tile route), and n = 20 (a 40-byte bf16 pitch)
+BIT_EXACT_CASES = [(17, 512, 512, 512, "split"), (32, 512, 512, 512, "split"),
+                   (17, 128, 512, 192, "split"), (4, 768, 256, 768, "tile"),
+                   (5, 64, 64, 20, "general")]
+
+
+@pytest.mark.parametrize("kt,m,k,n,route", BIT_EXACT_CASES)
+def test_kernel_bf16_bit_exact_on_integers(kt, m, k, n, route):
+    """Small integers: every float32 partial sum is exact in any order, so
+    the per-step bf16 rounding must agree bit for bit, on every route."""
+    _need_card()
+    args = _integer_chain(kt, m, k, n, kt)
+    with _counted_on(K.gemm_chain, route):
+        got = K.gemm_chain(*args)
+    assert torch.equal(got, K.gemm_chain_plain(*args))
+
+
+def test_kernel_refuses_a_route_the_shape_does_not_allow():
+    """The C entry point checks the route's preconditions and refuses the
+    launch (no silent change of route): the tile route on a 40-byte pitch,
+    the split route without scratch."""
+    _need_card()
+    lib = K._library("gemm_chain")
+    c, a, b = _integer_chain(2, 64, 64, 20, 1)
+    out = torch.empty_like(c)
+    st = torch.cuda.current_stream().cuda_stream
+    sms = K._sm_count(c.device)
+    assert lib.gemm_chain(c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                          out.data_ptr(), None, 2, 64, 64, 20, 1,
+                          K.CHAIN_ROUTES["tile"], sms, st) != 0
+    c, a, b = _integer_chain(2, 64, 64, 64, 1)
+    assert lib.gemm_chain(c.data_ptr(), a.data_ptr(), b.data_ptr(),
+                          out.data_ptr(), None, 2, 64, 64, 64, 1,
+                          K.CHAIN_ROUTES["split"], sms, st) != 0
+
+
+# planted faults in the chain's source: (name, [(source text, its
+# replacement)], the shape (kt, m, k, n) of the route the fault sits on)
+CHAIN_FAULTS = [
+    ("phase 2 in reverse step order",
+     [("parts[(size_t)(s + q) * nv + v]",
+       "parts[(size_t)(kt - 1 - s - q) * nv + v]"),
+      ("add_rounded(r, parts[(size_t)s * nv + v]);",
+       "add_rounded(r, parts[(size_t)(kt - 1 - s) * nv + v]);")],
+     (20, 512, 512, 512)),
+    ("phase 2 drops the first step",
+     [("    int s = 0;\n    for (; s + BATCH <= kt; s += BATCH) {",
+       "    int s = 1;\n    for (; s + BATCH <= kt; s += BATCH) {")],
+     (20, 512, 512, 512)),
+    ("step product not rounded (tile route)",
+     [("const float2 p = __bfloat1622float2(\n"
+       "              __floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]));",
+       "const float2 p = make_float2(acc[2 * j], acc[2 * j + 1]);")],
+     (4, 768, 256, 768)),
+]
+
+
+@pytest.fixture(scope="module")
+def chain_mutants(tmp_path_factory):
+    """One library per planted fault, built from a changed copy of the
+    chain's source (all nvcc runs at once)."""
+    _need_card()
+    with open(os.path.join(K.CSRC_DIR, "gemm_chain.cu")) as f:
+        src = f.read()
+    out = tmp_path_factory.mktemp("chain_mutants")
+
+    def build(i):
+        text = src
+        for old, new in CHAIN_FAULTS[i][1]:
+            assert text.count(old) == 1
+            text = text.replace(old, new)
+        cu, so = out / f"fault{i}.cu", out / f"fault{i}.so"
+        cu.write_text(text)
+        subprocess.run([K.nvcc_path(), *K.NVCC_FLAGS, "-o", str(so), str(cu)],
+                       check=True, capture_output=True)
+        lib = ctypes.CDLL(str(so))
+        K._bind("gemm_chain", lib)
+        return lib
+    with ThreadPoolExecutor(len(CHAIN_FAULTS)) as pool:
+        return list(pool.map(build, range(len(CHAIN_FAULTS))))
+
+
+@pytest.mark.parametrize("fault", range(len(CHAIN_FAULTS)),
+                         ids=[f[0] for f in CHAIN_FAULTS])
+def test_chain_bit_exact_check_rejects_planted_faults(fault, chain_mutants,
+                                                      monkeypatch):
+    """The integer bit-exact check of the test above must fail a kernel
+    whose phase 2 sums in reverse step order or drops a step, or whose tile
+    route skips the step product's rounding. Prints how many elements
+    differ (``-s`` shows them)."""
+    monkeypatch.setitem(K._libs, "gemm_chain", chain_mutants[fault])
+    args = _integer_chain(*CHAIN_FAULTS[fault][2], 7)
+    got, want = K.gemm_chain(*args), K.gemm_chain_plain(*args)
+    differ = int((got != want).sum())
+    print(f"{CHAIN_FAULTS[fault][0]}: {differ} of {got.numel()} elements "
+          f"differ from the plain chain")
+    assert differ > 0
 
 
 def test_kernel_raises_instead_of_falling_back():
@@ -406,24 +521,32 @@ def test_stencil1d_kernel_raises_instead_of_falling_back():
         K.stencil1d(x, x.cpu(), None)
 
 
+# (m, k, n, block, route on a 132-SM card): few output tiles take the split
+# route, 1024^2 (64 tiles) the tile route, a 36-byte bf16 / 72-byte
+# float32 row pitch the general route
+MATMUL_CASES = [(256, 512, 256, (256, 256, 256), "split"),
+                (128, 256, 192, (64, 64, 32), "split"),
+                (96, 64, 40, (32, 8, 16), "split"),
+                (1024, 1024, 1024, (256, 256, 256), "tile"),
+                (64, 128, 18, (64, 64, 64), "general")]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,k,n,block", [(256, 512, 256, (256, 256, 256)),
-                                         (128, 256, 192, (64, 64, 32)),
-                                         (96, 64, 40, (32, 8, 16))])
-def test_matmul_kernel_matches_plain(dtype, m, k, n, block):
+@pytest.mark.parametrize("m,k,n,block,route", MATMUL_CASES)
+def test_matmul_kernel_matches_plain(dtype, m, k, n, block, route):
     """float32 within rtol/atol 1e-4 with A and B scaled by bk^-1/4 (each
     step's product has unit variance); bf16 with at most 0.1% of elements
     beyond 2 ulps of the running peak (gemm_chain's bound, the same
-    per-step rounding); bf16 on small integers bit for bit."""
+    per-step rounding); bf16 on small integers bit for bit. Each launch is
+    counted once, on the route the shape takes."""
     _need_card()
     gen = torch.Generator(device="cuda").manual_seed(m + k + n)
     bk = min(block[2], k)
     s = bk ** -0.25
     a = (torch.randn(m, k, device="cuda", generator=gen) * s).to(dtype)
     b = (torch.randn(k, n, device="cuda", generator=gen) * s).to(dtype)
-    before = K.matmul.launches
-    got = K.matmul(a, b, block).float()
-    assert K.matmul.launches == before + 1
+    with _counted_on(K.matmul, route):
+        got = K.matmul(a, b, block).float()
     want = K.matmul_plain(a, b, block).float()
     if dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)

@@ -109,6 +109,114 @@ def test_gemm_chain_rejects_what_the_kernel_does_not_take(case):
         K.gemm_chain(*args)
 
 
+# --- the chain's routes and the split's two phases -------------------------
+
+# (kt, m, k, n, lda, a_step, element size, aligned, SMs) -> route
+ROUTE_CASES = [
+    ((32, 512, 512, 512, 512, 512 * 512, 2, True, 132), "split"),  # DTD GEMM
+    ((32, 512, 512, 512, 512, 512 * 512, 4, True, 132), "split"),
+    ((1, 512, 512, 512, 512, 512 * 512, 2, True, 132), "tile"),    # one step
+    ((4, 768, 256, 768, 256, 768 * 256, 2, True, 132), "tile"),    # 36 tiles
+    ((32, 8192, 256, 8192, 8192, 256, 2, True, 132), "tile"),      # matmul
+    ((4, 1024, 256, 1024, 1024, 256, 2, True, 132), "tile"),       # 64 tiles
+    ((32, 512, 512, 512, 512, 512 * 512, 2, True, 16), "tile"),    # 16 SMs
+    ((5, 64, 64, 20, 64, 64 * 64, 2, True, 132), "general"),       # 40 B
+    ((5, 64, 64, 20, 64, 64 * 64, 4, True, 132), "split"),         # 80 B
+    ((4, 96, 12, 40, 48, 12, 2, True, 132), "general"),            # 24 B step
+    ((4, 96, 16, 40, 64, 16, 2, True, 132), "split"),              # 32 B step
+    ((32, 512, 512, 512, 512, 512 * 512, 2, False, 132), "general"),
+]
+
+
+@pytest.mark.parametrize("args,route", ROUTE_CASES)
+def test_chain_route_is_a_function_of_the_shapes(args, route):
+    assert K.chain_route(*args) == route
+
+
+def split_chain_model(c, a_stack, b_stack, tile=128, order=None):
+    """A plain model of the split route. Phase 1: every (output tile, step)
+    unit sums its product in float32 and rounds it to C's dtype into a
+    scratch tensor (kt, m, n). Phase 2: from C, add the kt products in step
+    order (or in ``order``), in C's dtype."""
+    kt, m, _ = a_stack.shape
+    n = b_stack.shape[2]
+    scratch = torch.empty(kt, m, n, dtype=c.dtype)
+    for s in range(kt):
+        for r0 in range(0, m, tile):
+            for c0 in range(0, n, tile):
+                scratch[s, r0:r0 + tile, c0:c0 + tile] = torch.matmul(
+                    a_stack[s, r0:r0 + tile].float(),
+                    b_stack[s, :, c0:c0 + tile].float()).to(c.dtype)
+    out = c
+    for s in (range(kt) if order is None else order):
+        out = out + scratch[s]
+    return out
+
+
+def _chain_operands(kt, m, k, n, seed, integers):
+    rng = np.random.default_rng(seed)
+    if integers:
+        c = rng.integers(-8, 9, (m, n)).astype(np.float32)
+        a = rng.integers(-4, 5, (kt, m, k)).astype(np.float32)
+        b = rng.integers(-4, 5, (kt, k, n)).astype(np.float32)
+    else:
+        c, a, b = _inputs(kt, m, k, n, seed)
+    return c, a, b
+
+
+@pytest.mark.parametrize("integers", [True, False], ids=["integers", "random"])
+@pytest.mark.parametrize("kt,m,k,n", SHAPES + [(17, 64, 128, 48)])
+def test_split_model_equals_plain_bit_for_bit(kt, m, k, n, integers):
+    """The two phases compute the chain's function to the bit: rounded step
+    products summed from C in step order are the plain chain, on bf16
+    integer and random data, with units of 16 x 16 output tiles."""
+    c, a, b = (torch.from_numpy(x).to(torch.bfloat16) for x in
+               _chain_operands(kt, m, k, n, kt + m + k + n, integers))
+    assert torch.equal(split_chain_model(c, a, b, tile=16),
+                       K.gemm_chain_plain(c, a, b))
+
+
+@pytest.mark.parametrize("kt,m,k,n", SHAPES)
+def test_split_model_matches_pallas(kt, m, k, n):
+    """The split's model against the reference kernel in interpret mode, at
+    the tolerances of the tests above: float32 within rtol/atol 1e-4, bf16
+    within 2 ulps of the running peak, integers bit for bit."""
+    c, a, b = _inputs(kt, m, k, n, seed=kt * 100 + m + n + 2)
+    got = split_chain_model(*(torch.from_numpy(x) for x in (c, a, b)),
+                            tile=16).numpy()
+    np.testing.assert_allclose(got, _reference(c, a, b), rtol=1e-4,
+                               atol=1e-4)
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (c, a, b)]
+    got = split_chain_model(*t, tile=16).float().numpy()
+    tol = K.gemm_chain_bf16_tolerance(*t).numpy()
+    assert (np.abs(got - _reference(c, a, b, jnp.bfloat16)) <= tol).all()
+    c, a, b = _chain_operands(kt, m, k, n, kt + m, integers=True)
+    t = [torch.from_numpy(x).to(torch.bfloat16) for x in (c, a, b)]
+    np.testing.assert_array_equal(
+        split_chain_model(*t, tile=16).float().numpy(),
+        _reference(c, a, b, jnp.bfloat16))
+
+
+@pytest.mark.parametrize("order", ["reversed", "pairwise"])
+def test_split_phase_two_order_is_the_function(order):
+    """On integer data whose running sums pass 256 (where bf16 stops holding
+    every integer), phase 2 in another order than the steps' gives other
+    bits: the order is part of the function, and the bit-exact check sees
+    it."""
+    kt, m, k, n = 32, 32, 64, 32
+    c, a, b = (torch.from_numpy(x).to(torch.bfloat16) for x in
+               _chain_operands(kt, m, k, n, 9, integers=True))
+    want = K.gemm_chain_plain(c, a, b)
+    assert torch.equal(split_chain_model(c, a, b, tile=16), want)
+    if order == "reversed":
+        got = split_chain_model(c, a, b, tile=16, order=range(kt - 1, -1, -1))
+    else:
+        got = split_chain_model(c, a, b, tile=16,
+                                order=list(range(0, kt, 2))
+                                + list(range(1, kt, 2)))
+    assert not torch.equal(got, want)
+
+
 def test_dot_precision_policy():
     """Every accepted name computes float32 dots at 'highest' (TF32 off);
     an unknown name raises."""
