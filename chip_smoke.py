@@ -4,10 +4,12 @@
     python3 chip_smoke.py
 
 Builds the hand-written kernels from ``parsec_tpu_torch/csrc`` with nvcc (one
-nvcc per source, all started together), checks with ``cuobjdump -sass`` that
-the chain's bf16 kernel runs on Hopper's tensor-core and TMA instructions
-(HGMMA, UTMALDG), holds each kernel against its plain PyTorch version
-(``gemm_chain`` on its tile, split and general routes), then drives the
+nvcc per source, all started together; a build whose wgmmas ptxas
+serialised fails the run), checks with ``cuobjdump -sass`` that the chain's
+bf16 kernel and the flash kernel's wgmma route run on Hopper's tensor-core
+and TMA instructions (HGMMA, UTMALDG), holds each kernel against its plain
+PyTorch version (``gemm_chain`` on its tile, split and general routes,
+``flash_attention`` on its wgmma, mma and simt routes), then drives the
 port's main paths through the entry points a user calls:
 
 * the DTD tiled GEMM (bf16, N = 16384 in 512 x 512 tiles, so every GEMM_K
@@ -26,8 +28,9 @@ port's main paths through the entry points a user calls:
 * the LM serving path at GPT-2 small's published widths (vocab 50257,
   d_model 768, 12 heads, d_ff 3072, 12 layers, max_seq 1024; random weights
   from a seed): a prefill/scoring forward of 8 x 1024 tokens through the
-  ``flash_attention`` kernel (f32 against the dense core, then bf16 timed
-  and its logits held to the f32 ones), and KV-cached greedy generation of
+  ``flash_attention`` kernel (f32 against the dense core on the simt route,
+  then bf16 on the wgmma route, timed, profiled and its logits held to the
+  f32 ones), and KV-cached greedy generation of
   64 tokens for 4 and for 32 prompts of 128 (the eager decode loop's step
   time at two batch sizes);
 * the blocked ``matmul`` entry point at bf16 8192^3 and f32 4096^3.
@@ -37,7 +40,9 @@ Every phase that fails ends the run with a nonzero exit code.
 Output: one line per measurement, then the card's name and power limit as
 nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per ported
 kernel: launches on the main path, error against the plain version, times
-and bound), and last ``{"ok": true, "device": {...}}``.
+and bound; flash's entry also its profiled device time, its launches by
+route, the mma route's times in turns with it and a float32 sub-entry), and
+last ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
 """
@@ -216,7 +221,9 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
     return err.max().item()
 
 
-# (q shape, kv shape, causal, q_offset, k_offset, rows that see no key)
+# (q shape, kv shape, causal, q_offset, k_offset, rows that see no key);
+# bf16 takes the wgmma route at head dims 64 and 128, the mma route at 16
+# and 32, float32 the simt route
 FLASH_CASES = {
     "non-causal": ((2, 128, 64), (2, 128, 64), False, 0, 0, 0),
     "causal LM shape": ((96, 1024, 64), (96, 1024, 64), True, 0, 0, 0),
@@ -227,6 +234,16 @@ FLASH_CASES = {
     "S=257 causal": ((1, 257, 16), (1, 257, 16), True, 0, 0, 0),
     "S=4": ((1, 4, 16), (1, 4, 16), False, 0, 0, 0),
     "head_dim 128": ((4, 256, 128), (4, 256, 128), True, 0, 0, 0),
+    "q shorter than kv d=64": ((6, 64, 64), (6, 192, 64), False, 0, 0, 0),
+    "ring offset d=64": ((1, 128, 64), (1, 256, 64), True, 128, 0, 0),
+    "all-masked block d=64": ((1, 128, 64), (1, 128, 64), True, 0, 128, 128),
+    "unaligned offset d=64": ((1, 64, 64), (1, 64, 64), True, 0, 32, 32),
+    "S=257 causal d=64": ((1, 257, 64), (1, 257, 64), True, 0, 0, 0),
+    "S=4 d=64": ((1, 4, 64), (1, 4, 64), False, 0, 0, 0),
+    "sq=sk=1 d=64": ((3, 1, 64), (3, 1, 64), True, 0, 0, 0),
+    "offsets and sq != sk d=64": ((2, 192, 64), (2, 160, 64), True, 40, 72,
+                                  32),
+    "ragged d=128": ((2, 200, 128), (2, 333, 128), False, 0, 0, 0),
 }
 
 
@@ -235,7 +252,10 @@ def check_flash(K, torch, gen) -> None:
     2e-4 (the reference's own flash tolerance); bf16 with every element
     within ``flash_attention_bf16_tolerance`` (the rounding of P and of the
     output, about 4e-3 of the weighted |v| plus 8e-3 of |out|); rows that
-    see no key exactly 0."""
+    see no key exactly 0. Each launch must take the route that
+    :func:`flash_route` gives its dtype and head dim, and the cases must
+    reach all three routes."""
+    routes = set()
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "")
         for case, (qs, ks, causal, q_off, k_off, masked) in \
@@ -243,7 +263,13 @@ def check_flash(K, torch, gen) -> None:
             q, k, v = (torch.randn(sh, device="cuda", generator=gen
                                    ).to(dtype) for sh in (qs, ks, ks))
             kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+            route = K.flash_route(dtype, qs[-1], True)
+            before = K.flash_attention.launches_by_route[route]
             got = K.flash_attention(q, k, v, **kw).float()
+            if K.flash_attention.launches_by_route[route] != before + 1:
+                raise AssertionError(f"flash_attention {name} {case} did not "
+                                     f"take the {route} route")
+            routes.add(route)
             want = K.flash_attention_plain(q, k, v, **kw).float()
             err = (got - want).abs()
             if dtype == torch.float32:
@@ -255,15 +281,17 @@ def check_flash(K, torch, gen) -> None:
                                            ).max().item()
             zero = bool((got[:, :masked] == 0).all()) if masked else True
             log(f"kernel check flash_attention {name} {case} q {qs} kv {ks}"
-                f" causal={causal} offsets ({q_off}, {k_off}): max abs err "
-                f"{err.max().item():.3e}, max err/tolerance {worst:.3f}, "
-                f"{bad} beyond"
+                f" causal={causal} offsets ({q_off}, {k_off}), {route} "
+                f"route: max abs err {err.max().item():.3e}, max "
+                f"err/tolerance {worst:.3f}, {bad} beyond"
                 + (f", first {masked} rows exactly 0: {zero}" if masked
                    else ""))
             if bad or not zero:
                 raise AssertionError(f"flash_attention {name} {case} "
                                      f"disagrees with its plain version")
     torch.cuda.synchronize()
+    if routes != set(K.FLASH_ROUTES):
+        raise AssertionError(f"the flash checks reached only {routes}")
 
 
 def check_stencil1d(K, torch, gen) -> None:
@@ -402,9 +430,9 @@ def medians_in_turns(torch, fns, rounds: int = 6, warmup: int = 1) -> list:
     return [float(np.median(t)) for t in times]
 
 
-def lm_serving(K, torch) -> int:
+def lm_serving(K, torch) -> tuple:
     """The LM serving path at GPT-2 small width; returns the flash kernel's
-    launches on it. Raises when a check fails."""
+    launches on it, in all and by route. Raises when a check fails."""
     import torch.nn.functional as F
     from parsec_tpu_torch.parallel import model as M
     from parsec_tpu_torch.parallel.transformer import flash_attention_core
@@ -425,12 +453,15 @@ def lm_serving(K, torch) -> int:
     x, y = toks[:, :-1], toks[:, 1:]
     torch.cuda.reset_peak_memory_stats()
     K.flash_attention.launches = 0
+    K.flash_attention.launches_by_route = dict.fromkeys(K.FLASH_ROUTES, 0)
+    by_route = K.flash_attention.launches_by_route
     with torch.inference_mode():
         # 1. f32 forward: flash core against dense core
         got = M.lm_apply(params, x, attention=flash_attention_core)
-        if K.flash_attention.launches != L:
+        if K.flash_attention.launches != L or by_route["simt"] != L:
             raise AssertionError(f"f32 forward launched the flash kernel "
-                                 f"{K.flash_attention.launches} times, not {L}")
+                                 f"{K.flash_attention.launches} times, not {L}"
+                                 f" on the simt route ({by_route})")
         want = M.lm_apply(params, x)
         err = (got - want).abs()
         bad = int((err > 2e-3 + 2e-3 * want.abs()).sum())
@@ -457,13 +488,15 @@ def lm_serving(K, torch) -> int:
             return F.scaled_dot_product_attention(
                 q.contiguous(), k.contiguous(), v.contiguous(),
                 is_causal=causal, scale=scale)
-        before = K.flash_attention.launches
+        before = K.flash_attention.launches, by_route["wgmma"]
         rounds = 6
         fwd_ms, sdpa_ms = medians_in_turns(
             torch, [fwd, lambda: fwd(sdpa_core)], rounds=rounds)
-        if K.flash_attention.launches - before != L * (1 + rounds):
+        if K.flash_attention.launches - before[0] != L * (1 + rounds) or \
+                by_route["wgmma"] - before[1] != L * (1 + rounds):
             raise AssertionError("bf16 forwards did not launch the flash "
-                                 f"kernel {L} times each")
+                                 f"kernel {L} times each, all on the wgmma "
+                                 f"route ({by_route})")
         loss_bf16 = float(M.lm_loss(params, x, y, attention=flash_attention_core,
                                     compute_dtype=torch.bfloat16))
         log(f"LM bf16 forward (flash core) B={B} S={S}: median "
@@ -504,7 +537,12 @@ def lm_serving(K, torch) -> int:
             + f" (unprofiled median {fwd_ms:.3f} ms)")
         for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
             log(f"  device {ms:8.3f} ms  {name[:100]}")
+        flash_ms = sum(ms for name, ms in by_name.items()
+                       if "flash_bf16_wgmma" in name)
+        log(f"  the flash kernel's device time in the profiled forward: "
+            f"{flash_ms:.3f} ms for {L} launches")
         launches = K.flash_attention.launches
+        log(f"LM flash launches {launches}, by route {by_route}")
 
         # 3. KV-cached greedy generation (f32): a probe of the eager decode
         # loop's host dispatch, at two batch sizes
@@ -517,7 +555,7 @@ def lm_serving(K, torch) -> int:
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del params
     torch.cuda.empty_cache()
-    return launches
+    return launches, dict(by_route)
 
 
 def logits_check(torch, got, want) -> tuple:
@@ -609,66 +647,182 @@ def gemm_chain_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
     return entry
 
 
+# the SASS each library must hold, by kernel: Hopper's tensor-core
+# instruction (HGMMA), TMA loads (UTMALDG), cp.async (LDGSTS)
+SASS_NEEDS = {
+    "gemm_chain": {"chain_bf16_wgmma": ("HGMMA", "UTMALDG"),
+                   "chain_f32_tiled": ("LDGSTS",)},
+    "flash_attention": {"flash_bf16_wgmma": ("HGMMA", "UTMALDG")},
+}
+
+
 def sass_check(K) -> dict:
-    """The SASS of the chain library that the wrappers load, by kernel:
-    the bf16 tile/split kernel must hold Hopper's tensor-core instruction
-    (HGMMA) and TMA loads (UTMALDG), the float32 one cp.async (LDGSTS).
-    Returns the counts; raises when one is missing."""
-    so = K.build("gemm_chain")
-    if K._library("gemm_chain")._name != so:
-        raise AssertionError("the loaded gemm_chain library is not the built "
-                             "one")
+    """The SASS of the libraries that the wrappers load, by kernel: the
+    chain's bf16 tile/split kernel and the flash wgmma kernel must hold
+    HGMMA and UTMALDG, the chain's float32 kernel LDGSTS. Returns the
+    counts; raises when one is missing."""
     tool = os.path.join(os.path.dirname(K.nvcc_path()), "cuobjdump")
-    sass = subprocess.run([tool, "-sass", so], capture_output=True,
-                          text=True, check=True).stdout
-    counts, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            name = line.split("Function :")[1].strip()
-            continue
-        for kernel in ("chain_bf16_wgmma", "chain_f32_tiled"):
-            if name and kernel in name:
-                for op in ("HGMMA", "UTMALDG", "LDGSTS"):
-                    if op in line:
-                        key = f"{kernel} {op}"
-                        counts[key] = counts.get(key, 0) + 1
-    log(f"SASS of {os.path.basename(so)}: {counts}")
-    for need in ("chain_bf16_wgmma HGMMA", "chain_bf16_wgmma UTMALDG",
-                 "chain_f32_tiled LDGSTS"):
-        if not counts.get(need):
-            raise AssertionError(f"the chain library has no {need}")
+    counts = {}
+    for lib, needs in SASS_NEEDS.items():
+        so = K.build(lib)
+        if K._library(lib)._name != so:
+            raise AssertionError(f"the loaded {lib} library is not the built "
+                                 "one")
+        sass = subprocess.run([tool, "-sass", so], capture_output=True,
+                              text=True, check=True).stdout
+        name = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = line.split("Function :")[1].strip()
+                continue
+            for kernel, ops in needs.items():
+                if name and kernel in name:
+                    for op in ops:
+                        if op in line:
+                            key = f"{kernel} {op}"
+                            counts[key] = counts.get(key, 0) + 1
+        mine = {k: n for k, n in counts.items() if k.split()[0] in needs}
+        log(f"SASS of {os.path.basename(so)}: {mine}")
+        for kernel, ops in needs.items():
+            for op in ops:
+                if not counts.get(f"{kernel} {op}"):
+                    raise AssertionError(f"the {lib} library has no {op} in "
+                                         f"{kernel}")
     return counts
 
 
-def flash_entry(K, torch, gen, launches: int) -> dict:
-    """The flash kernel at the LM path's shape, (96, 1024, 64) bf16 causal:
-    error against plain, times, bound."""
+def flash_on_route(K, torch, q, k, v, route: str):
+    """One causal flash launch on ``route`` through the C entry point,
+    bypassing the wrapper's route choice and its counts (to time the mma
+    route at a shape that the wrapper sends to wgmma)."""
+    out = torch.empty_like(q)
+    bh, sq, d = q.shape
+    err = K._library("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, sq,
+        k.shape[1], d, 1, d ** -0.5, 0, 0, 1 if q.dtype == torch.bfloat16
+        else 0, K.FLASH_ROUTES[route], K._sm_count(q.device),
+        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise AssertionError(f"flash {route} route refused: CUDA error {err}")
+    return out
+
+
+def profiled_kernels(torch, run, n: int = 5, tries: int = 3) -> dict:
+    """Device ms of one launch by kernel name, from torch.profiler over
+    ``n`` runs of ``run()``: each name's summed time over the launches the
+    trace holds (the tracer may drop some). A trace that holds no device
+    events is taken again, up to ``tries`` times ({} if none holds any)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                run()
+            torch.cuda.synchronize()
+        times = {}
+        for ev in prof.events():
+            if ev.device_type == DeviceType.CUDA:
+                t = times.setdefault(ev.name, [0.0, 0])
+                t[0] += (ev.time_range.end - ev.time_range.start) / 1e3
+                t[1] += 1
+        if times:
+            return {name: ms / k for name, (ms, k) in times.items()}
+    return {}
+
+
+def profiled_ms(torch, run, kernel: str):
+    """Device ms of one ``run()`` in the kernels whose name holds
+    ``kernel`` (:func:`profiled_kernels`), or None if the profiler saw
+    none."""
+    times = [ms for name, ms in profiled_kernels(torch, run).items()
+             if kernel in name]
+    return sum(times) if times else None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def flash_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
+    """The flash kernel at the LM path's shape, (96, 1024, 64) causal. In
+    bf16 (the entry, wgmma route): error against plain, the kernel line's
+    time (CUDA events over back-to-back calls), the kernel's device time
+    (torch.profiler), the mma route's (the earlier kernel's) times on the
+    same inputs in turns with it, bound, and SDPA's time. In float32 (the
+    ``float32`` sub-entry, simt route) the same beside SDPA with TF32 off;
+    for both, SDPA's kernel (its backend) and its error against plain."""
     import torch.nn.functional as F
     bh, s, d = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ, 64
-    q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
-                           ).to(torch.bfloat16) for _ in range(3))
-    max_err = (K.flash_attention(q, k, v, causal=True).float()
-               - K.flash_attention_plain(q, k, v, causal=True).float()
-               ).abs().max().item()
-    kernel_ms = cuda_time_ms(lambda: K.flash_attention(q, k, v, causal=True))
-    plain_ms = cuda_time_ms(
-        lambda: K.flash_attention_plain(q, k, v, causal=True), iters=5)
-    q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
-                  for t in (q, k, v))
-    library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True))
-    nbytes = 4 * bh * s * d * q.element_size()
-    ops = 4.0 * d * bh * (s * (s + 1) / 2)      # q.k and p.v on the triangle
-    entry = kernel_entry("flash_attention",
-                         "parsec_tpu_torch/csrc/flash_attention.cu",
-                         "parsec_tpu/ops/pallas_kernels.py:329", launches,
-                         max_err, kernel_ms, plain_ms, nbytes, ops,
-                         "bfloat16", library_ms)
-    log(f"flash_attention bf16 ({bh}, {s}, {d}) causal: kernel "
-        f"{kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"scaled_dot_product_attention {library_ms:.4f} ms, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']}) -> "
-        f"{ops / kernel_ms / 1e9:.1f} TFLOP/s")
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
+                               ).to(dtype) for _ in range(3))
+        route = K.flash_route(dtype, d, True)
+        want = K.flash_attention_plain(q, k, v, causal=True).float()
+        max_err = (K.flash_attention(q, k, v, causal=True).float()
+                   - want).abs().max().item()
+
+        def run():
+            return K.flash_attention(q, k, v, causal=True)
+        kernel_ms = cuda_time_ms(run)
+        plain_ms = cuda_time_ms(
+            lambda: K.flash_attention_plain(q, k, v, causal=True), iters=5)
+        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
+                      for t in (q, k, v))
+        K.dot_precision()                  # no TF32 for the library either
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+        library_ms = cuda_time_ms(sdpa)
+        sdpa_err = (sdpa().float().reshape(bh, s, d) - want
+                    ).abs().max().item()
+        sdpa_kernels = profiled_kernels(torch, sdpa)
+        sdpa_kernel = (max(sdpa_kernels, key=sdpa_kernels.get)[:120]
+                       if sdpa_kernels else "not measured")
+        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_f32"
+        device_ms = profiled_ms(torch, run, kernel)
+        nbytes = 4 * bh * s * d * q.element_size()
+        ops = 4.0 * d * bh * (s * (s + 1) / 2)   # q.k and p.v on the triangle
+        e = rows[name] = kernel_entry(
+            "flash_attention", "parsec_tpu_torch/csrc/flash_attention.cu",
+            "parsec_tpu/ops/pallas_kernels.py:329", launches, max_err,
+            kernel_ms, plain_ms, nbytes, ops, name, library_ms)
+        e.update(route=route, device_ms=device_ms, library_kernel=sdpa_kernel,
+                 library_max_abs_err=sdpa_err)
+        log(f"flash_attention {name} ({bh}, {s}, {d}) causal, {route} route:"
+            f" kernel {kernel_ms:.4f} ms (device {fmt_ms(device_ms)}), plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention "
+            f"{library_ms:.4f} ms (kernel {sdpa_kernel}; max abs err "
+            f"against plain {sdpa_err:.3e}), bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) -> {ops / kernel_ms / 1e9:.1f} TFLOP/s; max "
+            f"abs err against plain {max_err:.3e}")
+        if dtype == torch.bfloat16:
+            # the mma route (the kernel this one replaced at d = 64) on the
+            # same inputs, in turns: wgmma, mma, mma, wgmma
+            mma_err = (flash_on_route(K, torch, q, k, v, "mma").float()
+                       - want).abs().max().item()
+            turns = [cuda_time_ms(fn) for fn in (
+                run, lambda: flash_on_route(K, torch, q, k, v, "mma"),
+                lambda: flash_on_route(K, torch, q, k, v, "mma"), run)]
+            mma_device_ms = profiled_ms(
+                torch, lambda: flash_on_route(K, torch, q, k, v, "mma"),
+                "flash_bf16<")
+            e.update(in_turns_with_mma_ms=turns, mma_device_ms=mma_device_ms,
+                     mma_max_abs_err=mma_err)
+            log(f"flash_attention bf16 in turns with the mma route on the "
+                f"same inputs: wgmma {turns[0]:.4f}, mma {turns[1]:.4f}, mma "
+                f"{turns[2]:.4f}, wgmma {turns[3]:.4f} ms; mma device "
+                f"{fmt_ms(mma_device_ms)}, max abs err against plain "
+                f"{mma_err:.3e}")
+        del q, k, v, q4, k4, v4, want
+    entry = rows["bfloat16"]
+    entry["launches_by_route"] = by_route
+    entry["float32"] = {k: rows["float32"][k] for k in
+                        ("route", "max_abs_err", "ms", "device_ms",
+                         "plain_ms", "bound_ms", "bound_by", "library_ms",
+                         "library_kernel", "library_max_abs_err")}
     return entry
 
 
@@ -1100,6 +1254,13 @@ def main() -> int:
     with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
         list(pool.map(K.build, names))
     log(f"built {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
+    for name in names:
+        for line in K.build_log.get(name, "").splitlines():
+            log(f"nvcc {name}: {line}")
+        # C7518: ptxas serialised the wgmma pipeline; C7508: it ignored a
+        # setmaxnreg
+        if any(w in K.build_log.get(name, "") for w in ("C7518", "C7508")):
+            raise AssertionError(f"ptxas serialised {name}'s wgmmas")
     sass_check(K)
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the split route (C 512^2 and 256 x 512), the tile route (36 output
@@ -1285,7 +1446,7 @@ def main() -> int:
     ctx.fini()
 
     # ---- 6. LM serving at GPT-2 small width ----------------------------
-    flash_launches = lm_serving(K, torch)
+    flash_launches, flash_by_route = lm_serving(K, torch)
 
     # ---- 7. the stencil and the other tile algorithms, on a new context
     # (after the earlier paths, which so run as they did before them) -----
@@ -1301,7 +1462,7 @@ def main() -> int:
 
     # ---- 9. kernel line at the main paths' shapes -----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
-               flash_entry(K, torch, gen, flash_launches),
+               flash_entry(K, torch, gen, flash_launches, flash_by_route),
                stencil_entry(K, torch, gen, stencil_launches),
                matmul]
     for e in kernels:

@@ -14,9 +14,12 @@ on the CPU; it never falls back from one to the other.
   pitches TMA cannot address. It replaces the TPU kernel
   ``_gemm_chain_call`` of the reference package's ``ops/pallas_kernels.py``.
 * :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
-  (``csrc/flash_attention.cu``): a thread block owns a 64-row q tile and
-  streams k/v tiles past an online softmax held in registers. It replaces
-  the TPU kernel ``_flash_attn_call`` of the same module.
+  (``csrc/flash_attention.cu``): a thread block owns a q tile and streams
+  k/v tiles past an online softmax held in registers, on the route
+  :func:`flash_route` picks: ``wgmma`` (bf16 at head dim 64 or 128: a TMA
+  ring fed by a producer warp, two consumer warpgroups on ``wgmma``),
+  ``mma`` (other bf16: ``mma.sync``) or ``simt`` (float32). It replaces the
+  TPU kernel ``_flash_attn_call`` of the same module.
 * :func:`matmul` — blocked A·B with the output accumulated in its own dtype
   per k block, a second entry point of ``csrc/gemm_chain.cu`` that runs the
   chain's routes with C = 0 over the k blocks of A. It replaces
@@ -36,6 +39,7 @@ import ctypes
 import hashlib
 import math
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -75,10 +79,13 @@ _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-warn-spills", "-I", CSRC_DIR)
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _libs_lock = threading.Lock()
+#: nvcc's messages (its warnings) for each library built by this process
+build_log: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -94,14 +101,38 @@ def nvcc_path() -> str:
                        "/usr/local/cuda/bin): the CUDA kernels cannot be built")
 
 
+_INCLUDE = re.compile(rb'^\s*#\s*include\s+"([^"]+)"', re.M)
+
+
+def _sources(path: str, seen=None) -> list:
+    """``path`` and, recursively, every file it includes with ``#include
+    "..."`` (found beside the file that includes it), each once."""
+    seen = [] if seen is None else seen
+    if path not in seen:
+        seen.append(path)
+        with open(path, "rb") as f:
+            for inc in _INCLUDE.findall(f.read()):
+                _sources(os.path.join(os.path.dirname(path), inc.decode()),
+                         seen)
+    return seen
+
+
+def library_path(name: str) -> str:
+    """Where :func:`build` puts the library of ``csrc/<name>.cu``: a name
+    that holds a digest of the source, of every header it includes and of
+    the flags, so an edit to any of them builds anew."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources(os.path.join(CSRC_DIR, f"{name}.cu")):
+        with open(path, "rb") as f:
+            h.update(os.path.basename(path).encode() + b"\0" + f.read())
+    return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` into a shared library (once per source
-    content and flags) and return its path."""
+    """Compile ``csrc/<name>.cu`` into a shared library (once per content of
+    the source and its headers, and flags) and return its path."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode()
-                                ).hexdigest()[:16]
-    so = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
+    so = library_path(name)
     if os.path.exists(so):
         return so
     os.makedirs(BUILD_DIR, exist_ok=True)
@@ -113,6 +144,7 @@ def build(name: str) -> str:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {src}:\n{proc.stderr}")
         os.replace(tmp, so)     # atomic: a concurrent builder sees all or none
+        build_log[name] = proc.stderr
     finally:
         if os.path.exists(tmp):
             os.unlink(tmp)
@@ -153,9 +185,9 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
         lib.stencil1d.restype = ci
     elif name == "flash_attention":
         # (q, k, v, out, bh, sq, sk, d, causal, scale, q_off, k_off, dtype,
-        #  stream) -> cudaError_t
+        #  route, sms, stream) -> cudaError_t
         lib.flash_attention.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci,
-                                        ctypes.c_float, ci, ci, ci, vp]
+                                        ctypes.c_float, ci, ci, ci, ci, ci, vp]
         lib.flash_attention.restype = ci
 
 
@@ -489,6 +521,19 @@ stencil1d.launches = 0
 FLASH_HEAD_DIMS = (16, 32, 64, 128)
 #: dtype codes of the C entry point
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: route codes of the C entry point
+FLASH_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+
+
+def flash_route(dtype, d: int, aligned: bool) -> str:
+    """The route of a flash launch: a pure function of the dtype, the head
+    dim and the operands' 16-byte alignment. ``simt`` for float32 (no TF32,
+    so the SIMT cores); ``wgmma`` (TMA and ``wgmma``) for bf16 at d = 64 or
+    128 on 16-byte aligned bases, which TMA needs; ``mma`` (``mma.sync``)
+    for the other bf16 launches."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if d in (64, 128) and aligned else "mma"
 
 
 def _check_flash(q, k, v) -> None:
@@ -574,8 +619,9 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     ``q_offset``/``k_offset`` are the global positions of q's and k's first
     rows, so the causal mask holds on sequence shards; a row that sees no
     key returns zeros. ``block_q``/``block_k`` are accepted for the
-    reference's signature and change nothing: the kernel tiles by 64 and
-    masks its own ragged tails, so any sq, sk >= 1 runs.
+    reference's signature and change nothing: the kernel tiles by itself
+    and masks its own ragged tails, so any sq, sk >= 1 runs. The route is
+    :func:`flash_route`'s.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
     kernel (contiguous, head dim in :data:`FLASH_HEAD_DIMS`) or raise."""
@@ -595,18 +641,23 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous operands")
     lib = _library("flash_attention")
+    route = flash_route(q.dtype, d, _aligned16(q, k, v))
     out = torch.empty_like(q)
     err = lib.flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.numel() // (sq * d), sq, sk, d, int(bool(causal)), float(scale),
         int(q_offset), int(k_offset), _FLASH_DTYPES[q.dtype],
+        FLASH_ROUTES[route], _sm_count(q.device),
         torch.cuda.current_stream(q.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"flash_attention kernel launch failed: CUDA error "
-                           f"{err}")
+        raise RuntimeError(f"flash_attention kernel launch failed ({route} "
+                           f"route): CUDA error {err}")
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 #: kernel launches since the last reset; only the wrapper's launch adds to it
 flash_attention.launches = 0
+#: the same launches by route (:func:`flash_route`)
+flash_attention.launches_by_route = dict.fromkeys(FLASH_ROUTES, 0)

@@ -10,6 +10,7 @@ package, so it runs on a machine that has neither:
 
 import contextlib
 import ctypes
+import math
 import os
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
@@ -271,7 +272,11 @@ def test_stage_in_once_then_eviction_writes_back(gctx):
                                                 np.full((32, 32), 2.0)]))
 
 
-# (q shape, kv shape, causal, q_offset, k_offset, rows that see no key)
+# (q shape, kv shape, causal, q_offset, k_offset, rows that see no key).
+# Head dims 64 and 128 take the wgmma route in bf16 (128-row q blocks,
+# 128-key tiles), 16 and 32 the mma route; the d = 64 cases reach every kind
+# of key tile: wholly visible, crossing the diagonal (offsets equal or not,
+# sq = sk or not), wholly masked, and the ragged end of k.
 FLASH_CASES = [
     ((2, 2, 128, 64), (2, 2, 128, 64), False, 0, 0, 0),
     ((3, 200, 64), (3, 200, 64), True, 0, 0, 0),
@@ -282,7 +287,30 @@ FLASH_CASES = [
     ((1, 257, 16), (1, 257, 16), True, 0, 0, 0),
     ((2, 4, 16), (2, 4, 16), False, 0, 0, 0),
     ((2, 130, 128), (2, 130, 128), True, 0, 0, 0),
+    # the edge cases again at d = 64, on the wgmma route
+    ((6, 64, 64), (6, 192, 64), False, 0, 0, 0),
+    ((1, 128, 64), (1, 256, 64), True, 128, 0, 0),
+    ((1, 128, 64), (1, 128, 64), True, 0, 128, 128),
+    ((1, 64, 64), (1, 64, 64), True, 0, 32, 32),
+    ((1, 257, 64), (1, 257, 64), True, 0, 0, 0),
+    ((2, 4, 64), (2, 4, 64), False, 0, 0, 0),
+    ((3, 1, 64), (3, 1, 64), True, 0, 0, 0),
+    ((2, 200, 64), (2, 300, 64), True, 100, 0, 0),
+    ((1, 192, 64), (1, 160, 64), True, 40, 72, 32),
+    ((2, 512, 64), (2, 512, 64), True, 0, 0, 0),
+    # d = 128: causal, and ragged at both ends
+    ((2, 256, 128), (2, 256, 128), True, 0, 0, 0),
+    ((2, 200, 128), (2, 333, 128), False, 0, 0, 0),
 ]
+
+
+def _flash_route_of(dtype, d):
+    """The route each case must take: float32 on the SIMT cores, bf16 on
+    wgmma at head dims 64 and 128 (every case here is 16-byte aligned),
+    else on mma.sync."""
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if d in (64, 128) else "mma"
 
 
 def _flash_inputs(qs, ks, dtype):
@@ -291,41 +319,96 @@ def _flash_inputs(qs, ks, dtype):
                  for sh in (qs, ks, ks))
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("qs,ks,causal,q_off,k_off,masked", FLASH_CASES)
-def test_flash_kernel_matches_plain(dtype, qs, ks, causal, q_off, k_off,
-                                    masked):
+def _flash_holds(got, q, k, v, kw, masked):
     """float32 within the reference's 2e-4 (FMA, no TF32); bf16 with every
     element within ``flash_attention_bf16_tolerance`` (the rounding of P and
     of the output); rows that see no key exactly zero."""
-    _need_card()
-    q, k, v = _flash_inputs(qs, ks, dtype)
-    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
-    before = K.flash_attention.launches
-    got = K.flash_attention(q, k, v, **kw)
-    assert K.flash_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == q.shape
     want = K.flash_attention_plain(q, k, v, **kw)
     torch.cuda.synchronize()
-    if dtype == torch.float32:
+    if q.dtype == torch.float32:
         torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
     else:
         tol = K.flash_attention_bf16_tolerance(q, k, v, **kw)
         assert ((got.float() - want.float()).abs() <= tol).all()
     if masked:
-        assert (got.reshape(-1, *qs[-2:])[:, :masked] == 0).all()
+        assert (got.reshape(-1, *q.shape[-2:])[:, :masked] == 0).all()
 
 
-# planted faults in the bf16 kernel: (name, source text, its replacement)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("qs,ks,causal,q_off,k_off,masked", FLASH_CASES)
+def test_flash_kernel_matches_plain(dtype, qs, ks, causal, q_off, k_off,
+                                    masked):
+    """Every case against the plain version (:func:`_flash_holds`), counted
+    once, on the route its dtype and head dim take."""
+    _need_card()
+    q, k, v = _flash_inputs(qs, ks, dtype)
+    kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
+    with _counted_on(K.flash_attention, _flash_route_of(dtype, qs[-1])):
+        got = K.flash_attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == q.shape
+    _flash_holds(got, q, k, v, kw, masked)
+
+
+def test_flash_cases_cover_every_route():
+    routes = {_flash_route_of(dt, qs[-1]) for qs, *_ in FLASH_CASES
+              for dt in (torch.float32, torch.bfloat16)}
+    assert routes == set(K.FLASH_ROUTES)
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_flash_bf16_on_unaligned_bases_takes_the_mma_route(d):
+    """TMA needs 16-byte aligned bases: q, k and v that start 2 bytes into
+    their buffers go to the mma route and still agree with the plain
+    version."""
+    _need_card()
+    qs, ks, kw = (2, 200, d), (2, 260, d), dict(causal=True, q_offset=60)
+    n = [math.prod(qs), math.prod(ks), math.prod(ks)]
+    q, k, v = (torch.randn(m + 1, device="cuda").to(torch.bfloat16)[1:]
+               .view(sh) for m, sh in zip(n, (qs, ks, ks)))
+    assert q.data_ptr() % 16 and k.data_ptr() % 16
+    with _counted_on(K.flash_attention, "mma"):
+        got = K.flash_attention(q, k, v, **kw)
+    _flash_holds(got, q, k, v, kw, 0)
+
+
+def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
+    """The C entry point checks the route's preconditions and refuses the
+    launch (no silent change of route): wgmma at d = 32, on float32 and on
+    an unaligned base; mma on float32; simt on bf16."""
+    _need_card()
+    lib = K._library("flash_attention")
+    st = torch.cuda.current_stream().cuda_stream
+    R = K.FLASH_ROUTES
+
+    def launch(x, d, dtype, route):
+        out = torch.empty_like(x)
+        return lib.flash_attention(x.data_ptr(), x.data_ptr(), x.data_ptr(),
+                                   out.data_ptr(), 1, 64, 64, d, 1, 0.125, 0,
+                                   0, dtype, route, K._sm_count(x.device), st)
+    bf = torch.zeros(64 * 64 + 8, device="cuda", dtype=torch.bfloat16)
+    f32 = torch.zeros(64 * 64, device="cuda")
+    assert launch(bf, 64, 1, R["wgmma"]) == 0
+    torch.cuda.synchronize()
+    assert launch(bf, 32, 1, R["wgmma"]) != 0
+    assert launch(f32, 64, 0, R["wgmma"]) != 0
+    assert launch(bf[1:], 64, 1, R["wgmma"]) != 0
+    assert launch(f32, 64, 0, R["mma"]) != 0
+    assert launch(bf, 64, 1, R["simt"]) != 0
+
+
+# planted faults in the wgmma kernel: (name, source text, its replacement)
 FLASH_FAULTS = [
     ("skip the last key tile",
-     "for (int k0 = 0; k0 < kend; k0 += BK)",
-     "for (int k0 = 0; k0 < kend - BK; k0 += BK)"),
+     "return kend > 0 ? (kend + W_BK - 1) / W_BK : 0;",
+     "return kend > 0 ? (kend + W_BK - 1) / W_BK - 1 : 0;"),
     ("no correction of the accumulator",
-     "        o[n][2 * h] *= corr;\n        o[n][2 * h + 1] *= corr;\n", ""),
+     "      o[4 * n + 2 * h] *= corr[h];\n"
+     "      o[4 * n + 2 * h + 1] *= corr[h];\n", ""),
     ("drop the last key of every tile",
-     "const bool keep = col < sk &&\n",
-     "const bool keep = col < sk && col % BK != BK - 1 &&\n"),
+     "const float p = ex2(",
+     "const float p = jj == 15 && t == 3 && e == 1 ? 0.f : ex2("),
+    ("a diagonal tile taken as wholly visible",
+     "(!causal || k_off + k0 + W_BK - 1 <= q_off + wg_row0)", "true"),
 ]
 
 
@@ -356,16 +439,21 @@ def flash_mutants(tmp_path_factory):
                          ids=[f[0] for f in FLASH_FAULTS])
 def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
                                                  monkeypatch):
-    """The bf16 check of the test above must fail a kernel with a planted
-    fault. Prints, per case, the fault's largest error and whether the
-    bound and the reference's looser 0.05 see it (``-s`` shows them)."""
+    """The bf16 check of the test above must fail a wgmma kernel with a
+    planted fault on the d = 64 cases. Prints, per case on the wgmma route,
+    the fault's largest error and whether the bound and the reference's
+    looser 0.05 see it (``-s`` shows them)."""
     monkeypatch.setitem(K._libs, "flash_attention", flash_mutants[fault])
     rejected = []
     for qs, ks, causal, q_off, k_off, _ in FLASH_CASES:
+        if qs[-1] not in (64, 128):
+            continue
         q, k, v = _flash_inputs(qs, ks, torch.bfloat16)
         kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
         want = K.flash_attention_plain(q, k, v, **kw).float()
-        err = (K.flash_attention(q, k, v, **kw).float() - want).abs()
+        with _counted_on(K.flash_attention, "wgmma"):
+            got = K.flash_attention(q, k, v, **kw).float()
+        err = (got - want).abs()
         bound = bool((err > K.flash_attention_bf16_tolerance(q, k, v, **kw)
                       ).any())
         loose = bool((err > 0.05 + 0.05 * want.abs()).any())
@@ -373,7 +461,8 @@ def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
               f"offsets ({q_off}, {k_off}): max abs err "
               f"{err.max().item():.3e}; rejected by the bound {bound}, by "
               f"rtol/atol 0.05 {loose}")
-        rejected.append(bound)
+        if qs[-1] == 64:
+            rejected.append(bound)
     assert any(rejected)
 
 

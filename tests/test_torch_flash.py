@@ -141,37 +141,68 @@ def test_flash_attention_scale_and_offsets_match_float64():
     np.testing.assert_allclose(out, ref, rtol=2e-5, atol=2e-5)
 
 
-def _tiled_bf16(q, k, v, causal, q_off, k_off, fault=None, bk=64):
-    """The card kernel's bf16 arithmetic, written out densely: per key tile
-    of ``bk`` the online softmax in float32, P rounded to bf16 for P·V, l
-    summing the unrounded weights. ``fault`` plants one of the faults the
-    bf16 check must see."""
+def _tiled_bf16(q, k, v, causal, q_off, k_off, fault=None, route="mma"):
+    """The card kernel's bf16 arithmetic on ``route``, written out densely:
+    q blocks of 64 rows (mma) or 128 (wgmma), each visiting key tiles of as
+    many keys up to the last key its last row sees; per tile the online
+    softmax in float32, P rounded to bf16 for P·V, l summing the unrounded
+    weights. The mma route scores in base e (scores times the scale, exp);
+    the wgmma route keeps the scores unscaled and weighs them by
+    2^(s·c - m·c), c = scale·log2(e) as one float32 constant, with the
+    guard at the row (a row whose max is still NEG takes 0 as reference),
+    and masks only the tiles that cross the diagonal or the ragged end of
+    k. ``fault`` plants one of the faults the bf16
+    check must see, as the card tests plant it in that route's source."""
     qf, kf, vf = q.float(), k.float(), v.float()
     sq, sk, d = q.shape[-2], k.shape[-2], q.shape[-1]
-    s_all = torch.matmul(qf, kf.transpose(1, 2)) / np.sqrt(d)
+    if route == "mma":
+        bq = bk = 64
+        s_all = torch.matmul(qf, kf.transpose(1, 2)) / np.sqrt(d)
+        exp = torch.exp
+    else:
+        bq = bk = 128
+        c = torch.tensor(np.log2(np.e) / np.sqrt(d), dtype=torch.float32)
+        s_all = torch.matmul(qf, kf.transpose(1, 2))
     keep = torch.ones(sq, sk, dtype=torch.bool)
     if causal:
         keep = (k_off + torch.arange(sk))[None, :] <= \
             (q_off + torch.arange(sq))[:, None]
-    if fault == "drop_key":
-        keep = keep & (torch.arange(sk) % bk != bk - 1)[None, :]
     neg = -1e30
-    m = torch.full((q.shape[0], sq, 1), neg)
-    l = torch.zeros_like(m)
-    o = torch.zeros(q.shape[0], sq, d)
-    starts = list(range(0, sk, bk))
-    if fault == "skip_last_tile":
-        starts = starts[:-1]
-    for k0 in starts:
-        s = s_all[:, :, k0:k0 + bk].masked_fill(~keep[:, k0:k0 + bk], neg)
-        mx = torch.maximum(m, s.amax(-1, keepdim=True))
-        corr = torch.exp(m - mx)
-        p = torch.where(s > 0.5 * neg, torch.exp(s - mx), 0.0)
-        l = l * corr + p.sum(-1, keepdim=True)
-        o = (o if fault == "no_correction" else o * corr) + torch.matmul(
-            p.bfloat16().float(), vf[:, k0:k0 + bk])
-        m = mx
-    return (o / l.clamp_min(1e-30)).bfloat16()
+    out = torch.zeros(q.shape[0], sq, d)
+    for r0 in range(0, sq, bq):
+        r1 = min(r0 + bq, sq)
+        kend = min(sk, q_off + r1 - k_off) if causal else sk
+        starts = list(range(0, max(kend, 0), bk))
+        if fault == "skip_last_tile":
+            starts = starts[:-1]
+        m = torch.full((q.shape[0], r1 - r0, 1), neg)
+        l = torch.zeros_like(m)
+        o = torch.zeros(q.shape[0], r1 - r0, d)
+        for k0 in starts:
+            k1 = min(k0 + bk, sk)
+            kp = keep[r0:r1, k0:k1]
+            if fault == "diagonal_unmasked" and k0 + bk <= sk:
+                kp = torch.ones_like(kp)
+            last = (torch.arange(k0, k1) % bk == bk - 1)[None, :]
+            if fault == "drop_key" and route == "mma":
+                kp = kp & ~last
+            s = s_all[:, r0:r1, k0:k1].masked_fill(~kp, neg)
+            mx = torch.maximum(m, s.amax(-1, keepdim=True))
+            if route == "mma":
+                corr = exp(m - mx)
+                p = torch.where(s > 0.5 * neg, exp(s - mx), 0.0)
+            else:
+                corr = torch.exp2((m - mx) * c)
+                ref = torch.where(mx > 0.5 * neg, mx * c, 0.0)
+                p = torch.exp2(s * c - ref)
+            if fault == "drop_key" and route == "wgmma":
+                p = p.masked_fill(last, 0.0)
+            l = l * corr + p.sum(-1, keepdim=True)
+            o = (o if fault == "no_correction" else o * corr) + torch.matmul(
+                p.bfloat16().float(), vf[:, k0:k1])
+            m = mx
+        out[:, r0:r1] = o / l.clamp_min(1e-30)
+    return out.bfloat16()
 
 
 # (q shape, kv shape, causal, q_offset, k_offset)
@@ -182,15 +213,16 @@ _BOUND_CASES = {
     "all_masked_block": ((1, 128, 32), (1, 128, 32), True, 0, 128),
     "unaligned_offset": ((1, 64, 32), (1, 64, 32), True, 0, 32),
     "small_seq": ((1, 4, 16), (1, 4, 16), False, 0, 0),
+    "head_dim_128_offsets": ((2, 300, 128), (2, 333, 128), True, 100, 60),
 }
 
 
-def _bound_case(case, fault=None):
+def _bound_case(case, fault=None, route="mma"):
     """(kernel arithmetic, plain version, bf16 bound) for a case."""
     qs, ks, causal, q_off, k_off = _BOUND_CASES[case]
     q, k, v = (torch.from_numpy(x).bfloat16() for x in _qkv(9, qs, ks))
     kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
-    return (_tiled_bf16(q, k, v, causal, q_off, k_off, fault).float(),
+    return (_tiled_bf16(q, k, v, causal, q_off, k_off, fault, route).float(),
             K.flash_attention_plain(q, k, v, **kw).float(),
             K.flash_attention_bf16_tolerance(q, k, v, **kw))
 
@@ -205,11 +237,32 @@ def test_flash_bf16_tolerance_bounds_the_kernels_rounding(case):
         assert (bound[:, :32] == 0).all() and (got[:, :32] == 0).all()
 
 
+@pytest.mark.parametrize("case", sorted(_BOUND_CASES))
+def test_flash_bf16_tolerance_bounds_the_wgmma_routes_rounding(case):
+    """The same on the wgmma route's arithmetic: 128-key tiles, base 2
+    with the scale folded into one float32 constant, masking only where a
+    tile crosses the diagonal or the end of k."""
+    got, want, bound = _bound_case(case, route="wgmma")
+    assert ((got - want).abs() <= bound).all()
+    if case in ("all_masked_block", "unaligned_offset"):
+        assert (bound[:, :32] == 0).all() and (got[:, :32] == 0).all()
+
+
 @pytest.mark.parametrize("fault", ["skip_last_tile", "no_correction",
                                    "drop_key"])
 @pytest.mark.parametrize("case", ["causal", "q_shorter_than_kv"])
 def test_flash_bf16_tolerance_sees_planted_faults(case, fault):
     got, want, bound = _bound_case(case, fault)
+    assert ((got - want).abs() > bound).any()
+
+
+@pytest.mark.parametrize("fault", ["skip_last_tile", "no_correction",
+                                   "drop_key", "diagonal_unmasked"])
+@pytest.mark.parametrize("case", ["causal", "ring_later_shard",
+                                  "head_dim_128_offsets"])
+def test_flash_bf16_tolerance_sees_planted_faults_on_the_wgmma_route(case,
+                                                                     fault):
+    got, want, bound = _bound_case(case, fault, route="wgmma")
     assert ((got - want).abs() > bound).any()
 
 

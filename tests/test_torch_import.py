@@ -51,15 +51,25 @@ def test_no_port_source_names_jax_or_the_reference():
     assert hits == []
 
 
-def test_chip_smoke_imports_neither_jax_nor_the_reference():
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+def _import_roots(script: str) -> set:
     names = set()
-    for node in ast.walk(tree):
+    for node in ast.walk(ast.parse((ROOT / script).read_text())):
         if isinstance(node, ast.Import):
             names.update(a.name for a in node.names)
         elif isinstance(node, ast.ImportFrom):
             names.add(node.module or "")
-    roots = {n.split(".")[0] for n in names}
+    return {n.split(".")[0] for n in names}
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    roots = _import_roots("chip_smoke.py")
+    assert "jax" not in roots and "parsec_tpu" not in roots
+    assert "parsec_tpu_torch" in roots
+
+
+@pytest.mark.parametrize("script", ["chain_variants.py", "flash_variants.py"])
+def test_variant_scripts_import_neither_jax_nor_the_reference(script):
+    roots = _import_roots(script)
     assert "jax" not in roots and "parsec_tpu" not in roots
     assert "parsec_tpu_torch" in roots
 

@@ -233,6 +233,57 @@ def test_dot_precision_policy():
         mca.params.unset("tile_dot_precision")
 
 
+# --- flash_attention's routes ----------------------------------------------
+
+# (dtype, head dim, 16-byte aligned bases) -> route, for every class
+FLASH_ROUTE_CASES = [
+    *(((torch.float32, d, a), "simt") for d in (16, 32, 64, 128)
+      for a in (True, False)),
+    ((torch.bfloat16, 64, True), "wgmma"),
+    ((torch.bfloat16, 128, True), "wgmma"),
+    ((torch.bfloat16, 64, False), "mma"),
+    ((torch.bfloat16, 128, False), "mma"),
+    *(((torch.bfloat16, d, a), "mma") for d in (16, 32)
+      for a in (True, False)),
+]
+
+
+@pytest.mark.parametrize("args,route", FLASH_ROUTE_CASES)
+def test_flash_route_is_a_function_of_dtype_head_dim_and_alignment(args,
+                                                                   route):
+    assert K.flash_route(*args) == route
+
+
+# --- the build ---------------------------------------------------------------
+
+def test_library_path_covers_the_headers_a_source_includes(tmp_path,
+                                                           monkeypatch):
+    """An edit to a header that a source includes, directly or through
+    another header, moves the source's library to a new path (so a stale
+    library is never loaded); an edit to a file it does not include does
+    not."""
+    monkeypatch.setattr(K, "CSRC_DIR", str(tmp_path))
+    (tmp_path / "k.cu").write_text('#include <stdint.h>\n#include "a.cuh"\n')
+    (tmp_path / "a.cuh").write_text('#pragma once\n#include "b.cuh"\n')
+    (tmp_path / "b.cuh").write_text("// b\n")
+    (tmp_path / "c.cuh").write_text("// c\n")
+    first = K.library_path("k")
+    (tmp_path / "c.cuh").write_text("// c, edited\n")
+    assert K.library_path("k") == first
+    (tmp_path / "b.cuh").write_text("// b, edited\n")
+    second = K.library_path("k")
+    assert second != first
+    (tmp_path / "a.cuh").write_text('#pragma once\n #include "b.cuh" \n')
+    assert K.library_path("k") not in (first, second)
+
+
+@pytest.mark.parametrize("name", ["gemm_chain", "flash_attention"])
+def test_hopper_sources_share_the_hopper_header(name):
+    paths = K._sources(f"{K.CSRC_DIR}/{name}.cu")
+    assert [p.rsplit("/", 1)[-1] for p in paths] == [f"{name}.cu",
+                                                     "hopper.cuh"]
+
+
 # --- stencil1d -------------------------------------------------------------
 
 def _stencil_reference(x, left, right, weights, dtype):
