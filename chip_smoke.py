@@ -31,9 +31,20 @@ port's main paths through the entry points a user calls:
   ``flash_attention`` kernel (f32 against the dense core on the simt route,
   then bf16 on the wgmma route, timed, profiled and its logits held to the
   f32 ones), and KV-cached greedy generation of
-  64 tokens for 4 and for 32 prompts of 128 (the eager decode loop's step
-  time at two batch sizes);
-* the blocked ``matmul`` entry point at bf16 8192^3 and f32 4096^3.
+  64 tokens for 4 and for 32 prompts of 128 (the decode step as one CUDA
+  graph and as the eager loop, at two batch sizes);
+* the blocked ``matmul`` entry point at bf16 8192^3 and f32 4096^3;
+* the same DTD paths captured (``DTDTaskpool(..., capture=...)``): the
+  GEMM DAG as one CUDA graph (inline) and as the scan interpreter (what
+  ``capture=True`` picks for its 1024 tasks), each bit for bit the
+  scheduled DAG, the POTRF DAG under scan (its residual), the stencil DAG
+  (first run and replay each bit for bit the plain iteration) and the
+  256-size gates in capture mode; each timed by its slope beside the
+  scheduled one, with its capture time and its device busy share; the
+  chain and stencil kernels' launches from the replayed graphs counted as
+  the graph's kernel nodes times its replays; and the LM's decode step as
+  one replayed graph (kept across calls), in turns with the eager loop, at
+  64 tokens and at 4.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -49,6 +60,7 @@ Needs one CUDA card; exits nonzero without one.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
@@ -78,7 +90,7 @@ MATMUL_N, MATMUL_F32_N = 8192, 4096
 GPT2_SMALL = dict(vocab_size=50257, d_model=768, d_ff=3072, n_heads=12,
                   n_layers=12, max_seq=1024)
 LM_BATCH, LM_SEQ = 8, 1024                 # prefill / scoring batch
-GEN_BATCHES, GEN_PROMPT, GEN_TOKENS = (4, 32), 128, 64
+GEN_BATCHES, GEN_PROMPT, GEN_TOKENS, GEN_SHORT = (4, 32), 128, 64, 4
 # bf16 logits against f32: every element within rtol/atol LOGIT_TOL, and
 # the norm-wise relative error within LOGIT_NORM_TOL; a forward with zeroed
 # attention must fail both
@@ -122,6 +134,13 @@ def device_profile(torch, run) -> tuple:
     synchronize after it), both in ms; ``by_name`` is device ms by kernel
     name. (0.0, 0.0, {}) when the trace holds no device events. Raises when
     busy exceeds the window: the measurement would be at fault."""
+    return device_profile_counts(torch, run)[:3]
+
+
+def device_profile_counts(torch, run) -> tuple:
+    """:func:`device_profile` and, fourth, the number of device events by
+    kernel name (the launches the trace holds, a replayed CUDA graph's
+    kernels among them)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     with profile(activities=[ProfilerActivity.CPU,
@@ -129,7 +148,7 @@ def device_profile(torch, run) -> tuple:
         with record_function(PROFILE_WINDOW):
             run()
             torch.cuda.synchronize()
-    spans, by_name, window = [], {}, 0.0
+    spans, by_name, counts, window = [], {}, {}, 0.0
     for ev in prof.events():
         t0, t1 = ev.time_range.start, ev.time_range.end
         if ev.name == PROFILE_WINDOW:
@@ -141,16 +160,17 @@ def device_profile(torch, run) -> tuple:
             continue
         spans.append((t0, t1))
         by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0) / 1e3
+        counts[ev.name] = counts.get(ev.name, 0) + 1
     busy_us, reach = 0.0, float("-inf")
     for t0, t1 in sorted(spans):
         busy_us += max(0.0, t1 - max(t0, reach))
         reach = max(reach, t1)
     if not spans:
-        return 0.0, 0.0, {}
+        return 0.0, 0.0, {}, {}
     if busy_us / 1e3 > window:
         raise AssertionError(f"device busy {busy_us / 1e3:.3f} ms exceeds the "
                              f"profiled window {window:.3f} ms")
-    return busy_us / 1e3, window, by_name
+    return busy_us / 1e3, window, by_name, counts
 
 
 def idle_line(what: str, busy_ms: float, window_ms: float) -> str:
@@ -554,8 +574,29 @@ def lm_serving(K, torch) -> tuple:
     log(f"LM phase peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     del params
+    M._decode_graphs.clear()                     # the kept decode graphs
     torch.cuda.empty_cache()
     return launches, dict(by_route)
+
+
+class gc_time:
+    """Seconds Python's cyclic garbage collector runs inside the block,
+    from its start/stop callbacks: ``with gc_time() as spent: ...``, then
+    ``spent[0]``."""
+
+    def __enter__(self) -> list:
+        self.spent, self.t0 = [0.0], 0.0
+        gc.callbacks.append(self._on_gc)
+        return self.spent
+
+    def _on_gc(self, phase, info) -> None:
+        if phase == "start":
+            self.t0 = time.perf_counter()
+        else:
+            self.spent[0] += time.perf_counter() - self.t0
+
+    def __exit__(self, *exc) -> None:
+        gc.callbacks.remove(self._on_gc)
 
 
 def logits_check(torch, got, want) -> tuple:
@@ -568,42 +609,89 @@ def logits_check(torch, got, want) -> tuple:
 
 
 def greedy_decode(M, torch, params, cfg, n_params, prompt) -> None:
-    """Times ``lm_generate`` on ``prompt`` and holds its tokens to a full
-    f32 recompute; raises when a chosen token is not its row's maximum."""
+    """Times ``lm_generate`` on ``prompt`` with the decode step as one
+    replayed CUDA graph (the first call of a token count captures it, later
+    calls replay the kept graph) and as the eager loop, in turns (graph,
+    eager, eager, graph), at GEN_TOKENS and at a short GEN_SHORT tokens;
+    holds graph and eager to the same tokens and the graph's tokens to a
+    full f32 recompute; raises when they differ or a chosen token is not
+    its row's maximum."""
     B, P, L = prompt.shape[0], prompt.shape[1], cfg.n_layers
 
-    def gen_s(n):
+    def gen_s(n, graph=True):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = M.lm_generate(params, prompt, n)
+        out = M.lm_generate(params, prompt, n) if graph else \
+            M._generate(params, prompt, n, True, 1.0, None, graph=False)
         torch.cuda.synchronize()
         return time.perf_counter() - t, out
-    gen_s(2)                                     # warm
-    t1 = min(gen_s(1)[0] for _ in range(2))
-    tn, out = gen_s(GEN_TOKENS)
-    step_ms = (tn - t1) / (GEN_TOKENS - 1) * 1e3
+    gen_s(2, graph=False)                        # warm the eager kernels
+    t1 = min(gen_s(1)[0] for _ in range(2))      # the prefill alone
+    # the first call of each token count: warm-up step, capture, replays;
+    # with the time Python's cyclic garbage collector took during it (the
+    # profiled runs before leave many objects behind)
+    first, gc_s = {}, {}
+    for n in (GEN_SHORT, GEN_TOKENS):
+        with gc_time() as spent:
+            first[n] = gen_s(n)
+        gc_s[n] = spent[0]
+    times, outs = {}, {}
+    for n in (GEN_TOKENS, GEN_SHORT):
+        for graph in (True, False, False, True):
+            dt, outs[n, graph] = gen_s(n, graph)
+            times.setdefault((n, graph), []).append(dt)
+    step_ms = {g: (min(times[GEN_TOKENS, g]) - t1) / (GEN_TOKENS - 1) * 1e3
+               for g in (True, False)}
     # a decode step reads every f32 weight but the position table, and the
     # caches at their full length, at least once
     dh = cfg.d_model // cfg.n_heads
     step_bytes = 4 * (n_params - params["pos"].numel()
                       + 2 * L * B * cfg.n_heads * (P + GEN_TOKENS) * dh)
     step_bound_ms = step_bytes / PEAK_BYTES_PER_S * 1e3
-    log(f"LM greedy generate f32 B={B} prompt {P} + {GEN_TOKENS} tokens: "
-        f"{tn:.3f} s (prefill + 1 token {t1:.3f} s) -> {step_ms:.3f} ms per "
-        f"decode step, {B / step_ms * 1e3:.1f} decode tokens/s; bound "
-        f"{step_bound_ms:.4f} ms per step ({step_bytes / 1e6:.1f} MB read) "
-        f"-> {B / step_bound_ms * 1e3:.1f} tokens/s")
+    for graph, what in ((True, "decode step as one CUDA graph (kept)"),
+                        (False, "eager decode loop")):
+        log(f"LM greedy generate f32 B={B} prompt {P} + {GEN_TOKENS} tokens, "
+            f"{what}: {', '.join(f'{t:.3f}' for t in times[GEN_TOKENS, graph])}"
+            f" s in turns (prefill + 1 token {t1:.3f} s) -> "
+            f"{step_ms[graph]:.3f} ms per decode step, "
+            f"{B / step_ms[graph] * 1e3:.1f} decode tokens/s; bound "
+            f"{step_bound_ms:.4f} ms per step ({step_bytes / 1e6:.1f} MB "
+            f"read) -> {B / step_bound_ms * 1e3:.1f} tokens/s")
+    log(f"LM decode graph B={B}: the first call of {GEN_TOKENS} tokens "
+        f"{first[GEN_TOKENS][0]:.3f} s (garbage collector "
+        f"{gc_s[GEN_TOKENS] * 1e3:.3f} ms of it) against "
+        f"{min(times[GEN_TOKENS, True]):.3f} s replaying the kept graph -> "
+        f"warm-up step + capture + instantiate about "
+        f"{(first[GEN_TOKENS][0] - min(times[GEN_TOKENS, True])) * 1e3:.3f}"
+        f" ms (less one replay)")
+    log(f"LM short generate B={B} prompt {P} + {GEN_SHORT} tokens: first call "
+        f"(captures) {first[GEN_SHORT][0] * 1e3:.3f} ms (garbage collector "
+        f"{gc_s[GEN_SHORT] * 1e3:.3f} ms of it), kept graph "
+        f"{', '.join(f'{t * 1e3:.3f}' for t in times[GEN_SHORT, True])} ms, "
+        f"eager {', '.join(f'{t * 1e3:.3f}' for t in times[GEN_SHORT, False])}"
+        f" ms (in turns)")
+    busy_n = device_profile(torch, lambda: gen_s(GEN_TOKENS))[0]
+    busy_s = device_profile(torch, lambda: gen_s(GEN_SHORT))[0]
+    log(f"LM decode graph B={B}: device busy a replayed step "
+        f"{(busy_n - busy_s) / (GEN_TOKENS - GEN_SHORT):.3f} ms (profiler: "
+        f"(busy(T{GEN_TOKENS}) - busy(T{GEN_SHORT})) / "
+        f"{GEN_TOKENS - GEN_SHORT})")
+    same = all(torch.equal(outs[n, True], outs[n, False])
+               and torch.equal(first[n][1], outs[n, False])
+               for n in (GEN_SHORT, GEN_TOKENS))
+    out = outs[GEN_TOKENS, True]
     logits = M.lm_apply(params, out)
     rows = logits[:, P - 1:-1]                   # predicts out[:, P:]
     chosen = rows.gather(-1, out[:, P:, None].long()).squeeze(-1)
     gap = (rows.max(-1).values - chosen).max().item()
-    log(f"LM generate check against a full f32 recompute of "
-        f"{tuple(out.shape)}: chosen logit at most {gap:.3e} below its row "
-        f"max (limit 1e-3)")
+    log(f"LM generate check: graph (first call and kept) and eager tokens "
+        f"{'identical' if same else 'DIFFER'}; against a full f32 recompute "
+        f"of {tuple(out.shape)}: chosen logit at most {gap:.3e} below its "
+        f"row max (limit 1e-3)")
     if tuple(out.shape) != (B, P + GEN_TOKENS) or not gap <= 1e-3 or \
-            not torch.equal(out[:, :P], prompt):
-        raise AssertionError("KV-cached decode disagrees with the full "
-                             "recompute")
+            not torch.equal(out[:, :P], prompt) or not same:
+        raise AssertionError("KV-cached decode disagrees with the eager loop "
+                             "or the full recompute")
 
 
 def gemm_chain_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
@@ -832,9 +920,10 @@ def tiles_of(torch, M) -> "torch.Tensor":
         "cuda") for n in range(M.nt)], dim=1) for m in range(M.mt)], dim=0)
 
 
-def dtd_stencil(ptt, K, torch, ctx, dev) -> int:
+def dtd_stencil(ptt, K, torch, ctx, dev) -> tuple:
     """The DTD 1D Jacobi stencil at N = 2^28, TS = 2^24, 8 iterations (f32);
-    returns the kernel's launches on it. Raises when a check fails."""
+    returns the kernel's launches on it and the slope (s a DAG). Raises
+    when a check fails."""
     import torch.nn.functional as F
     from parsec_tpu_torch.ops.stencil import (insert_stencil1d_tasks,
                                               stencil_flops)
@@ -924,7 +1013,7 @@ def dtd_stencil(ptt, K, torch, ctx, dev) -> int:
         f" GFLOP/s")
     del A, B, x0
     torch.cuda.empty_cache()
-    return launches
+    return launches, st_s
 
 
 def lu_test_matrix(torch, n: int, seed: int) -> "torch.Tensor":
@@ -1125,6 +1214,356 @@ def dtd_apps(ptt, torch, ctx, dev) -> None:
         raise AssertionError("an app disagrees with numpy on the card")
 
 
+# the kernels whose launches a replayed graph is counted by (names in the
+# device trace and in the graph's kernel nodes)
+CHAIN_KERNEL, STENCIL_KERNEL = "chain_bf16_wgmma", "stencil1d_kernel"
+
+
+def launches_in(counts: dict, kernel: str) -> int:
+    """The counts (device events, graph nodes) of the kernels whose name
+    holds ``kernel``."""
+    return sum(n for name, n in counts.items() if kernel in name)
+
+
+def check_mixed_chain(K, torch, gen) -> None:
+    """``gemm_chain``'s mixed form, bf16 A and B with a float32 C, on its
+    split, tile and general routes: a kernel launch on the route (counted),
+    within rtol/atol 1e-4 of the plain version on unit-scale data (the
+    float32 check), bit for bit on small integers."""
+    for kt, m, k, n in ((17, 512, 512, 512), (4, 768, 256, 768),
+                        (5, 64, 64, 20)):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        route = K.chain_route(kt, m, k, n, k, m * k, 2, True, sms)
+        s = k ** -0.25
+        c = torch.randn(m, n, device="cuda", generator=gen)
+        a = (torch.randn(kt, m, k, device="cuda", generator=gen) * s).bfloat16()
+        b = (torch.randn(kt, k, n, device="cuda", generator=gen) * s).bfloat16()
+        before = K.gemm_chain.launches_by_route[route]
+        got = K.gemm_chain(c, a, b)
+        want = K.gemm_chain_plain(c, a, b)
+        err = (got - want).abs()
+        bad = int((err > 1e-4 + 1e-4 * want.abs()).sum())
+        ci, ai, bi = (torch.randint(lo, hi, sh, device="cuda", generator=gen)
+                      for lo, hi, sh in ((-8, 9, (m, n)), (-4, 5, (kt, m, k)),
+                                         (-4, 5, (kt, k, n))))
+        ci, ai, bi = ci.float(), ai.bfloat16(), bi.bfloat16()
+        exact = torch.equal(K.gemm_chain(ci, ai, bi),
+                            K.gemm_chain_plain(ci, ai, bi))
+        launched = K.gemm_chain.launches_by_route[route] - before
+        log(f"kernel check gemm_chain mixed (bf16 A, B; float32 C) kt={kt} C "
+            f"{m}x{n} k={k} ({route} route, {launched} launches): max abs "
+            f"err {err.max().item():.3e}, {bad} beyond rtol/atol 1e-4; "
+            f"integer data {'bit-exact' if exact else 'DIFFERS'}")
+        if bad or not exact or launched != 2 or got.dtype != torch.float32:
+            raise AssertionError(f"gemm_chain's mixed form disagrees with its "
+                                 f"plain version on the {route} route")
+    torch.cuda.synchronize()
+
+
+def capture_line(what, mode, first_s, cap_s, slope_s, sched_s, busy, window,
+                 flops=None) -> None:
+    rate = (f" -> {flops / 1e9 / slope_s:.1f} GFLOP/s" if flops else "")
+    cap = "not measured" if cap_s is None else f"{cap_s:.3f} s"
+    log(f"{what} captured ({mode}): first DAG {first_s:.3f} s (warm-up run, "
+        f"capture + instantiate {cap}), slope {slope_s * 1e3:.3f} ms/DAG"
+        f"{rate}; scheduled slope {sched_s * 1e3:.3f} ms/DAG")
+    log(idle_line(f"{what} captured ({mode}) one DAG", busy, window))
+
+
+def host_split(ptt, torch, ctx, capture, insert) -> tuple:
+    """Seconds of one captured DAG's insertion and of its ``wait()`` (the
+    execution: staging, program lookup, the replay, landing, and the wait
+    for the card), a warm program assumed."""
+    torch.cuda.synchronize()
+    tp = ptt.DTDTaskpool(ctx, "split", capture=capture)
+    t0 = time.perf_counter()
+    insert(tp)
+    t1 = time.perf_counter()
+    tp.wait()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    tp.close()
+    ctx.wait()
+    return t1 - t0, t2 - t1
+
+
+def captured_gemm(ptt, K, torch, ctx, a_host, b_host, sched_s) -> int:
+    """The DTD GEMM of phase 3 (bf16, N = 16384, TS = 512) captured, inline
+    and with ``capture=True`` (the scan interpreter at 1024 tasks). Each
+    strategy's first execution (its warm-up, then the capture) and a replay
+    on another zero C (the graph's tiles handed over) are held bit for bit
+    to one scheduled DAG (the same chain kernel); then its slope (every DAG
+    a replay), capture time, and one replayed DAG under the profiler:
+    device busy, idle share and the chain kernels the trace holds.
+    Returns the chain kernel's launches: the wrapper's (the scheduled DAG,
+    the warm-ups) and the replays' (the graph's chain kernel nodes times
+    the replays run)."""
+    from parsec_tpu_torch.data.matrix import collection_from_numpy
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.gemm import gemm_flops, insert_gemm_tasks
+    N, TS = GEMM_N, GEMM_TS
+    tiles = (N // TS) ** 2
+    zeros = np.zeros((N, N), np.float32)
+    A = collection_from_numpy("cA", a_host, TS, TS, dtype=torch.bfloat16)
+    B = collection_from_numpy("cB", b_host, TS, TS, dtype=torch.bfloat16)
+
+    def zero_c(tag):
+        return collection_from_numpy(tag, zeros, TS, TS, dtype=torch.bfloat16)
+
+    ran = [0]
+
+    def dags(capture, C, n: int = 1):
+        tp = ptt.DTDTaskpool(ctx, "cgemm", capture=capture)
+        t = time.perf_counter()
+        for _ in range(n):
+            insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            tp.wait()
+        tp.close()
+        ctx.wait()
+        torch.cuda.synchronize()
+        ran[0] += n
+        return tp, time.perf_counter() - t
+
+    K.gemm_chain.launches = 0
+    ref = zero_c("cS")
+    dags(False, ref)
+    want = tiles_of(torch, ref)
+    del ref
+    replayed = 0
+    for capture, expect in (("inline", "inline"), (True, "scan")):
+        ran[0] = 0
+        C = zero_c(f"cC{capture}")
+        tp, first_s = dags(capture, C)
+        mode, cap_s = tp._capture.last_mode, tp._capture.last_capture_s
+        same_first = torch.equal(tiles_of(torch, C), want)
+        C2 = zero_c(f"cR{capture}")
+        tp, _ = dags(capture, C2)
+        same_replay = torch.equal(tiles_of(torch, C2), want)
+        hit = tp._capture.cache_hit
+        del C2
+        log(f"DTD GEMM captured ({mode}): first execution "
+            f"{'bit-exact' if same_first else 'DIFFERS'}, replay on other "
+            f"tiles {'bit-exact' if same_replay else 'DIFFERS'} (program "
+            f"cache hit {hit}) against the scheduled DAG")
+        if mode != expect or not (same_first and same_replay and hit):
+            raise AssertionError(f"the captured DTD GEMM ({mode}) is not the "
+                                 f"scheduled one bit for bit")
+        cap_slope, _, _ = slope(lambda n: dags(capture, C, n)[1])
+        ins_s, exec_s = host_split(ptt, torch, ctx, capture, lambda tp:
+                                   insert_gemm_tasks(tp, A, B, C,
+                                                     batch_k=True))
+        ran[0] += 1                              # host_split's replay
+        nodes = launches_in(tp._capture.last_program.kernel_nodes(),
+                            CHAIN_KERNEL)
+        busy, window, by_name, counts = device_profile_counts(
+            torch, lambda: dags(capture, C))
+        n_chain = launches_in(counts, CHAIN_KERNEL)
+        replayed += nodes * (ran[0] - 1)         # every DAG but the first
+        capture_line("DTD GEMM bf16 N=16384 TS=512", mode, first_s, cap_s,
+                     cap_slope, sched_s, busy, window, gemm_flops(N, N, N))
+        log(f"  host time of one replayed DAG: insertion {ins_s * 1e3:.3f} "
+            f"ms, wait() {exec_s * 1e3:.3f} ms (staging, program lookup, "
+            f"replay launch, landing, until the card is done)")
+        log(f"  the graph holds {nodes} chain kernel nodes ({tiles} tasks a "
+            f"DAG), replayed {ran[0] - 1} times; the profiler's trace of one "
+            f"replay holds {n_chain}; device ms by kernel:")
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:5]:
+            log(f"  device {ms:8.3f} ms  {counts[name]:6d}x  {name[:90]}")
+        if nodes != tiles:
+            raise AssertionError("the GEMM graph does not hold one chain "
+                                 "kernel a task")
+        del C
+        CAP._program_cache.clear()
+        torch.cuda.empty_cache()
+    return K.gemm_chain.launches + replayed
+
+
+def captured_potrf(ptt, torch, ctx, spd, sched_s, chol_ms) -> None:
+    """The DTD POTRF of phase 5 (f32, N = 8192, TS = 256) under the scan
+    interpreter: the first execution and a replay each held to the
+    residual gate, then the slope, capture time, device busy and idle
+    share of one replayed DAG."""
+    from parsec_tpu_torch.data.matrix import collection_from_numpy
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks, potrf_flops
+    pN, pTS = POTRF_N, POTRF_TS
+    spd_t = torch.from_numpy(spd)
+    Pm = collection_from_numpy("Pcap", spd, pTS, pTS)
+    A64 = spd_t.to("cuda", torch.float64)
+
+    def dags(n: int = 1):
+        Pm.fill(lambda m, k: spd_t[m * pTS:(m + 1) * pTS,
+                                   k * pTS:(k + 1) * pTS])
+        tp = ptt.DTDTaskpool(ctx, "cpotrf", capture="scan")
+        t = time.perf_counter()
+        for _ in range(n):
+            insert_potrf_tasks(tp, Pm)
+            tp.wait()
+        tp.close()
+        ctx.wait()
+        torch.cuda.synchronize()
+        return tp, time.perf_counter() - t
+
+    def residual():
+        L = torch.from_numpy(Pm.to_dense()).to("cuda", torch.float64).tril()
+        return ((L @ L.mT - A64).abs().max() / A64.abs().max()).item()
+    tp, first_s = dags()
+    cap_s, mode = tp._capture.last_capture_s, tp._capture.last_mode
+    r_first = residual()
+    tp, _ = dags()
+    r_replay, hit = residual(), tp._capture.cache_hit
+    log(f"POTRF f32 N={pN} TS={pTS} captured ({mode}): max|LL^T - A| / max|A|"
+        f" = {r_first:.3e} (first execution), {r_replay:.3e} (replay, program"
+        f" cache hit {hit})")
+    if mode != "scan" or not (r_first < 1e-5 and r_replay < 1e-5 and hit):
+        raise AssertionError("the captured POTRF fails its residual gate")
+    cap_slope, _, _ = slope(lambda n: dags(n)[1])
+    ins_s, exec_s = host_split(ptt, torch, ctx, "scan",
+                               lambda tp: insert_potrf_tasks(tp, Pm))
+    busy, window = device_profile(torch, dags)[:2]
+    capture_line(f"DTD POTRF f32 N={pN} TS={pTS}", mode, first_s, cap_s,
+                 cap_slope, sched_s, busy, window, potrf_flops(pN))
+    log(f"  host time of one replayed DAG: insertion {ins_s * 1e3:.3f} ms, "
+        f"wait() {exec_s * 1e3:.3f} ms")
+    log(f"  yardstick torch.linalg.cholesky_ex of the whole matrix: "
+        f"{chol_ms:.3f} ms")
+    CAP._program_cache.clear()
+    torch.cuda.empty_cache()
+
+
+def capture_gates(ptt, K, torch, ctx) -> None:
+    """The 256-size gates of phase 4 in capture mode (``capture=True``,
+    and the POTRF gate under scan as well)."""
+    from parsec_tpu_torch.data.matrix import collection_from_numpy
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks, make_spd
+    rng = np.random.default_rng(3)
+    ga = rng.standard_normal((256, 2048)).astype(np.float32)
+    gb = rng.standard_normal((2048, 256)).astype(np.float32)
+    mats = [collection_from_numpy(f"q{k}", x, 64, 64) for k, x in
+            (("A", ga), ("B", gb), ("C", np.zeros((256, 256), np.float32)))]
+    tp = ptt.DTDTaskpool(ctx, "cgate-kt32", capture=True)
+    insert_gemm_tasks(tp, *mats, batch_k=True)
+    tp.wait(); tp.close(); ctx.wait()
+    ref = ga.astype(np.float64) @ gb.astype(np.float64)
+    rel = np.abs(mats[2].to_dense() - ref).max() / np.abs(ref).max()
+    log(f"gate f32 GEMM 256x2048x256 captured ({tp._capture.last_mode}): max "
+        f"err / max |ref| = {rel:.3e}")
+    if rel >= 1e-5:
+        raise AssertionError("captured f32 kt=32 GEMM gate failed")
+    a256 = rng.standard_normal((256, 256)).astype(np.float32)
+    b256 = rng.standard_normal((256, 256)).astype(np.float32)
+    mats = [collection_from_numpy(f"q{k}s", x, 64, 64) for k, x in
+            (("A", a256), ("B", b256), ("C", np.zeros((256, 256), np.float32)))]
+    tp = ptt.DTDTaskpool(ctx, "cgate-gemm", capture=True)
+    insert_gemm_tasks(tp, *mats, batch_k=True)
+    tp.wait(); tp.close(); ctx.wait()
+    err = np.abs(mats[2].to_dense() - a256 @ b256).max()
+    log(f"gate GEMM 256 captured ({tp._capture.last_mode}): max err {err:.2e}")
+    if err >= 1e-2:
+        raise AssertionError(f"captured GEMM 256 gate failed: {err}")
+    spd_s = make_spd(256, seed=11)
+    for capture in (True, "scan"):
+        Ps = collection_from_numpy(f"qP{capture}", spd_s, 64, 64)
+        tp = ptt.DTDTaskpool(ctx, "cgate-potrf", capture=capture)
+        insert_potrf_tasks(tp, Ps)
+        tp.wait(); tp.close(); ctx.wait()
+        Ls = np.tril(Ps.to_dense())
+        perr = np.abs(Ls @ Ls.T - spd_s).max()
+        log(f"gate POTRF 256 captured ({tp._capture.last_mode}): max err "
+            f"{perr:.2e}")
+        if perr >= 1e-2:
+            raise AssertionError(f"captured POTRF 256 gate failed: {perr}")
+    CAP._program_cache.clear()
+
+
+def captured_stencil(ptt, K, torch, ctx, sched_s) -> int:
+    """The DTD stencil of phase 7 (f32, N = 2^28, TS = 2^24, 8 iterations)
+    captured with ``capture=True`` (scan at 128 tasks) and inline. For each
+    strategy the tiles are filled on the caller's stream with no
+    synchronize (the execution orders itself after that stream), and the
+    first DAG (warm-up + capture) and a second one on refilled tiles (a
+    replay of the kept graph) are each held bit for bit to the plain
+    whole-row iteration; then the graph's stencil kernel nodes (one a
+    task), the slope beside the scheduled one and the DAG's byte bound,
+    capture time, and one replayed DAG under the profiler (device busy,
+    idle share, the stencil kernels the trace holds). Returns the stencil
+    kernel's launches: the wrapper's (the warm-ups) and the replays' (the
+    graph's stencil nodes times the replays run)."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.stencil import insert_stencil1d_tasks
+    N, TS, IT = STENCIL_N, STENCIL_TS, STENCIL_ITERS
+    nt = N // TS
+    x0 = torch.randn(1, N, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(5))
+    want = x0
+    for _ in range(IT):
+        want = K.stencil1d_plain(want, None, None)
+    A = ptt.TiledMatrix("CSA", 1, N, 1, TS, device="cuda")
+    B = ptt.TiledMatrix("CSB", 1, N, 1, TS, device="cuda")
+    ran = [0]
+
+    def dags(capture, n: int = 1):
+        tp = ptt.DTDTaskpool(ctx, "cstencil", capture=capture)
+        t = time.perf_counter()
+        for _ in range(n):
+            insert_stencil1d_tasks(tp, A, B, IT)
+            tp.wait()
+        tp.close()
+        ctx.wait()
+        torch.cuda.synchronize()
+        ran[0] += n
+        return tp, time.perf_counter() - t
+
+    K.stencil1d.launches = 0
+    replayed = 0
+    bound_ms = IT * 2 * N * 4 / PEAK_BYTES_PER_S * 1e3
+    for capture, expect in ((True, "scan"), ("inline", "inline")):
+        ran[0] = 0
+        exact = []
+        for run in ("first", "replay"):
+            # the tiles' own copies of x0 (capture writes tiles in place),
+            # made on the caller's stream
+            A.fill(lambda m, n: x0[:, n * TS:(n + 1) * TS].clone())
+            B.fill(lambda m, n: torch.zeros(1, TS, device="cuda"))
+            tp, t = dags(capture)
+            if run == "first":
+                first_s = t
+                mode, cap_s = tp._capture.last_mode, tp._capture.last_capture_s
+            else:
+                hit = tp._capture.cache_hit
+            exact.append(torch.equal(tiles_of(torch, A), want))
+        log(f"DTD stencil captured ({mode}) against {IT} plain whole-row "
+            f"iterations, tiles filled on the caller's stream unsynchronized:"
+            f" first DAG {'bit-exact' if exact[0] else 'DIFFERS'}, replay on "
+            f"refilled tiles {'bit-exact' if exact[1] else 'DIFFERS'} "
+            f"(program cache hit {hit})")
+        if mode != expect or not all(exact) or not hit:
+            raise AssertionError("the captured DTD stencil differs from the "
+                                 "plain whole-row iteration")
+        nodes = launches_in(tp._capture.last_program.kernel_nodes(),
+                            STENCIL_KERNEL)
+        cap_slope, _, _ = slope(lambda n: dags(capture, n)[1])
+        busy, window, _, counts = device_profile_counts(
+            torch, lambda: dags(capture))
+        n_st = launches_in(counts, STENCIL_KERNEL)
+        replayed += nodes * (ran[0] - 1)         # every DAG but the first
+        capture_line("DTD stencil f32 N=2^28", mode, first_s, cap_s,
+                     cap_slope, sched_s, busy, window)
+        log(f"  the graph holds {nodes} stencil kernel nodes ({nt * IT} "
+            f"tasks a DAG), replayed {ran[0] - 1} times; the profiler's "
+            f"trace of one replay holds {n_st} stencil kernels; byte bound "
+            f"of a DAG {bound_ms:.3f} ms")
+        if nodes != nt * IT:
+            raise AssertionError("the stencil graph does not hold one "
+                                 "stencil kernel a task")
+        CAP._program_cache.clear()
+    del A, B, x0, want
+    torch.cuda.empty_cache()
+    return K.stencil1d.launches + replayed
+
+
 def kernel_entry(name, source, replaces, launches, max_err, kernel_ms,
                  plain_ms, nbytes, ops, dtype, library_ms) -> dict:
     """One entry of the kernels line; the bound is the larger of the bytes
@@ -1280,6 +1719,7 @@ def main() -> int:
     check_flash(K, torch, gen)
     check_stencil1d(K, torch, gen)
     check_matmul(K, torch, gen)
+    check_mixed_chain(K, torch, gen)
     # the device module sizes its tile budget from the memory free when the
     # context starts: hand the checks' cached blocks back first
     torch.cuda.empty_cache()
@@ -1360,7 +1800,11 @@ def main() -> int:
     mm_ms = cuda_time_ms(lambda: torch.matmul(a_dev, b_dev), iters=5)
     log(f"yardstick torch.matmul bf16 {N}^3: {mm_ms:.3f} ms -> "
         f"{gemm_flops(N, N, N) / 1e6 / mm_ms:.1f} GFLOP/s")
-    del a_dev, b_dev, a_host, b_host, A, B, C
+    del a_dev, b_dev, A, B, C
+
+    # ---- 3b. the same DAG captured (its chain launches join the path's)
+    launches += captured_gemm(ptt, K, torch, ctx, a_host, b_host, gemm_s)
+    del a_host, b_host
 
     # ---- 4. correctness gates -------------------------------------------
     rng = np.random.default_rng(3)
@@ -1404,6 +1848,7 @@ def main() -> int:
     log(f"gate POTRF 256 (64^2 tiles): max err {perr:.2e}")
     if perr >= 1e-2:
         raise AssertionError(f"POTRF 256 gate failed: {perr}")
+    capture_gates(ptt, K, torch, ctx)
 
     # ---- 5. scheduled DTD POTRF -----------------------------------------
     pN, pTS = POTRF_N, POTRF_TS
@@ -1443,6 +1888,7 @@ def main() -> int:
         f"{potrf_flops(pN) / 1e9 / potrf_s:.1f} GFLOP/s "
         f"(yardstick torch.linalg.cholesky_ex: {chol_ms:.3f} ms)")
     del spd_dev
+    captured_potrf(ptt, torch, ctx, spd, potrf_s, chol_ms)
     ctx.fini()
 
     # ---- 6. LM serving at GPT-2 small width ----------------------------
@@ -1452,7 +1898,8 @@ def main() -> int:
     # (after the earlier paths, which so run as they did before them) -----
     ctx = ptt.Context(nb_cores=1)
     dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
-    stencil_launches = dtd_stencil(ptt, K, torch, ctx, dev)
+    stencil_launches, stencil_s = dtd_stencil(ptt, K, torch, ctx, dev)
+    stencil_launches += captured_stencil(ptt, K, torch, ctx, stencil_s)
     dtd_factorizations(ptt, K, torch, ctx, dev)
     dtd_apps(ptt, torch, ctx, dev)
     ctx.fini()

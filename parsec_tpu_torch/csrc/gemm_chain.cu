@@ -13,6 +13,10 @@
 // product A[s] @ B[s] is summed in float32, rounded to C's dtype and added to
 // the running C in C's dtype: run = bf16(run + bf16(P_s)) for bf16, and
 // plain float32 FMA sums (never TF32) with run = run + P_s for float32.
+// The mixed form, bf16 A and B with a float32 C, is the float32 chain on the
+// exact float32 values of the bf16 operands: the bf16 products are exact in
+// float32, so each step is a float32 sum of exact products, added to the
+// float32 C unrounded.
 //
 // Bound. The chain does 2 * kt * m * k * n operations on
 // kt * (m * k + k * n) + 2 * m * n elements. At the DTD GEMM's shape (C 512
@@ -54,15 +58,24 @@
 // * general: the first kernels (WMMA bf16, 2 x 4 outputs a thread float32),
 //   for what TMA and cp.async cannot address: row pitches or step offsets
 //   that are not a multiple of 16 bytes, or bases not 16-byte aligned.
+// * mixed (bf16 A and B, float32 C): the tile and split routes run the bf16
+//   kernel (same TMA ring and wgmma mainloop, float32 accumulators) with a
+//   float32 epilogue: the tile route adds each step's float32 sum into the
+//   float32 output in place (each consumer thread owns its elements, so the
+//   running C lives in global memory, not in 64 more registers beside the
+//   accumulator), the split route stores float32 step products for the
+//   float32 phase 2; the general route is the float32 kernel converting A
+//   and B to float32 as it loads them.
 //
 // The mbarrier, TMA and wgmma helpers and the tensor-map encoding (through
 // cudaGetDriverEntryPoint, so no -lcuda) are in hopper.cuh. The tensor maps
 // are encoded on the host at every launch (each DTD task stacks its tiles
 // into new buffers) and passed as __grid_constant__.
 //
-// C entry points (ctypes), dtype 0 = float32, 1 = bf16, route 0 = general,
-// 1 = tile, 2 = split (scratch: kt * m * n elements of the dtype, else
-// null), sms the card's SM count; each returns a cudaError_t:
+// C entry points (ctypes), dtype 0 = float32, 1 = bf16, 2 = bf16 A and B
+// with a float32 C and output (gemm_chain only), route 0 = general, 1 =
+// tile, 2 = split (scratch: kt * m * n elements of C's dtype, else null),
+// sms the card's SM count; each returns a cudaError_t:
 //   gemm_chain(c, a, b, out, scratch, kt, m, k, n, dtype, route, sms, stream)
 //   blocked_matmul(a, b, out, scratch, m, k, n, bk, dtype, route, sms,
 //                  stream)
@@ -72,6 +85,8 @@
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -87,9 +102,18 @@ constexpr int THREADS = 256;    // 8 warps
 
 constexpr int F_BK = 32;        // k depth per shared-memory stage
 
+// an operand element as float32 (exact for bf16)
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+// TIn: A's and B's element type, float (the float32 chain) or bf16 (the
+// mixed form, converted to float32 on load)
+template <typename TIn>
 __global__ void __launch_bounds__(THREADS)
-gemm_chain_f32(const float* __restrict__ c, const float* __restrict__ a,
-               const float* __restrict__ b, float* __restrict__ out,
+gemm_chain_f32(const float* __restrict__ c, const TIn* __restrict__ a,
+               const TIn* __restrict__ b, float* __restrict__ out,
                int kt, int m, int kdim, int n, int lda, size_t a_step) {
   __shared__ float As[BM][F_BK + 1];   // +1: conflict-free column reads
   __shared__ float Bs[F_BK][BN];
@@ -110,19 +134,21 @@ gemm_chain_f32(const float* __restrict__ c, const float* __restrict__ a,
   }
 
   for (int s = 0; s < kt; ++s) {
-    const float* as = a + (size_t)s * a_step;
-    const float* bs = b + (size_t)s * kdim * n;
+    const TIn* as = a + (size_t)s * a_step;
+    const TIn* bs = b + (size_t)s * kdim * n;
     float acc[2][4] = {{0.f, 0.f, 0.f, 0.f}, {0.f, 0.f, 0.f, 0.f}};
     for (int k0 = 0; k0 < kdim; k0 += F_BK) {
       for (int e = tid; e < BM * F_BK; e += THREADS) {
         const int r = e / F_BK, kk = e % F_BK;
         const int gr = row0 + r, gk = k0 + kk;
-        As[r][kk] = (gr < m && gk < kdim) ? as[(size_t)gr * lda + gk] : 0.f;
+        As[r][kk] = (gr < m && gk < kdim) ? to_f32(as[(size_t)gr * lda + gk])
+                                          : 0.f;
       }
       for (int e = tid; e < F_BK * BN; e += THREADS) {
         const int kk = e / BN, cc = e % BN;
         const int gk = k0 + kk, gc = col0 + cc;
-        Bs[kk][cc] = (gk < kdim && gc < n) ? bs[(size_t)gk * n + gc] : 0.f;
+        Bs[kk][cc] = (gk < kdim && gc < n) ? to_f32(bs[(size_t)gk * n + gc])
+                                           : 0.f;
       }
       __syncthreads();
 #pragma unroll 8
@@ -282,6 +308,21 @@ __device__ __forceinline__ Unit unit_of(int u, bool split, int kt,
 
 // ================================================= bf16: TMA ring + wgmma
 
+// Two adjacent output elements in C's dtype (bf16x2, or float2 for the
+// mixed form), made from two float32 values: rounded, or as they are.
+template <typename T> struct PairOf;
+template <> struct PairOf<__nv_bfloat16> { using type = __nv_bfloat162; };
+template <> struct PairOf<float> { using type = float2; };
+
+template <typename P> __device__ __forceinline__ P pair_of(float x, float y);
+template <> __device__ __forceinline__ __nv_bfloat162 pair_of(float x,
+                                                              float y) {
+  return __floats2bfloat162_rn(x, y);
+}
+template <> __device__ __forceinline__ float2 pair_of(float x, float y) {
+  return make_float2(x, y);
+}
+
 constexpr int HK = 64;                          // k depth of a slice
 constexpr int STAGES = 5;
 constexpr int A_BYTES = TILE * HK * 2;          // 128 rows x 128 B
@@ -297,16 +338,21 @@ constexpr size_t H_SMEM = (size_t)STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 // (n, kdim, kt) for both. Consumer thread layout: the wgmma accumulator of
 // m64n128: element i of thread (warp w, lane l) of a consumer warpgroup
 // lies at row 16 w + l / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (l % 4)
-// + i % 2, so element pair j = i / 2 is a bf16x2 at row 16 w + l / 4 +
-// 8 (j % 2), column 8 (j / 2) + 2 (l % 4).
+// + i % 2, so element pair j = i / 2 is a pair of C's dtype at row 16 w +
+// l / 4 + 8 (j % 2), column 8 (j / 2) + 2 (l % 4).
+//
+// OutT is C's (and the output's and the scratch's) dtype: bf16, or float
+// for the mixed form.
+template <typename OutT>
 __global__ void __launch_bounds__(H_THREADS, 1)
 chain_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a,
                  const __grid_constant__ CUtensorMap tm_b,
-                 const __nv_bfloat16* __restrict__ c,
-                 __nv_bfloat16* __restrict__ out,
-                 __nv_bfloat16* __restrict__ scratch, int kt, int m,
+                 const OutT* __restrict__ c, OutT* __restrict__ out,
+                 OutT* __restrict__ scratch, int kt, int m,
                  int kdim, int n, int a_rows_inner, int split, int nunits,
                  int tiles_m, int tiles_n) {
+  using Pair = typename PairOf<OutT>::type;
+  constexpr bool F32_OUT = std::is_same<OutT, float>::value;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned stages
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -363,8 +409,11 @@ chain_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a,
     const Unit w = unit_of(u, split, kt, tiles_m, tiles_n);
     const int rbase = w.tm * TILE + half * 64 + warp * 16 + lane / 4;
     const int cbase = w.tn * TILE + 2 * (lane % 4);
+    // the running tile: bf16 pairs in registers (unused, so not allocated,
+    // for a float32 C, which runs in the output itself, read and written
+    // by this thread alone)
     __nv_bfloat162 run[32];
-    if (!split) {
+    if (!split && !F32_OUT) {
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int r = rbase + 8 * (j % 2), col = cbase + 8 * (j / 2);
@@ -404,15 +453,31 @@ chain_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a,
           phase ^= 1;
         }
       }
-      // the step boundary: its float32 sum rounded to bf16 ...
+      // the step boundary: its float32 sum rounded to C's dtype ...
       if (split) {
-        __nv_bfloat16* dst = scratch + (size_t)s * mn;
+        OutT* dst = scratch + (size_t)s * mn;
 #pragma unroll
         for (int j = 0; j < 32; ++j) {
           const int r = rbase + 8 * (j % 2), col = cbase + 8 * (j / 2);
           if (r < m && col < n)
-            *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)r * n + col) =
-                __floats2bfloat162_rn(acc[2 * j], acc[2 * j + 1]);
+            *reinterpret_cast<Pair*>(dst + (size_t)r * n + col) =
+                pair_of<Pair>(acc[2 * j], acc[2 * j + 1]);
+        }
+      } else if constexpr (F32_OUT) {
+        // ... added to the float32 running tile in the output (C at the
+        // first step), unrounded
+#pragma unroll
+        for (int j = 0; j < 32; ++j) {
+          const int r = rbase + 8 * (j % 2), col = cbase + 8 * (j / 2);
+          if (r < m && col < n) {
+            float2* o = reinterpret_cast<float2*>(out + (size_t)r * n + col);
+            float2 q = make_float2(0.f, 0.f);
+            if (s != w.s0)
+              q = *o;
+            else if (c != nullptr)
+              q = *reinterpret_cast<const float2*>(c + (size_t)r * n + col);
+            *o = make_float2(q.x + acc[2 * j], q.y + acc[2 * j + 1]);
+          }
         }
       } else {
         // ... and added to the running tile with one bf16 rounding
@@ -425,7 +490,7 @@ chain_bf16_wgmma(const __grid_constant__ CUtensorMap tm_a,
         }
       }
     }
-    if (!split) {
+    if (!split && !F32_OUT) {
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         const int r = rbase + 8 * (j % 2), col = cbase + 8 * (j / 2);
@@ -633,6 +698,31 @@ __global__ void ordered_sum(const V* __restrict__ c,
 // ================================================================== host
 
 constexpr int ROUTE_GENERAL = 0, ROUTE_TILE = 1, ROUTE_SPLIT = 2;
+constexpr int DT_F32 = 0, DT_BF16 = 1, DT_MIXED = 2;
+
+// chain_bf16_wgmma<OutT>'s launch; its shared-memory opt-in is set once a
+// process (before any stream capture: the first launch of an instantiation
+// is never a captured one, since capture is preceded by a warm-up run)
+template <typename OutT>
+cudaError_t launch_wgmma(int grid, cudaStream_t st, const CUtensorMap& tm_a,
+                         const CUtensorMap& tm_b, const void* c, void* out,
+                         void* scratch, int kt, int m, int kdim, int n,
+                         int a_rows_inner, int split, int nunits, int tiles_m,
+                         int tiles_n) {
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        chain_bf16_wgmma<OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)H_SMEM);
+    if (e != cudaSuccess) return e;
+    attr = true;
+  }
+  chain_bf16_wgmma<OutT><<<grid, H_THREADS, H_SMEM, st>>>(
+      tm_a, tm_b, static_cast<const OutT*>(c), static_cast<OutT*>(out),
+      static_cast<OutT*>(scratch), kt, m, kdim, n, a_rows_inner, split,
+      nunits, tiles_m, tiles_n);
+  return cudaSuccess;
+}
 
 // The chain over kt steps of (m x kdim) A blocks, row i of step s at
 // a + s * a_step + i * lda, and (kdim x n) B blocks stored one after the
@@ -643,26 +733,33 @@ int launch_chain(const void* c, const void* a, const void* b, void* out,
                  void* scratch, int kt, int m, int kdim, int n, int lda,
                  size_t a_step, int a_rows_inner, int dtype, int route,
                  int sms, cudaStream_t st) {
-  if (dtype != 0 && dtype != 1) return (int)cudaErrorInvalidValue;
+  if (dtype != DT_F32 && dtype != DT_BF16 && dtype != DT_MIXED)
+    return (int)cudaErrorInvalidValue;
+  using bf16 = __nv_bfloat16;
   if (route == ROUTE_GENERAL) {
     const dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-    if (dtype == 0) {
-      gemm_chain_f32<<<grid, THREADS, 0, st>>>(
+    if (dtype == DT_F32) {
+      gemm_chain_f32<float><<<grid, THREADS, 0, st>>>(
           static_cast<const float*>(c), static_cast<const float*>(a),
           static_cast<const float*>(b), static_cast<float*>(out), kt, m, kdim,
           n, lda, a_step);
+    } else if (dtype == DT_MIXED) {
+      gemm_chain_f32<bf16><<<grid, THREADS, 0, st>>>(
+          static_cast<const float*>(c), static_cast<const bf16*>(a),
+          static_cast<const bf16*>(b), static_cast<float*>(out), kt, m, kdim,
+          n, lda, a_step);
     } else {
       gemm_chain_bf16<<<grid, THREADS, 0, st>>>(
-          static_cast<const __nv_bfloat16*>(c),
-          static_cast<const __nv_bfloat16*>(a),
-          static_cast<const __nv_bfloat16*>(b),
-          static_cast<__nv_bfloat16*>(out), kt, m, kdim, n, lda, a_step);
+          static_cast<const bf16*>(c), static_cast<const bf16*>(a),
+          static_cast<const bf16*>(b), static_cast<bf16*>(out), kt, m, kdim,
+          n, lda, a_step);
     }
     return (int)cudaGetLastError();
   }
-  // the tile and split routes' preconditions: 16-byte row pitches, step
-  // offsets and bases (TMA's and cp.async's), scratch for the split
-  const size_t es = dtype == 0 ? 4 : 2;
+  // the tile and split routes' preconditions: 16-byte row pitches (of A and
+  // B's elements), step offsets and bases (TMA's and cp.async's), scratch
+  // for the split
+  const size_t es = dtype == DT_F32 ? 4 : 2;
   const bool split = route == ROUTE_SPLIT;
   if ((route != ROUTE_TILE && !split) || sms < 1 ||
       ((size_t)kdim * es) % 16 || ((size_t)n * es) % 16 ||
@@ -672,7 +769,7 @@ int launch_chain(const void* c, const void* a, const void* b, void* out,
     return (int)cudaErrorInvalidValue;
   const int tiles_m = (m + TILE - 1) / TILE, tiles_n = (n + TILE - 1) / TILE;
   const int nunits = tiles_m * tiles_n * (split ? kt : 1);
-  if (dtype == 0) {
+  if (dtype == DT_F32) {
     chain_f32_tiled<<<nunits, F_THREADS, 0, st>>>(
         static_cast<const float*>(c), static_cast<const float*>(a),
         static_cast<const float*>(b), static_cast<float*>(out),
@@ -689,18 +786,18 @@ int launch_chain(const void* c, const void* a, const void* b, void* out,
         encode3(&tm_b, b, n, kdim, kt, (uint64_t)n * 2,
                 (uint64_t)kdim * n * 2, 64, HK, 1);
     if (!ok) return (int)cudaErrorInvalidValue;
-    static bool attr = false;
-    if (!attr) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          chain_bf16_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize,
-          (int)H_SMEM);
-      if (e != cudaSuccess) return (int)e;
-      attr = true;
+    const int grid = nunits < sms ? nunits : sms;
+    cudaError_t e;
+    if (dtype == DT_MIXED) {
+      e = launch_wgmma<float>(grid, st, tm_a, tm_b, c, out, scratch, kt, m,
+                              kdim, n, a_rows_inner, split, nunits, tiles_m,
+                              tiles_n);
+    } else {
+      e = launch_wgmma<bf16>(grid, st, tm_a, tm_b, c, out, scratch, kt, m,
+                             kdim, n, a_rows_inner, split, nunits, tiles_m,
+                             tiles_n);
     }
-    chain_bf16_wgmma<<<nunits < sms ? nunits : sms, H_THREADS, H_SMEM, st>>>(
-        tm_a, tm_b, static_cast<const __nv_bfloat16*>(c),
-        static_cast<__nv_bfloat16*>(out), static_cast<__nv_bfloat16*>(scratch),
-        kt, m, kdim, n, a_rows_inner, split, nunits, tiles_m, tiles_n);
+    if (e != cudaSuccess) return (int)e;
   }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || !split) return (int)e;
@@ -708,14 +805,14 @@ int launch_chain(const void* c, const void* a, const void* b, void* out,
   const int grid = (int)((nv + 255) / 256 < (size_t)sms * 16
                              ? (nv + 255) / 256
                              : (size_t)sms * 16);
-  if (dtype == 0) {
-    ordered_sum<float4><<<grid, 256, 0, st>>>(
-        static_cast<const float4*>(c), static_cast<const float4*>(scratch),
-        static_cast<float4*>(out), kt, nv);
-  } else {
+  if (dtype == DT_BF16) {
     ordered_sum<uint2><<<grid, 256, 0, st>>>(
         static_cast<const uint2*>(c), static_cast<const uint2*>(scratch),
         static_cast<uint2*>(out), kt, nv);
+  } else {
+    ordered_sum<float4><<<grid, 256, 0, st>>>(
+        static_cast<const float4*>(c), static_cast<const float4*>(scratch),
+        static_cast<float4*>(out), kt, nv);
   }
   return (int)cudaGetLastError();
 }
@@ -734,7 +831,7 @@ extern "C" int gemm_chain(const void* c, const void* a, const void* b,
 extern "C" int blocked_matmul(const void* a, const void* b, void* out,
                               void* scratch, int m, int k, int n, int bk,
                               int dtype, int route, int sms, void* stream) {
-  if (m < 1 || k < 1 || n < 1 || bk < 1 || k % bk != 0)
+  if (m < 1 || k < 1 || n < 1 || bk < 1 || k % bk != 0 || dtype == DT_MIXED)
     return (int)cudaErrorInvalidValue;
   return launch_chain(nullptr, a, b, out, scratch, k / bk, m, bk, n, k,
                       (size_t)bk, 0, dtype, route, sms,

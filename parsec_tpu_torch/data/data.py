@@ -39,7 +39,7 @@ class DataCopy:
 
     __slots__ = ("original", "device_index", "payload", "coherency_state",
                  "version", "readers", "refcount", "older", "arena_chunk",
-                 "flags")
+                 "flags", "__weakref__")
 
     def __init__(self, original: "Data", device_index: int, payload: Any = None,
                  state: int = COHERENCY_OWNED) -> None:

@@ -129,6 +129,13 @@ class CUDADevice(DeviceModule):
             free, _total = torch.cuda.mem_get_info(torch_device)
             budget = int(free * 0.75)
         self._budget = budget or (12 << 30)
+        #: bytes that captured programs of this card hold (their static
+        #: buffers, stacked stores and graph pools), counted against the
+        #: budget beside the resident tiles (dsl/capture.py charges them)
+        self.program_bytes = 0
+        #: called at :meth:`fini` (graph capture releases this card's
+        #: programs there)
+        self.fini_hooks: List[Callable[[], None]] = []
         # serializes the residency bookkeeping (_lru/_lru_sizes/
         # _resident_bytes and the reader pins): worker threads mutate it
         # from stage-ins and epilogs, and the compound updates are not
@@ -447,7 +454,8 @@ class CUDADevice(DeviceModule):
     def _reserve(self, nbytes: int) -> None:
         """Evict LRU copies until ``nbytes`` fits the budget
         (ref: parsec_device_data_reserve_space device_gpu.c:1210)."""
-        while self._resident_bytes + nbytes > self._budget and self._lru:
+        while self._resident_bytes + self.program_bytes + nbytes > \
+                self._budget and self._lru:
             if not self._evict_one():
                 break  # everything pinned; rely on the caching allocator
 
@@ -459,6 +467,9 @@ class CUDADevice(DeviceModule):
     def fini(self) -> None:
         if self.stream is not None:
             self.stream.synchronize()
+        for hook in self.fini_hooks:
+            hook()
+        self.fini_hooks.clear()
         self._lru.clear()
         self._lru_sizes.clear()
         self._resident_bytes = 0

@@ -42,6 +42,7 @@ from ..data.data import COHERENCY_OWNED, Data, DataCopy, data_from_array
 from ..data.matrix import torch_dtype
 from ..device.cuda import CUDADevice, CUDATask
 from ..utils import mca, output
+from .fusion import Counters
 
 # access flags for insert_task args (ref: PARSEC_INPUT/OUTPUT/INOUT | AFFINITY)
 READ = FLOW_ACCESS_READ
@@ -58,6 +59,11 @@ mca.register("dtd_window_size", 2048,
              "Max in-flight inserted-but-not-executed tasks", type=int)
 mca.register("dtd_threshold_size", 1024,
              "Catch-up target once the window is hit", type=int)
+
+#: process-wide DTD counters: capture windows deferred to the scheduler,
+#: and the fused regions (and their tasks) those windows inserted
+DTD_STATS = Counters(capture_windows_deferred=0, capture_regions_fused=0,
+                     capture_tasks_fused=0)
 
 
 def _flush_body(arr):
@@ -156,9 +162,15 @@ def _as_outputs(outs) -> List[Any]:
 
 
 class DTDTaskpool(Taskpool):
-    """Ref: parsec_dtd_taskpool_new (insert_function.c:1513)."""
+    """Ref: parsec_dtd_taskpool_new (insert_function.c:1513).
 
-    def __init__(self, context: Context, name: str = "dtd") -> None:
+    ``capture`` (``True``/``"auto"``, ``"inline"`` or ``"scan"``) records
+    the inserts instead of scheduling them and runs each wait()-delimited
+    window as one program (:mod:`parsec_tpu_torch.dsl.capture`): a CUDA
+    graph on a card context, an eager replay on a CPU one."""
+
+    def __init__(self, context: Context, name: str = "dtd",
+                 capture: Any = False) -> None:
         # per-context sequence number per base name, so two live pools
         # never share a name
         seqs = getattr(context, "_dtd_name_seq", None)
@@ -193,6 +205,19 @@ class DTDTaskpool(Taskpool):
         self._touched_tiles: List[DTDTile] = []
         self._new_tile_count = 0
         self._last_class = None   # (fn, accs, nvals, jit, batch, tc)
+        #: True while the CURRENT insert window is deferred to the
+        #: scheduler (a non-capturable insert poisoned it); wait() resets
+        #: it so the next window captures again (per-window auto-defer)
+        self._capture_deferred = False
+        # whole-DAG capture mode (dsl/capture.py): record inserts, execute
+        # the pool as ONE program at wait()
+        self._capture = None
+        if capture:
+            if getattr(context, "nb_ranks", 1) > 1:
+                output.fatal("graph capture is single-rank "
+                             "(a captured pool never leaves the card)")
+            from .capture import GraphCapture
+            self._capture = GraphCapture(self, mode=capture)
         # hold the "user may still insert" action BEFORE attaching, so the
         # termdet can never observe transiently-zero counters at enqueue time
         self.addto_nb_pending_actions(1)
@@ -287,8 +312,9 @@ class DTDTaskpool(Taskpool):
 
     def insert_task(self, fn: Callable, *args, priority: int = 0,
                     name: Optional[str] = None,
-                    jit: bool = True, batch: bool = False) -> DTDTask:
-        """parsec_dtd_insert_task (ref: insert_function.c:3617).
+                    jit: bool = True, batch: bool = False) -> Optional[DTDTask]:
+        """parsec_dtd_insert_task (ref: insert_function.c:3617); None for
+        an insert that a captured pool recorded.
 
         ``args``: ``(tile, access)`` tuples become data flows; anything else
         is a by-value parameter. ``access`` may carry the NOTRACK bit to pass
@@ -313,9 +339,41 @@ class DTDTaskpool(Taskpool):
 
     def _insert_task_locked(self, fn: Callable, args, priority: int,
                             name: Optional[str],
-                            jit: bool, batch: bool) -> DTDTask:
+                            jit: bool, batch: bool) -> Optional[DTDTask]:
         if not self._open:
             output.fatal("insert_task on a closed DTD taskpool")
+        if self._capture is not None and not self._capture_deferred:
+            from .capture import CaptureDeferred
+            try:
+                self._capture.record(fn, args, jit=jit, name=name or "",
+                                     priority=priority)
+                self.inserted += 1
+                return None
+            except CaptureDeferred as e:
+                # per-window auto-defer: this wait()-delimited window holds
+                # a non-capturable insert — replay the recorded prefix
+                # through the scheduler in program order and run the REST
+                # of the window there too; capture re-arms at the next
+                # window
+                output.debug_verbose(1, "capture",
+                                     f"{self.name}: window deferred to "
+                                     f"the scheduler ({e})")
+                self._capture_deferred = True
+                DTD_STATS["capture_windows_deferred"] += 1
+                n_rec = len(self._capture.ops)
+                # capturable RUNS of the deferred window collapse into one
+                # fused super-task insert each
+                replays = self._capture.take_ops(
+                    fuse=bool(mca.get("region_fusion", True)))
+                self.inserted -= n_rec          # re-counted by the replay
+                for rfn, rargs, rprio, rname in replays:
+                    nf = getattr(rfn, "_ptdtd_fused", 0)
+                    if nf:
+                        DTD_STATS["capture_regions_fused"] += 1
+                        DTD_STATS["capture_tasks_fused"] += nf
+                    self._insert_task_locked(rfn, rargs, rprio,
+                                             rname or None, True, False)
+                # fall through: THIS task inserts normally below
         flow_accesses: List[int] = []
         arg_spec: List[Tuple[str, Any]] = []
         tiles: List[DTDTile] = []
@@ -535,7 +593,15 @@ class DTDTaskpool(Taskpool):
             self.data_flush(t)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """parsec_dtd_taskpool_wait: drain everything this process executes."""
+        """parsec_dtd_taskpool_wait: drain everything this process executes
+        (a captured pool: execute the recorded window as one program)."""
+        if self._capture is not None:
+            if not self._capture_deferred:
+                self._capture.execute()
+                return True
+            # deferred window: its tasks went through the scheduler — drain
+            # them like an uncaptured pool, then re-arm capture
+            self._capture_deferred = False
         self.ctx.start()
         target = self.local_inserted
         self.ctx._progress_loop(self.ctx.streams[0],
@@ -546,6 +612,10 @@ class DTDTaskpool(Taskpool):
 
     def close(self) -> None:
         """End of insertion: drop the open action so termination can fire."""
+        if self._capture is not None and self._capture.ops:
+            # scheduler-mode inserts execute without an explicit wait();
+            # captured ops must not be silently dropped on close
+            self._capture.execute()
         if self._open:
             self._open = False
             self.addto_nb_pending_actions(-1)

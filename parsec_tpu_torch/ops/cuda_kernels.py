@@ -13,6 +13,7 @@ on the CPU; it never falls back from one to the other.
   order, for outputs too small to fill the card; ``general`` for row
   pitches TMA cannot address. It replaces the TPU kernel
   ``_gemm_chain_call`` of the reference package's ``ops/pallas_kernels.py``.
+  It takes one dtype (float32 or bf16), or bf16 A and B with a float32 C.
 * :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
   (``csrc/flash_attention.cu``): a thread block owns a q tile and streams
   k/v tiles past an online softmax held in registers, on the route
@@ -30,7 +31,10 @@ on the CPU; it never falls back from one to the other.
 
 The CUDA sources are compiled at first use with ``nvcc`` for ``sm_90a`` into
 ``parsec_tpu_torch/build/`` and bound with ctypes through a plain C entry
-point; a machine with a card but no ``nvcc`` raises.
+point; a machine with a card but no ``nvcc`` raises. Every wrapper launches
+on the current stream and allocates only through the caching allocator, so
+a call can be captured into a CUDA graph once it has run outside one (the
+first call builds the library and sets the kernel's attributes).
 """
 
 from __future__ import annotations
@@ -195,8 +199,12 @@ def _bind(name: str, lib: ctypes.CDLL) -> None:
 # fused GEMM k-chain
 # ---------------------------------------------------------------------------
 
-#: dtype codes of the C entry point
+#: dtype codes of the C entry points (``matmul``: one dtype)
 _GEMM_CHAIN_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: ``gemm_chain``'s forms by (C, A, B) dtypes: one dtype, or bf16 A and B
+#: with a float32 C (the mixed form, code 2)
+_CHAIN_FORMS = {(torch.float32,) * 3: 0, (torch.bfloat16,) * 3: 1,
+                (torch.float32, torch.bfloat16, torch.bfloat16): 2}
 #: route codes of the C entry points
 CHAIN_ROUTES = {"general": 0, "tile": 1, "split": 2}
 #: output tile of the tile and split routes
@@ -247,10 +255,10 @@ def _check_gemm_chain(c, a_stack, b_stack) -> None:
             tuple(c.shape) != (m, b_stack.shape[2]) or kt < 1:
         raise ValueError(f"gemm_chain shapes do not chain: C {tuple(c.shape)}, "
                          f"A {tuple(a_stack.shape)}, B {tuple(b_stack.shape)}")
-    if not (c.dtype == a_stack.dtype == b_stack.dtype) or \
-            c.dtype not in _GEMM_CHAIN_DTYPES:
-        raise TypeError(f"gemm_chain takes one dtype of float32/bfloat16, got "
-                        f"{c.dtype}, {a_stack.dtype}, {b_stack.dtype}")
+    if (c.dtype, a_stack.dtype, b_stack.dtype) not in _CHAIN_FORMS:
+        raise TypeError(f"gemm_chain takes one dtype of float32/bfloat16, or "
+                        f"bfloat16 A and B with a float32 C; got {c.dtype}, "
+                        f"{a_stack.dtype}, {b_stack.dtype}")
     if not (c.device == a_stack.device == b_stack.device):
         raise ValueError("gemm_chain operands lie on different devices")
     if not (c.is_contiguous() and a_stack.is_contiguous()
@@ -260,7 +268,8 @@ def _check_gemm_chain(c, a_stack, b_stack) -> None:
 
 def gemm_chain_plain(c, a_stack, b_stack):
     """The plain PyTorch version of :func:`gemm_chain`: each step's product
-    is summed in float32, rounded to C's dtype, then added in C's dtype."""
+    is summed in float32, rounded to C's dtype, then added in C's dtype (for
+    the mixed form: float32 sums of the exact bf16 products, unrounded)."""
     dot_precision()
     out = c
     for k in range(a_stack.shape[0]):
@@ -301,9 +310,16 @@ def gemm_chain(c, a_stack, b_stack):
     Same function as the TPU kernel, per-step rounding included: each
     step's product is summed in float32 (float32 FMA, never TF32), rounded
     to C's dtype and added in C's dtype, so a bf16 C rounds at every k.
-    CPU tensors take :func:`gemm_chain_plain`; CUDA tensors launch the
-    kernel or raise."""
+    bf16 A and B with a float32 C (the mixed form) run the bf16 kernels'
+    loads with a float32 epilogue: the chain of float32 sums of exact
+    products that the reference computes.
+
+    CPU tensors take :func:`gemm_chain_plain`; ``meta`` tensors get an
+    empty result of C's shape and dtype (shape inference, no launch); CUDA
+    tensors launch the kernel or raise."""
     _check_gemm_chain(c, a_stack, b_stack)
+    if c.device.type == "meta":
+        return torch.empty_like(c)
     if c.device.type == "cpu":
         return gemm_chain_plain(c, a_stack, b_stack)
     if c.device.type != "cuda":
@@ -312,7 +328,7 @@ def gemm_chain(c, a_stack, b_stack):
     kt, m, k = a_stack.shape
     n = b_stack.shape[2]
     sms = _sm_count(c.device)
-    route = chain_route(kt, m, k, n, k, m * k, c.element_size(),
+    route = chain_route(kt, m, k, n, k, m * k, a_stack.element_size(),
                         _aligned16(c, a_stack, b_stack), sms)
     out = torch.empty_like(c)
     scratch = (torch.empty(kt, m, n, dtype=c.dtype, device=c.device)
@@ -320,20 +336,25 @@ def gemm_chain(c, a_stack, b_stack):
     err = lib.gemm_chain(c.data_ptr(), a_stack.data_ptr(), b_stack.data_ptr(),
                          out.data_ptr(),
                          None if scratch is None else scratch.data_ptr(),
-                         kt, m, k, n, _GEMM_CHAIN_DTYPES[c.dtype],
+                         kt, m, k, n,
+                         _CHAIN_FORMS[c.dtype, a_stack.dtype, b_stack.dtype],
                          CHAIN_ROUTES[route], sms,
                          torch.cuda.current_stream(c.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"gemm_chain kernel launch failed ({route} route):"
                            f" CUDA error {err}")
-    gemm_chain.launches += 1
-    gemm_chain.launches_by_route[route] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        gemm_chain.launches += 1
+        gemm_chain.launches_by_route[route] += 1
     return out
 
 
 #: wrapper calls that launched the kernel since the last reset (the main
 #: path's proof that it ran through the kernel), one per call whatever the
-#: route; only the wrapper's launch adds to it
+#: route; only the wrapper's launch adds to it. A call on a stream that is
+#: being captured into a CUDA graph records the kernel without launching it
+#: and does not count; the graph's replays launch it without the wrapper,
+#: so they are counted from a trace of the device (torch.profiler)
 gemm_chain.launches = 0
 #: the same calls by route (:func:`chain_route`)
 gemm_chain.launches_by_route = dict.fromkeys(CHAIN_ROUTES, 0)
@@ -424,8 +445,9 @@ def matmul(a, b, block=(256, 256, 256)):
     if err != 0:
         raise RuntimeError(f"matmul kernel launch failed ({route} route): "
                            f"CUDA error {err}")
-    matmul.launches += 1
-    matmul.launches_by_route[route] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        matmul.launches += 1
+        matmul.launches_by_route[route] += 1
     return out
 
 
@@ -484,8 +506,11 @@ def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
 
     Bit for bit the function of :func:`stencil1d_plain` (the kernel rounds
     every product and sum, never fusing them). CPU tensors take the plain
-    version; CUDA tensors launch the kernel (contiguous tiles) or raise."""
+    version; ``meta`` tensors get an empty result (shape inference, no
+    launch); CUDA tensors launch the kernel (contiguous tiles) or raise."""
     _check_stencil(x, left, right)
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return stencil1d_plain(x, left, right, weights)
     if x.device.type != "cuda":
@@ -505,11 +530,13 @@ def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
         torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"stencil1d kernel launch failed: CUDA error {err}")
-    stencil1d.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        stencil1d.launches += 1
     return out
 
 
 #: kernel launches since the last reset; only the wrapper's launch adds to it
+#: (not a call being captured into a CUDA graph, see gemm_chain.launches)
 stencil1d.launches = 0
 
 
@@ -652,8 +679,9 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed ({route} "
                            f"route): CUDA error {err}")
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention.launches += 1
+        flash_attention.launches_by_route[route] += 1
     return out
 
 

@@ -21,8 +21,14 @@ from .cuda_kernels import dot_precision, gemm_chain
 
 
 def _dot(c, a, b):
-    """c + a @ b, the product rounded once to c's dtype (a library call:
-    the reference leaves single tile dots to its compiler too)."""
+    """c + a @ b with float32 accumulation, the product rounded once to c's
+    dtype (a library call: the reference leaves single tile dots to its
+    compiler too). A float32 C takes the product in float32 whatever A's and
+    B's dtype: bf16 widens to float32 exactly, so bf16 tiles give float32
+    sums of exact products, as the reference's
+    ``preferred_element_type=float32`` does."""
+    if c.dtype == torch.float32:
+        return c + torch.matmul(a.float(), b.float())
     return c + torch.matmul(a, b).to(c.dtype)
 
 

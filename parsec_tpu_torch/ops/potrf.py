@@ -29,10 +29,15 @@ from .cuda_kernels import dot_precision
 
 def tile_potrf(a):
     """Cholesky of the diagonal tile (lower), from its symmetrized value.
-    ``cholesky_ex`` reports a non-SPD tile in its info output instead of
-    synchronizing with the card to raise."""
+    A tile that is not positive definite gives the reference's failed
+    factor: NaN on and below the diagonal, 0 above it. ``cholesky_ex``
+    reports the failure in its ``info`` output and the NaN is chosen on the
+    device from that output, so the body never waits for the card (and can
+    be captured in a CUDA graph)."""
     dot_precision()
-    return torch.linalg.cholesky_ex((a + a.mT) * 0.5).L
+    factor, info = torch.linalg.cholesky_ex((a + a.mT) * 0.5)
+    lower = torch.ones_like(factor, dtype=torch.bool).tril_()
+    return factor.masked_fill(lower & (info != 0), float("nan"))
 
 
 def tile_trsm(akk, amk):
@@ -98,3 +103,72 @@ def make_spd(n: int, seed: int = 0, dtype=np.float32) -> np.ndarray:
     a = rng.standard_normal((n, n)).astype(np.float64) / np.sqrt(n)
     spd = a @ a.T + np.eye(n) * n * 0.05
     return spd.astype(dtype)
+
+
+# --------------------------------------------------------------- SPD solve
+
+def _sub_product(c, a, b):
+    """c - a @ b, the product taken in float32 for a float32 c (exact
+    widening of narrower tiles), else rounded once to c's dtype."""
+    dot_precision()
+    if c.dtype == torch.float32:
+        return c - torch.matmul(a.float(), b.float())
+    return c - torch.matmul(a, b).to(c.dtype)
+
+
+def tile_trsv_l(lkk, bk):
+    """B[k] <- L(k,k)^{-1} B[k] (forward substitution step)."""
+    dot_precision()
+    return torch.linalg.solve_triangular(lkk, bk, upper=False)
+
+
+def tile_trsv_lt(lkk, bk):
+    """B[k] <- L(k,k)^{-T} B[k] (backward substitution step)."""
+    dot_precision()
+    return torch.linalg.solve_triangular(lkk.mT, bk, upper=True)
+
+
+def tile_gemv_sub(lmk, yk, bm):
+    """B[m] <- B[m] - L(m,k) Y[k]."""
+    return _sub_product(bm, lmk, yk)
+
+
+def tile_gemv_sub_t(lkm, xk, ym):
+    """Y[m] <- Y[m] - L(k,m)^T X[k]."""
+    return _sub_product(ym, lkm.mT, xk)
+
+
+def insert_posv_tasks(tp: DTDTaskpool, A: TiledMatrix,
+                      B: TiledMatrix) -> int:
+    """Solve A X = B for SPD A (the DPLASMA dposv shape): Cholesky
+    factorization followed by tiled forward and backward substitution, one
+    taskpool — the solves chain onto the factorization through the tile
+    dependencies, so panels start solving while trailing updates still run.
+    B is a (T x 1)-tile right-hand-side collection, overwritten with X.
+    Works under both execution modes (scheduler and capture). Returns the
+    task count."""
+    T = A.mt
+    if not (A.mt == A.nt and B.mt == T and B.nt == 1):
+        raise ValueError(f"posv needs a square tile grid and a T x 1 right-"
+                         f"hand side: A {A.mt}x{A.nt}, B {B.mt}x{B.nt}")
+    n0 = tp.inserted
+    insert_potrf_tasks(tp, A)
+    # forward: L Y = B
+    for k in range(T):
+        tp.insert_task(tile_trsv_l, (tp.tile_of(A, k, k), READ),
+                       (tp.tile_of(B, k, 0), RW | AFFINITY), name="TRSV_L")
+        for m in range(k + 1, T):
+            tp.insert_task(tile_gemv_sub, (tp.tile_of(A, m, k), READ),
+                           (tp.tile_of(B, k, 0), READ),
+                           (tp.tile_of(B, m, 0), RW | AFFINITY),
+                           name="GEMV_SUB")
+    # backward: L^T X = Y
+    for k in reversed(range(T)):
+        tp.insert_task(tile_trsv_lt, (tp.tile_of(A, k, k), READ),
+                       (tp.tile_of(B, k, 0), RW | AFFINITY), name="TRSV_LT")
+        for m in range(k):
+            tp.insert_task(tile_gemv_sub_t, (tp.tile_of(A, k, m), READ),
+                           (tp.tile_of(B, k, 0), READ),
+                           (tp.tile_of(B, m, 0), RW | AFFINITY),
+                           name="GEMV_SUB_T")
+    return tp.inserted - n0

@@ -10,7 +10,9 @@ parameter dict whose keys and layouts are the reference's
   :func:`~parsec_tpu_torch.parallel.transformer.flash_attention_core`),
   ``compute_dtype`` for bf16 blocks with f32 logits;
 * :func:`lm_generate` — KV-cached autoregressive decoding, greedy or
-  sampled, as an eager loop;
+  sampled: on a card the decode step is one CUDA graph, replayed once a
+  token (the counterpart of the reference's jitted ``lax.scan``), on the
+  CPU an eager loop of the same step;
 * :func:`params_from_numpy` / :func:`params_to_numpy` — the parameter tree
   to and from numpy, key for key;
 * :class:`LanguageModel` — a thin ``nn.Module`` holding that dict.
@@ -22,9 +24,12 @@ SPMD and model layer).
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import functools
 import math
+import threading
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -156,17 +161,21 @@ def lm_loss(params: dict, tokens, targets, causal: bool = True,
     return (logz - gold).mean()
 
 
-def _decode_block(bp, x, ck, cv, pos: int, scale: float, ffn=None):
-    """One transformer block for ONE new token at position ``pos`` against
-    KV caches (B, H, S, dh): the new k/v are written into the caches in
-    place at ``pos`` (the caches are preallocated; the reference updates
-    immutable arrays with ``dynamic_update_slice``), and the scores are
-    masked to the positions written so far."""
+def _decode_block(bp, x, ck, cv, pos, scale: float, ffn=None):
+    """One transformer block for ONE new token at position ``pos`` (a 0-dim
+    int64 tensor on the caches' device) against KV caches (B, H, S, dh):
+    the new k/v are written into the caches in place at ``pos``
+    (``index_copy_`` along the sequence axis; the caches are preallocated,
+    the reference updates immutable arrays with ``dynamic_update_slice``),
+    and the scores are masked to the positions written so far. Every
+    position runs the same kernels on the same shapes, reading the position
+    from the device, so one captured step serves them all."""
     h = _ln(x, bp["ln1_g"], bp["ln1_b"])                     # (B, 1, D)
     qkv = torch.einsum("bsd,chdk->cbhsk", h, bp["wqkv"])     # (3,B,H,1,dh)
     q, k, v = qkv[0], qkv[1], qkv[2]
-    ck[:, :, pos:pos + 1] = k
-    cv[:, :, pos:pos + 1] = v
+    at = pos.reshape(1)
+    ck.index_copy_(2, at, k)
+    cv.index_copy_(2, at, v)
     s = torch.einsum("bhqd,bhkd->bhqk", q, ck) * scale       # (B,H,1,S)
     k_pos = torch.arange(ck.shape[2], device=ck.device)
     s = s.masked_fill(k_pos[None, None, None, :] > pos, float("-inf"))
@@ -180,13 +189,85 @@ def _decode_block(bp, x, ck, cv, pos: int, scale: float, ffn=None):
     return x + h @ bp["w2"] + bp["b2"], ck, cv
 
 
+class _DecodeState:
+    """What a decode step reads and writes on the device, the same from
+    call to call: the per-layer KV caches, the token fed in, its position
+    and the output; on a card, the step's CUDA graph once it is captured.
+    The parameter tensors the graph reads are held weakly (a cached step
+    does not keep a model alive) and checked at every lookup; the
+    generator a sampled step advances is held."""
+
+    def __init__(self, params, L, B, H, S, dh, n_tokens, int_dtype,
+                 generator) -> None:
+        like = params["embed"]
+        self.cks = [like.new_zeros((B, H, S, dh)) for _ in range(L)]
+        self.cvs = [like.new_zeros((B, H, S, dh)) for _ in range(L)]
+        self.tok = torch.empty((B,), dtype=int_dtype, device=like.device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=like.device)
+        self.out = torch.empty((B, n_tokens), dtype=int_dtype,
+                               device=like.device)
+        self.graph = None
+        self.lock = threading.Lock()
+        self.refs = [weakref.ref(t) for t in _param_tensors(params)]
+        self.generator = generator
+
+    def serves(self, params, generator) -> bool:
+        return self.generator is generator and \
+            all(r() is t for r, t in zip(self.refs, _param_tensors(params)))
+
+
+def _param_tensors(params) -> list:
+    return [params[k] for k in ("embed", "pos", "lnf_g", "lnf_b")] + \
+        [bp[k] for bp in params["blocks"] for k in sorted(bp)]
+
+
+#: captured decode steps kept across calls (LRU): one per parameter set,
+#: batch, prompt length, token count, prompt dtype and sampling (the
+#: temperature and generator a sampled step bakes in)
+_DECODE_GRAPHS_MAX = 8
+_decode_graphs: "collections.OrderedDict[tuple, _DecodeState]" = \
+    collections.OrderedDict()
+_decode_lock = threading.Lock()
+
+
+def _decode_state(params, generator, key, make) -> _DecodeState:
+    """The cached decode state under ``key`` when it still serves
+    ``params`` and ``generator``, else a new one from ``make()``, cached."""
+    with _decode_lock:
+        st = _decode_graphs.get(key)
+        if st is not None and st.serves(params, generator):
+            _decode_graphs.move_to_end(key)
+            return st
+        for k in [k for k, v in _decode_graphs.items() if v.refs[0]() is None]:
+            del _decode_graphs[k]               # their parameters are gone
+        st = _decode_graphs[key] = make()
+        _decode_graphs.move_to_end(key)
+        while len(_decode_graphs) > _DECODE_GRAPHS_MAX:
+            _decode_graphs.popitem(last=False)
+        return st
+
+
 def lm_generate(params: dict, prompt, n_tokens: int, greedy: bool = True,
                 temperature: float = 1.0,
                 generator: Optional[torch.Generator] = None):
     """Autoregressive generation with per-layer KV caches: the whole prompt
     is prefilled in one pass through ``block_apply`` (dense attention core,
     as the reference) seeding caches of (B, H, P + n_tokens, dh), then one
-    ``_decode_block`` pass per new token.
+    decode step per new token: the embedding, a ``_decode_block`` pass per
+    layer, the head and the sampled token, which the step writes into the
+    output and feeds to the next step, and the device position it advances.
+
+    On a card the prefill runs eagerly and the decode step is one CUDA
+    graph, replayed once a token. The graph and its buffers (caches, token,
+    position, output) are kept across calls with the same parameter
+    tensors, batch, prompt length, token count and sampling, so only the
+    first such call pays the capture: it runs its first step eagerly on a
+    side stream (the warm-up), captures the next and replays that graph
+    for the remaining ``n_tokens - 2`` tokens; a later call replays it for
+    all ``n_tokens - 1`` (sampling without a ``generator`` makes a new one
+    every call, and so a new graph). A ``generator``'s state is registered
+    with the graph, so sampling advances it on every replay; a graph that
+    cannot take it raises. On the CPU the same step runs eagerly.
 
     ``prompt`` (B, P) integer; returns (B, P + n_tokens) in the prompt's
     integer dtype, on the parameters' device. Greedy (``argmax``, the first
@@ -195,6 +276,15 @@ def lm_generate(params: dict, prompt, n_tokens: int, greedy: bool = True,
     on the parameters' device; a fresh one seeded 0 when None).
     ``temperature <= 0`` means greedy; ``n_tokens <= 0`` returns the prompt.
     """
+    return _generate(params, prompt, n_tokens, greedy, temperature,
+                     generator, graph=True)
+
+
+def _generate(params, prompt, n_tokens, greedy, temperature, generator,
+              graph: bool):
+    """:func:`lm_generate`; ``graph=False`` runs every decode step eagerly
+    on a card as well (the comparison the card tests and the smoke run
+    time the graph against)."""
     _check_dense_lm(params)
     if n_tokens <= 0:
         return prompt
@@ -207,6 +297,7 @@ def lm_generate(params: dict, prompt, n_tokens: int, greedy: bool = True,
         raise ValueError(
             f"prompt ({P}) + n_tokens ({n_tokens}) exceeds max_seq "
             f"{params['pos'].shape[0]}")
+    cached = greedy or generator is not None
     if not greedy and generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     blocks = params["blocks"]
@@ -214,6 +305,19 @@ def lm_generate(params: dict, prompt, n_tokens: int, greedy: bool = True,
     S = P + n_tokens                  # caches sized to what's generated
     scale = 1.0 / math.sqrt(dh)
     K.dot_precision()
+    graph = graph and dev.type == "cuda" and n_tokens >= 3
+
+    sampler = None if greedy else generator
+
+    def make():
+        return _DecodeState(params, len(blocks), B, H, S, dh, n_tokens,
+                            prompt.dtype, sampler)
+    if graph and cached:
+        key = (tuple(id(t) for t in _param_tensors(params)), B, P, n_tokens,
+               prompt.dtype, None if greedy else (temperature, id(sampler)))
+        st = _decode_state(params, sampler, key, make)
+    else:
+        st = make()
 
     def sample(logits):
         if greedy:
@@ -222,31 +326,63 @@ def lm_generate(params: dict, prompt, n_tokens: int, greedy: bool = True,
         return torch.multinomial(probs, 1, generator=generator
                                  ).squeeze(-1).to(prompt.dtype)
 
-    # ---- prefill: the whole prompt in one pass through block_apply (the
-    # ONE source of full-forward block math), seeding the KV caches
-    x = params["embed"][prompt] + params["pos"][:P][None]
-    cks, cvs = [], []
-    for bp in blocks:
-        x, k, v = block_apply(bp, x, causal=True, return_kv=True)
-        ck = x.new_zeros((B, H, S, dh))
-        cv = x.new_zeros((B, H, S, dh))
-        ck[:, :, :P] = k
-        cv[:, :, :P] = v
-        cks.append(ck)
-        cvs.append(cv)
-    h = _ln(x, params["lnf_g"], params["lnf_b"])
-    tok = sample(torch.einsum("bd,vd->bv", h[:, -1], params["embed"]))
-
-    toks = [tok]
-    for i in range(n_tokens - 1):
-        pos = P + i
-        x = params["embed"][tok][:, None, :] + params["pos"][pos][None, None]
+    # the decode step: its state lives on the device (the token fed in, its
+    # position, the output), so every step is the same program
+    def step():
+        x = params["embed"][st.tok][:, None, :] \
+            + params["pos"].index_select(0, st.pos.reshape(1))[None]
         for li, bp in enumerate(blocks):
-            x, _, _ = _decode_block(bp, x, cks[li], cvs[li], pos, scale)
+            x, _, _ = _decode_block(bp, x, st.cks[li], st.cvs[li], st.pos,
+                                    scale)
         h = _ln(x, params["lnf_g"], params["lnf_b"])
-        tok = sample(torch.einsum("bd,vd->bv", h[:, 0], params["embed"]))
-        toks.append(tok)
-    return torch.cat([prompt, torch.stack(toks, dim=1)], dim=1)
+        nxt = sample(torch.einsum("bd,vd->bv", h[:, 0], params["embed"]))
+        st.out.index_copy_(1, (st.pos - (P - 1)).reshape(1), nxt[:, None])
+        st.tok.copy_(nxt)
+        st.pos.add_(1)
+
+    with st.lock:
+        # ---- prefill: the whole prompt in one pass through block_apply
+        # (the ONE source of full-forward block math), seeding the caches
+        x = params["embed"][prompt] + params["pos"][:P][None]
+        for li, bp in enumerate(blocks):
+            x, k, v = block_apply(bp, x, causal=True, return_kv=True)
+            for c, kv in ((st.cks[li], k), (st.cvs[li], v)):
+                c[:, :, :P] = kv
+                c[:, :, P:] = 0
+        h = _ln(x, params["lnf_g"], params["lnf_b"])
+        st.tok.copy_(sample(torch.einsum("bd,vd->bv", h[:, -1],
+                                         params["embed"])))
+        st.out[:, 0] = st.tok
+        st.pos.fill_(P)
+
+        # ---- decode
+        if not graph:
+            for _ in range(n_tokens - 1):
+                step()
+        elif st.graph is not None:
+            for _ in range(n_tokens - 1):
+                st.graph.replay()
+        else:
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                step()                                  # the warm-up
+            torch.cuda.current_stream(dev).wait_stream(side)
+            g = torch.cuda.CUDAGraph()
+            if not greedy:
+                g.register_generator_state(generator)
+            # not through torch.cuda.graph, whose entry empties the caching
+            # allocator: that can cost more than the capture
+            with torch.cuda.stream(side):
+                g.capture_begin()
+                try:
+                    step()
+                finally:
+                    g.capture_end()
+            st.graph = g
+            for _ in range(n_tokens - 2):
+                g.replay()
+        return torch.cat([prompt, st.out], dim=1)
 
 
 class LanguageModel(nn.Module):

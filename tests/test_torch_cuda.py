@@ -744,3 +744,353 @@ def test_cpu_chore_gets_host_tensors_of_device_written_tiles(gctx):
     assert A.data_of(0, 0).get_copy(0).payload.device.type == "cpu"
     assert np.array_equal(A.to_dense(), np.full((4, 4), 7.0))
     assert _dev(gctx).executed_tasks == 2
+
+
+# --- the mixed chain form and CUDA graph capture (graph-capture slice) -----
+
+# (kt, m, k, n, route) of the mixed form, bf16 A and B with a float32 C:
+# the routes follow A's and B's 2-byte pitches
+MIXED_CASES = [(17, 512, 512, 512, "split"), (4, 768, 256, 768, "tile"),
+               (5, 64, 64, 20, "general")]
+
+
+@pytest.mark.parametrize("kt,m,k,n,route", MIXED_CASES)
+def test_mixed_chain_matches_plain_on_every_route(kt, m, k, n, route):
+    """bf16 A and B with a float32 C through a kernel launch (counted on the
+    route), within the float32 tolerance of the other kernel tests (rtol/
+    atol 1e-4); on small integers, whose float32 sums are exact in any
+    order, bit for bit."""
+    _need_card()
+    gen = torch.Generator(device="cuda").manual_seed(kt * m)
+    s = k ** -0.25
+    c = torch.randn(m, n, device="cuda", generator=gen)
+    a = (torch.randn(kt, m, k, device="cuda", generator=gen) * s).bfloat16()
+    b = (torch.randn(kt, k, n, device="cuda", generator=gen) * s).bfloat16()
+    with _counted_on(K.gemm_chain, route):
+        got = K.gemm_chain(c, a, b)
+    assert got.dtype == torch.float32
+    torch.testing.assert_close(got, K.gemm_chain_plain(c, a, b), rtol=1e-4,
+                               atol=1e-4)
+    ci, ai, bi = _integer_chain(kt, m, k, n, kt)
+    ci = ci.float()
+    assert torch.equal(K.gemm_chain(ci, ai, bi), K.gemm_chain_plain(ci, ai, bi))
+
+
+def _graph_of(fn, *static):
+    """``fn(*static)`` warmed once, then captured into a CUDA graph; returns
+    (graph, its static output)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*static)
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        out = fn(*static)
+    return g, out
+
+
+def _replays_hold(fn, make, hold, n=2):
+    """Capture ``fn`` on the inputs ``make(0)`` and replay it ``n`` times on
+    new inputs ``make(i)`` copied into the static ones, each replay's output
+    held by ``hold(out, inputs)``. The launch is counted once (at capture):
+    replays do not pass through the wrapper."""
+    static = make(0)
+    g, out = _graph_of(fn, *static)
+    for i in range(1, n + 1):
+        new = make(i)
+        for s, x in zip(static, new):
+            if s is not None:
+                s.copy_(x)
+        g.replay()
+        torch.cuda.synchronize()
+        hold(out, new)
+
+
+def _equal_to(plain):
+    def hold(out, inputs):
+        assert torch.equal(out, plain(*inputs))
+    return hold
+
+
+def test_gemm_chain_replays_in_a_cuda_graph():
+    """bf16 on small integers (bit for bit) on the split and tile routes,
+    float32 within rtol/atol 1e-4, the mixed form bit for bit on
+    integers."""
+    _need_card()
+    for kt, m, k, n, _ in (CHAIN_CASES[3], CHAIN_CASES[4]):
+        def f32(i):
+            gen = torch.Generator(device="cuda").manual_seed(200 + i)
+            s = k ** -0.25
+            return (torch.randn(m, n, device="cuda", generator=gen),
+                    torch.randn(kt, m, k, device="cuda", generator=gen) * s,
+                    torch.randn(kt, k, n, device="cuda", generator=gen) * s)
+
+        def f32_holds(out, x):
+            torch.testing.assert_close(out, K.gemm_chain_plain(*x),
+                                       rtol=1e-4, atol=1e-4)
+
+        def mixed(i):
+            c, a, b = _integer_chain(kt, m, k, n, 300 + i)
+            return c.float(), a, b
+        _replays_hold(K.gemm_chain,
+                      lambda i: _integer_chain(kt, m, k, n, 100 + i),
+                      _equal_to(K.gemm_chain_plain))
+        _replays_hold(K.gemm_chain, f32, f32_holds)
+        _replays_hold(K.gemm_chain, mixed, _equal_to(K.gemm_chain_plain))
+
+
+def test_matmul_replays_in_a_cuda_graph():
+    _need_card()
+    block = (256, 256, 256)
+
+    def ints(i):
+        gen = torch.Generator(device="cuda").manual_seed(400 + i)
+        return tuple(torch.randint(-16, 17, sh, device="cuda", generator=gen
+                                   ).bfloat16()
+                     for sh in ((512, 1024), (1024, 256)))
+    _replays_hold(lambda a, b: K.matmul(a, b, block), ints,
+                  _equal_to(lambda a, b: K.matmul_plain(a, b, block)))
+
+
+def test_stencil1d_replays_in_a_cuda_graph():
+    _need_card()
+    _replays_hold(
+        K.stencil1d,
+        lambda i: _stencil_operands(8, 4099, 5000, 17, torch.float32, 500 + i),
+        _equal_to(K.stencil1d_plain))
+
+
+def test_flash_attention_replays_in_a_cuda_graph():
+    """bf16 on the wgmma route, each element within
+    ``flash_attention_bf16_tolerance``; float32 within 2e-4."""
+    _need_card()
+    kw = dict(causal=True, q_offset=0, k_offset=0)
+    for dtype in (torch.bfloat16, torch.float32):
+        def inputs(i):
+            return tuple((t.float() * (1 + 0.25 * i)).to(dtype)
+                         for t in _flash_inputs((2, 512, 64), (2, 512, 64),
+                                                dtype))
+        _replays_hold(lambda q, k, v: K.flash_attention(q, k, v, causal=True),
+                      inputs, lambda out, x: _flash_holds(out, *x, kw, 0))
+
+
+def _gemm_mats(prefix, a, b, ts, dtype):
+    return (collection_from_numpy(prefix + "A", a, ts, ts, dtype=dtype),
+            collection_from_numpy(prefix + "B", b, ts, ts, dtype=dtype),
+            collection_from_numpy(prefix + "C",
+                                  np.zeros((a.shape[0], b.shape[1]),
+                                           np.float32), ts, ts, dtype=dtype))
+
+
+@pytest.mark.parametrize("capture", ["inline", "scan"])
+def test_captured_dtd_gemm_is_the_scheduled_one_bit_for_bit(gctx, capture):
+    """bf16 GEMM of 17 x 17 tiles of 64^2 (kt = 17: every GEMM_K task runs
+    the chain kernel): the captured DAG, first run (warm-up + capture) and
+    replayed on other collections of the same shape, equals the scheduled
+    DAG bit for bit; the replay launches the chain kernel from the graph."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    rng = np.random.default_rng(17)
+    n, ts = 17 * 64, 64
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, n)).astype(np.float32)
+    A, B, C = _gemm_mats("s", a, b, ts, torch.bfloat16)
+    tp = DTDTaskpool(gctx, "sched")
+    insert_gemm_tasks(tp, A, B, C, batch_k=True)
+    _drain(gctx, tp)
+    want = C.to_dense()
+    try:
+        for run in ("first", "replay"):
+            mats = _gemm_mats(run, a, b, ts, torch.bfloat16)
+            tp = DTDTaskpool(gctx, run, capture=capture)
+            insert_gemm_tasks(tp, *mats, batch_k=True)
+            before = K.gemm_chain.launches
+            _drain(gctx, tp)
+            assert tp._capture.last_mode == capture
+            assert tp._capture.cache_hit == (run == "replay")
+            # the warm-up launches the kernel through the wrapper once a
+            # task; the capture records it uncounted, the replay launches
+            # it from the graph
+            assert K.gemm_chain.launches - before == \
+                (17 * 17 if run == "first" else 0)
+            np.testing.assert_array_equal(mats[2].to_dense(), want)
+    finally:
+        CAP._program_cache.clear()
+
+
+@pytest.mark.parametrize("capture", ["inline", "scan"])
+def test_captured_potrf_passes_the_256_gate(gctx, capture):
+    """The reference benchmark's POTRF 256 gate (64^2 tiles: max|L L^T - A|
+    < 1e-2), on the first (captured) run and on a replay."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    spd = make_spd(256, seed=11)
+    try:
+        for run in ("first", "replay"):
+            P = collection_from_numpy(f"P{run}", spd, 64, 64)
+            tp = DTDTaskpool(gctx, run, capture=capture)
+            insert_potrf_tasks(tp, P)
+            _drain(gctx, tp)
+            assert tp._capture.cache_hit == (run == "replay")
+            L = np.tril(P.to_dense())
+            assert np.abs(L @ L.T - spd).max() < 1e-2
+    finally:
+        CAP._program_cache.clear()
+
+
+@pytest.mark.parametrize("capture", ["inline", "scan"])
+def test_captured_stencil_replay_is_the_plain_iteration(gctx, capture):
+    """The DTD stencil (16 tiles x 8 iterations, 128 tasks) captured: the
+    tiles are filled on the caller's stream behind a busy wait and with no
+    synchronize, so the execution must order itself after that stream;
+    the first DAG (warm-up + capture) and a second one on refilled tiles
+    (a replay of the kept graph) are each the plain whole-row iteration
+    bit for bit, and the graph holds one stencil kernel node a task."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.stencil import insert_stencil1d_tasks
+    NT, TS, IT = 16, 4096, 8
+    x0 = torch.randn(1, NT * TS, device="cuda",
+                     generator=torch.Generator(device="cuda").manual_seed(9))
+    want = x0
+    for _ in range(IT):
+        want = K.stencil1d_plain(want, None, None)
+    A = TiledMatrix("CSA", 1, NT * TS, 1, TS, device="cuda")
+    B = TiledMatrix("CSB", 1, NT * TS, 1, TS, device="cuda")
+    torch.cuda.synchronize()
+    try:
+        for run in ("first", "replay"):
+            torch.cuda._sleep(50_000_000)           # the caller's stream busy
+            A.fill(lambda m, n: x0[:, n * TS:(n + 1) * TS].clone())
+            B.fill(lambda m, n: torch.zeros(1, TS, device="cuda"))
+            tp = DTDTaskpool(gctx, run, capture=capture)
+            assert insert_stencil1d_tasks(tp, A, B, IT) == NT * IT
+            _drain(gctx, tp)
+            assert tp._capture.last_mode == capture
+            assert tp._capture.cache_hit == (run == "replay")
+            got = torch.cat([A.data_of(0, i).newest_copy().payload
+                             for i in range(NT)], dim=1)
+            assert torch.equal(got, want)
+        nodes = tp._capture.last_program.kernel_nodes()
+        assert sum(n for name, n in nodes.items()
+                   if "stencil1d_kernel" in name) == NT * IT
+    finally:
+        CAP._program_cache.clear()
+
+
+def test_captured_programs_count_against_the_card_and_go_at_fini():
+    """A captured program charges its buffers to its card's tile budget;
+    the staged tiles are unpinned after the execution; a card over budget
+    evicts its older programs; the context's fini releases the rest."""
+    _need_card()
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.dsl.fusion import CAPTURE_CACHE_STATS
+    CAP._program_cache.clear()
+    rng = np.random.default_rng(21)
+    ctx = Context(nb_cores=1)
+    dev = _dev(ctx)
+    try:
+        progs = []
+        for n in (128, 192):                     # two DAG shapes
+            a = rng.standard_normal((n, n)).astype(np.float32)
+            mats = _gemm_mats(f"m{n}", a, a, 64, torch.float32)
+            tp = DTDTaskpool(ctx, f"m{n}", capture="inline")
+            insert_gemm_tasks(tp, *mats, batch_k=True)
+            _drain(ctx, tp)
+            prog = tp._capture.last_program
+            progs.append(prog)
+            assert prog.dev is dev and prog.charged >= 3 * n * n * 4
+            assert all(mats[k].data_of(i, j).get_copy(dev.device_index)
+                       .readers == 0 for k in range(3)
+                       for i in range(n // 64) for j in range(n // 64))
+            if n == 128:
+                assert dev.program_bytes == prog.charged
+                dev.set_budget(dev._resident_bytes + dev.program_bytes)
+        # the second program put the card over budget: the first went
+        assert progs[0].released and not progs[1].released
+        assert dev.program_bytes == progs[1].charged
+        assert CAPTURE_CACHE_STATS["cache_evictions"] >= 1
+    finally:
+        ctx.fini()
+    assert progs[1].released and dev.program_bytes == 0
+    assert not any(getattr(p, "dev", None) is dev
+                   for _, p in CAP._program_cache.oldest_first())
+
+
+def test_captured_pool_reads_what_the_scheduler_wrote_and_back(gctx):
+    """A scheduled pool, a captured one and a scheduled one again on the
+    same collection (small-integer f32 data, every sum exact): each reads
+    the one before, so C = 3 A B exactly; every result lands as the CUDA
+    device's copy."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    rng = np.random.default_rng(3)
+    a = rng.integers(-4, 5, (128, 1088)).astype(np.float32)
+    b = rng.integers(-4, 5, (1088, 128)).astype(np.float32)
+    A, B, C = _gemm_mats("o", a, b, 64, torch.float32)
+    dev = _dev(gctx)
+    try:
+        for capture in (False, "inline", False):
+            tp = DTDTaskpool(gctx, "order", capture=capture)
+            insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            _drain(gctx, tp)
+            assert C.data_of(0, 0).newest_copy().device_index == \
+                dev.device_index
+        np.testing.assert_array_equal(C.to_dense(), 3 * (a @ b))
+    finally:
+        CAP._program_cache.clear()
+
+
+def test_decode_graph_gives_the_eager_loop_tokens():
+    """Greedy generation with the decode step as one replayed CUDA graph
+    gives the eager loop's tokens, on the call that captures the graph and
+    on a later call that replays the kept graph for every step (another
+    prompt of the same shape); sampling registers its generator with the
+    graph and is reproducible from its seed."""
+    _need_card()
+    cfg = TM.ModelConfig(vocab_size=64, d_model=64, d_ff=128, n_heads=2,
+                         n_layers=2, max_seq=48)
+    params = TM.params_from_numpy(TM.init_lm_params(8, cfg))
+    prompt = torch.arange(16, device="cuda", dtype=torch.int32).reshape(2, 8)
+    graph = TM.lm_generate(params, prompt, 20)
+    eager = TM._generate(params, prompt, 20, True, 1.0, None, graph=False)
+    assert torch.equal(graph, eager)
+    kept = len(TM._decode_graphs)
+    other = (prompt * 3 + 1) % cfg.vocab_size
+    again = TM.lm_generate(params, other, 20)
+    assert len(TM._decode_graphs) == kept       # the kept graph replayed
+    assert torch.equal(again, TM._generate(params, other, 20, True, 1.0,
+                                           None, graph=False))
+
+    def sampled():
+        g = torch.Generator(device="cuda").manual_seed(3)
+        return TM.lm_generate(params, prompt, 20, greedy=False, generator=g)
+    s1, s2 = sampled(), sampled()
+    assert torch.equal(s1, s2) and tuple(s1.shape) == (2, 28)
+    assert int(s1.min()) >= 0 and int(s1.max()) < cfg.vocab_size
+
+
+@pytest.mark.parametrize("which", ["getrf", "geqrf"])
+def test_captured_lu_and_qr_match_the_scheduler(gctx, which):
+    """The LU and QR DAGs (in-tile LU loop, triangular solves, cuSOLVER's
+    QR) captured inline at 256 x 256 in 64^2 tiles, first run and replay,
+    within rtol/atol 1e-4 of the scheduled DAG (QR's R up to each row's
+    sign, which cuSOLVER may pick per call)."""
+    from parsec_tpu_torch.dsl import capture as CAP
+    from parsec_tpu_torch.ops.geqrf import insert_geqrf_tasks
+    from parsec_tpu_torch.ops.getrf import insert_getrf_tasks, make_dd
+    insert = insert_getrf_tasks if which == "getrf" else insert_geqrf_tasks
+    a = make_dd(256, seed=6) if which == "getrf" else \
+        np.random.default_rng(6).standard_normal((256, 256)).astype(np.float32)
+
+    def run(capture, tag):
+        M = collection_from_numpy(f"{which}{tag}", a, 64, 64)
+        tp = DTDTaskpool(gctx, tag, capture=capture)
+        insert(tp, M)
+        _drain(gctx, tp)
+        out = M.to_dense().astype(np.float64)
+        return np.abs(np.triu(out)) if which == "geqrf" else out
+    want = run(False, "s")
+    try:
+        for tag in ("first", "replay"):
+            np.testing.assert_allclose(run("inline", tag), want, rtol=1e-4,
+                                       atol=1e-4)
+    finally:
+        CAP._program_cache.clear()
