@@ -17,7 +17,14 @@ port's main paths through the entry points a user calls:
   route; the device time a task is split into the chain's two phases and
   the ``torch.stack`` copies) and the DTD tiled
   Cholesky (f32, N = 8192 in 256 x 256 tiles), with the 256-size
-  correctness gates of the reference benchmark;
+  correctness gates of the reference benchmark. Both DAGs run through the
+  native DTD engine's per-task lane (``csrc/ptdtd.cpp``, built with the
+  host C++ compiler beside the kernels), every task checked to have taken
+  it, in turns with the Python engine (``--mca native_enabled 0``): both
+  engines' slopes, the GEMM's C and the factor equal bit for bit between
+  them, and the host time of a GEMM task split by phase (insertion,
+  select, ready handling, stage-in, submit, epilog and release) from the
+  PINS events, with the slopes with PINS on;
 * the DTD 1D Jacobi stencil (f32, N = 2^28 points in 16 tiles of 2^24, 8
   iterations: every task runs the ``stencil1d`` kernel, 128 launches a DAG),
   held bit for bit to the plain whole-row iteration; the DTD tiled LU
@@ -51,21 +58,25 @@ Every phase that fails ends the run with a nonzero exit code.
 Output: one line per measurement, then the card's name and power limit as
 nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per ported
 kernel: launches on the main path, error against the plain version, times
-and bound; flash's entry also its profiled device time, its launches by
-route, the mma route's times in turns with it and a float32 sub-entry), and
-last ``{"ok": true, "device": {...}}``.
+and bound; the chain's entry counts the native lane's scheduled DAGs and
+the replays, with each engine's count, PINS on and off, beside it under
+``launches_by_lane``; flash's entry also its profiled device time, its
+launches by route, the mma route's times in turns with it and a float32
+sub-entry), and last ``{"ok": true, "device": {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
 import os
 import subprocess
 import sys
+import sysconfig
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -188,6 +199,142 @@ def slope(run, lo: int = 1, hi: int = 3) -> tuple:
     t_lo = min(run(lo) for _ in range(REPS))
     t_hi = min(run(hi) for _ in range(REPS))
     return (t_hi - t_lo) / (hi - lo), t_lo, t_hi
+
+
+@contextlib.contextmanager
+def dtd_engine(ptt, native: bool):
+    """Pools whose first insert runs in the block take the native DTD
+    engine (``native``, the default) or the Python one (``--mca
+    native_enabled 0``)."""
+    if not native:
+        ptt.mca.set("native_enabled", False)
+    try:
+        yield
+    finally:
+        ptt.mca.params.unset("native_enabled")
+
+
+def engine_name(native: bool) -> str:
+    return "native lane" if native else "Python engine"
+
+
+def check_lane(tp, ctx, before: dict, n: int, native: bool,
+               what: str) -> None:
+    """Raises unless all ``n`` tasks of the pool ``tp`` took the engine
+    asked for: on the native per-task lane, the PTDTD_STATS delta since
+    ``before`` counts every one of them and the id->task map is empty
+    again; on the Python engine, none."""
+    from parsec_tpu_torch.dsl.dtd import PTDTD_STATS
+    d = PTDTD_STATS.delta(before)
+    if native:
+        ok = (tp._neng is not None and not tp._batch_on
+              and d["tasks_native"] == n and d["tasks_batched"] == 0
+              and not ctx._dtd_ntasks)
+    else:
+        ok = tp._neng is None and d["tasks_native"] == 0
+    if not ok:
+        raise AssertionError(
+            f"{what}: the {engine_name(native)} did not take all {n} tasks "
+            f"(PTDTD_STATS delta {d}, {len(ctx._dtd_ntasks)} tasks left "
+            f"in the engine's map)")
+
+
+def slopes_in_turns(run, engines=(True, False), lo: int = 1,
+                    hi: int = 3) -> dict:
+    """:func:`slope` for each engine, their runs in turns (so both see the
+    same card and host state): {native: (slope, t_lo, t_hi)}."""
+    t = {e: ([], []) for e in engines}
+    for _ in range(REPS):
+        for e in engines:
+            t[e][0].append(run(lo, e))
+            t[e][1].append(run(hi, e))
+    return {e: ((min(h) - min(l_)) / (hi - lo), min(l_), min(h))
+            for e, (l_, h) in t.items()}
+
+
+class HostSplit:
+    """Exclusive host time of a DAG by phase, from the port's PINS events
+    (``core/pins.py``): scheduler select (SELECT), ready handling (the
+    SCHEDULE pushes of ready tasks and the DTD prepare_input,
+    PREPARE_INPUT), the chore hook (EXEC), and epilog plus release (the
+    device module's epilog, COMPLETE_EXEC and RELEASE_DEPS); inside the
+    hook and the device polls, stage-in (the device module's input
+    gathering: version checks, host-to-device copies, pins) and submit
+    (the body: the stacks and the chain launch) are timed by wrapping
+    those two calls; insertion is the insert loop. Time goes to the
+    innermost open phase, so nested phases (an epilog inside a hook's
+    device poll, a push inside a release) count once; what no phase holds
+    is the progress loop's own (device polls, backoff, waiting for the
+    card)."""
+
+    PHASES = ("insert", "select", "ready", "stage-in", "submit", "hook",
+              "epilog+release")
+
+    def __init__(self, pins_mod, ctx, dev) -> None:
+        self.ctx = ctx
+        self.acc = dict.fromkeys(self.PHASES, 0)
+        self.stack, self.mark = [], 0
+        self.cbs, self.wrapped = [], []
+        P = pins_mod
+        for begin, end, phase in (
+                (P.SELECT_BEGIN, P.SELECT_END, "select"),
+                (P.SCHEDULE_BEGIN, P.SCHEDULE_END, "ready"),
+                (P.PREPARE_INPUT_BEGIN, P.PREPARE_INPUT_END, "ready"),
+                (P.EXEC_BEGIN, P.EXEC_END, "hook"),
+                (P.COMPLETE_EXEC_BEGIN, P.COMPLETE_EXEC_END,
+                 "epilog+release"),
+                (P.RELEASE_DEPS_BEGIN, P.RELEASE_DEPS_END,
+                 "epilog+release")):
+            for ev, cb in ((begin, lambda s, t, x, p=phase: self.push(p)),
+                           (end, lambda s, t, x: self.pop())):
+                ctx.pins.register(ev, cb)
+                self.cbs.append((ev, cb))
+        self.wrap(dev, "_gather_inputs", "stage-in")
+        self.wrap(dev, "_epilog", "epilog+release")
+
+    def push(self, phase: str) -> None:
+        now = time.perf_counter_ns()
+        if self.stack:
+            self.acc[self.stack[-1]] += now - self.mark
+        self.stack.append(phase)
+        self.mark = now
+
+    def pop(self) -> None:
+        now = time.perf_counter_ns()
+        if self.stack:
+            self.acc[self.stack.pop()] += now - self.mark
+        self.mark = now
+
+    def wrap(self, obj, name: str, phase: str) -> None:
+        orig = getattr(obj, name)
+
+        def timed(*args, **kw):
+            self.push(phase)
+            try:
+                return orig(*args, **kw)
+            finally:
+                self.pop()
+        setattr(obj, name, timed)
+        self.wrapped.append((obj, name))
+
+    def reset(self) -> None:
+        self.acc = dict.fromkeys(self.PHASES, 0)
+        self.stack = []
+
+    def line(self, what: str, wall_s: float, ntasks: int) -> str:
+        per = {p: ns / 1e3 / ntasks for p, ns in self.acc.items()}
+        held = sum(per.values())
+        wall = wall_s * 1e6 / ntasks
+        return (f"{what} host split a task (us, exclusive): " + ", ".join(
+            f"{p} {v:.1f}" for p, v in per.items()) + f"; phases {held:.1f} "
+            f"of the DAG's {wall:.1f} a task, loop and wait {wall - held:.1f}")
+
+    def detach(self) -> None:
+        for ev, cb in self.cbs:
+            self.ctx.pins.unregister(ev, cb)
+        for obj, name in self.wrapped:
+            delattr(obj, name)
+        self.cbs, self.wrapped = [], []
 
 
 def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
@@ -1257,7 +1404,41 @@ def check_mixed_chain(K, torch, gen) -> None:
         if bad or not exact or launched != 2 or got.dtype != torch.float32:
             raise AssertionError(f"gemm_chain's mixed form disagrees with its "
                                  f"plain version on the {route} route")
+        if (kt, m, k, n) == (17, 512, 512, 512):
+            time_mixed_chain(K, torch, c, a, b, err.max().item())
     torch.cuda.synchronize()
+
+
+def time_mixed_chain(K, torch, c, a, b, max_err: float) -> None:
+    """The mixed form's times at its split-route shape, beside its bound
+    (bf16 A and B read once, the float32 C read and written once, 2 kt m k
+    n operations at the bf16 peak) and one PyTorch call of the same
+    function where there is one: ``torch.addmm`` of the concatenated bf16
+    stacks into the float32 C (``out_dtype``)."""
+    kt, m, k = a.shape
+    n = b.shape[2]
+    kernel_ms = cuda_time_ms(lambda: K.gemm_chain(c, a, b))
+    plain_ms = cuda_time_ms(lambda: K.gemm_chain_plain(c, a, b))
+    a_cat = a.permute(1, 0, 2).reshape(m, kt * k)
+    b_cat = b.reshape(kt * k, n)
+    K.dot_precision()
+    try:
+        def library():
+            return torch.addmm(c, a_cat, b_cat, out_dtype=torch.float32)
+        lib_err = (library() - K.gemm_chain_plain(c, a, b)).abs().max().item()
+        library_ms = cuda_time_ms(library)
+        lib = (f"torch.addmm(out_dtype=float32) {library_ms:.4f} ms (max abs "
+               f"err against plain {lib_err:.3e})")
+    except (TypeError, RuntimeError) as e:
+        library_ms = None
+        lib = f"no single PyTorch call computes it here ({e})"
+    nbytes = kt * (m * k + k * n) * a.element_size() + 2 * m * n * 4
+    e = kernel_entry("gemm_chain", "", "", 0, max_err, kernel_ms, plain_ms,
+                     nbytes, 2.0 * kt * m * k * n, "bfloat16", library_ms)
+    log(f"gemm_chain mixed (bf16 A, B; float32 C) kt={kt} C {m}x{n} k={k}: "
+        f"kernel {kernel_ms:.4f} ms, plain {plain_ms:.4f} ms, {lib}; bound "
+        f"{e['bound_ms']:.4f} ms ({e['bound_by']}: {nbytes / 1e6:.2f} MB, "
+        f"{2.0 * kt * m * k * n / 1e9:.2f} GFLOP) ({smi_line()})")
 
 
 def capture_line(what, mode, first_s, cap_s, slope_s, sched_s, busy, window,
@@ -1672,8 +1853,11 @@ def main() -> int:
               "False)", file=sys.stderr)
         return 1
     import parsec_tpu_torch as ptt
+    from parsec_tpu_torch import native as NATIVE
+    from parsec_tpu_torch.core import pins as pins_mod
     from parsec_tpu_torch.data.matrix import collection_from_numpy
     from parsec_tpu_torch.device.cuda import CUDADevice
+    from parsec_tpu_torch.dsl.dtd import PTDTD_STATS
     from parsec_tpu_torch.ops import cuda_kernels as K
     from parsec_tpu_torch.ops.gemm import gemm_flops, insert_gemm_tasks
     from parsec_tpu_torch.ops.potrf import (insert_potrf_tasks, make_spd,
@@ -1690,9 +1874,22 @@ def main() -> int:
     # ---- 2. kernel check ------------------------------------------------
     t0 = time.perf_counter()
     names = ("gemm_chain", "flash_attention", "stencil1d")
-    with ThreadPoolExecutor(len(names)) as pool:   # one nvcc per source
-        list(pool.map(K.build, names))
-    log(f"built {', '.join(names)} in {time.perf_counter() - t0:.3f} s")
+    lanes = ("ptdtd", "ptsched")         # the host lanes: C++, no device code
+    py_h = os.path.join(sysconfig.get_paths()["include"], "Python.h")
+    log(f"Python headers for the host lanes: {py_h} "
+        f"{'present' if os.path.exists(py_h) else 'MISSING'}")
+    # one compiler process per source (nvcc for the kernels, the host C++
+    # compiler for the lanes), all started together
+    with ThreadPoolExecutor(len(names) + len(lanes)) as pool:
+        jobs = [pool.submit(K.build, n) for n in names] + \
+            [pool.submit(NATIVE.build, s) for s in lanes]
+        for job in jobs:
+            job.result()
+    log(f"built {', '.join(names)} (nvcc) and _{', _'.join(lanes)} "
+        f"({' '.join(NATIVE.cxx())}) in {time.perf_counter() - t0:.3f} s")
+    for stem in lanes:
+        for line in NATIVE.build_log.get(stem, "").splitlines():
+            log(f"c++ {stem}: {line}")
     for name in names:
         for line in K.build_log.get(name, "").splitlines():
             log(f"nvcc {name}: {line}")
@@ -1738,48 +1935,119 @@ def main() -> int:
                               dtype=torch.bfloat16)
     kt = N // TS
     counts = {"dags": 0, "inserted": 0, "insert_s": {}}
+    #: (native, PINS on) -> [DAGs, chain launches, of them on the split
+    #: route]: each engine's runs, with and without the split's PINS
+    #: callbacks, keep a launch count of their own
+    by_lane = {}
 
-    def run_dags(n_dags: int) -> float:
-        tp = ptt.DTDTaskpool(ctx, "gemm")
-        t = time.perf_counter()
-        for _ in range(n_dags):
-            counts["inserted"] += insert_gemm_tasks(tp, A, B, C, batch_k=True)
-        counts["insert_s"].setdefault(n_dags, []).append(
-            time.perf_counter() - t)
-        tp.wait()
-        tp.close()
-        ctx.wait()
-        torch.cuda.synchronize()
+    def run_dags(n_dags: int, native: bool = True, split=None) -> float:
+        """``n_dags`` GEMM DAGs in one pool on the engine asked for (the
+        native per-task lane by default); every task is checked to have
+        taken it, and the chain launches the run made are added to its
+        lane's count. With ``split``, its phases are timed."""
+        before = PTDTD_STATS.snapshot()
+        l0 = K.gemm_chain.launches
+        s0 = K.gemm_chain.launches_by_route["split"]
+        with dtd_engine(ptt, native):
+            tp = ptt.DTDTaskpool(ctx, "gemm")
+            if split is not None:
+                split.wrap(tp, "_cuda_submit", "submit")
+                split.push("insert")
+            t = time.perf_counter()
+            n = 0
+            for _ in range(n_dags):
+                n += insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            if split is not None:
+                split.pop()
+            counts["insert_s"].setdefault((n_dags, native), []).append(
+                time.perf_counter() - t)
+            tp.wait()
+            tp.close()
+            ctx.wait()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        check_lane(tp, ctx, before, n, native, "DTD GEMM")
+        lane = by_lane.setdefault((native, split is not None), [0, 0, 0])
+        lane[0] += n_dags
+        lane[1] += K.gemm_chain.launches - l0
+        lane[2] += K.gemm_chain.launches_by_route["split"] - s0
+        counts["inserted"] += n
         counts["dags"] += n_dags
-        return time.perf_counter() - t
+        return secs
 
     K.gemm_chain.launches = 0
     K.gemm_chain.launches_by_route = dict.fromkeys(K.CHAIN_ROUTES, 0)
     executed0 = dev.executed_tasks
     t_warm = run_dags(1)            # stages the tiles in
-    gemm_s, t_lo, t_hi = slope(run_dags)
-    launches = K.gemm_chain.launches
-    gemm_by_route = dict(K.gemm_chain.launches_by_route)
-    executed = dev.executed_tasks - executed0
+    gemm_slopes = slopes_in_turns(run_dags)
+    gemm_s, t_lo, t_hi = gemm_slopes[True]
     tiles = (N // TS) ** 2
-    log(f"DTD GEMM bf16 N={N} TS={TS} kt={kt}: warm {t_warm:.3f} s, "
-        f"T1 {t_lo:.3f} s, T3 {t_hi:.3f} s, slope {gemm_s * 1e3:.1f} ms/DAG "
-        f"-> {gemm_flops(N, N, N) / 1e9 / gemm_s:.1f} GFLOP/s")
-    log(f"gemm_chain launches {launches} over {counts['dags']} DAGs "
-        f"({launches / counts['dags']:.0f}/DAG; by route {gemm_by_route}), "
-        f"device executed {executed} of {counts['inserted']} inserted tasks")
-    if launches != tiles * counts["dags"]:
-        raise AssertionError(f"gemm_chain launched {launches} times, "
-                             f"expected {tiles} per DAG")
-    if gemm_by_route["split"] != launches:
-        raise AssertionError("the DTD GEMM's chains did not all take the "
-                             "split route (TMA + wgmma)")
+    for native, (s_, lo_, hi_) in gemm_slopes.items():
+        log(f"DTD GEMM bf16 N={N} TS={TS} kt={kt}, {engine_name(native)}: "
+            f"warm {t_warm:.3f} s, T1 {lo_:.3f} s, T3 {hi_:.3f} s, slope "
+            f"{s_ * 1e3:.1f} ms/DAG -> {gemm_flops(N, N, N) / 1e9 / s_:.1f} "
+            f"GFLOP/s ({smi})")
+    log(f"DTD GEMM: every one of the {tiles} tasks a DAG took the engine "
+        f"asked for (PTDTD_STATS delta, the engine's id map empty after)")
+    # the two engines' C, bit for bit: the same bodies in the same per-tile
+    # chain order, from a zero C each
+    zero = torch.zeros(TS, TS, dtype=torch.bfloat16)
+    got = {}
+    for native in (True, False):
+        C.fill(lambda m, n: zero)
+        run_dags(1, native)
+        got[native] = tiles_of(torch, C)
+    same = torch.equal(got[True], got[False])
+    log(f"DTD GEMM one DAG from a zero C: native lane and Python engine "
+        f"{'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the DTD GEMM's C differs between the native "
+                             "lane and the Python engine")
+    del got
+    # the host time of a task by phase, one DAG under each engine, then the
+    # slopes with the split's PINS callbacks on (beside the slopes above)
+    split = HostSplit(pins_mod, ctx, dev)
+    for native in (True, False):
+        split.reset()
+        wall = run_dags(1, native, split)
+        log(split.line(f"DTD GEMM {engine_name(native)}", wall, tiles)
+            + f" ({smi})")
+    pins_slopes = slopes_in_turns(
+        lambda n_, native: run_dags(n_, native, split))
+    split.detach()
+    for native in (True, False):
+        log(f"DTD GEMM {engine_name(native)} slope with PINS on (the split's "
+            f"callbacks) {pins_slopes[native][0] * 1e3:.1f} ms/DAG, off "
+            f"{gemm_slopes[native][0] * 1e3:.1f} ms/DAG ({smi})")
+    executed = dev.executed_tasks - executed0
+    for (native, pins), (dags, n_l, n_split) in sorted(by_lane.items()):
+        log(f"gemm_chain launches on the {engine_name(native)}, PINS "
+            f"{'on' if pins else 'off'}: {n_l} over {dags} DAGs "
+            f"({n_l / dags:.0f}/DAG, {n_split} on the split route)")
+        if n_l != tiles * dags:
+            raise AssertionError(
+                f"gemm_chain launched {n_l} times on the "
+                f"{engine_name(native)}, expected {tiles} per DAG")
+        if n_split != n_l:
+            raise AssertionError("the DTD GEMM's chains did not all take "
+                                 "the split route (TMA + wgmma)")
+    if sum(lane[1] for lane in by_lane.values()) != K.gemm_chain.launches:
+        raise AssertionError("gemm_chain launched outside the DTD GEMM runs")
+    # the main path's count: the native lane's scheduled DAGs, PINS off;
+    # the other lanes' counts stand beside it in the kernels line
+    launches = by_lane[(True, False)][1]
+    lane_launches = {
+        f"{'native' if native else 'python'}{'_pins' if pins else ''}": n_l
+        for (native, pins), (_, n_l, _) in by_lane.items()}
+    gemm_by_route = dict.fromkeys(K.CHAIN_ROUTES, 0)
+    gemm_by_route["split"] = launches
+    log(f"device executed {executed} of {counts['inserted']} inserted tasks")
     if executed != counts["inserted"]:
         raise AssertionError("not every task ran on the CUDA device")
     # one DAG (1024 tasks) fits the insert window: its insertion runs alone,
     # before tp.wait() drains the ready queue (with 3 DAGs the window
     # stalls interleave insertion and execution)
-    ins = min(counts["insert_s"][1])
+    ins = min(counts["insert_s"][(1, True)])
     log(f"DTD GEMM breakdown: insertion {ins * 1e3:.1f} ms of the one-DAG "
         f"run's {t_lo * 1e3:.1f} ms; the card waits during it")
     busy, window, by_name = device_profile(torch, lambda: run_dags(1))
@@ -1857,19 +2125,25 @@ def main() -> int:
     Pm = collection_from_numpy("Pbench", spd, pTS, pTS)
     ptasks = {"n": 0}
 
-    def run_potrf(n_dags: int) -> float:
+    def run_potrf(n_dags: int, native: bool = True) -> float:
         """Repeated in-place factorizations in one pool: WAW chains
         serialize the reps (refactoring a factor is numerical nonsense, but
-        op count and dataflow are identical)."""
+        op count and dataflow are identical). Every task is checked to have
+        taken the engine asked for."""
         Pm.fill(lambda m, k: spd_t[m * pTS:(m + 1) * pTS,
                                    k * pTS:(k + 1) * pTS])
-        tp = ptt.DTDTaskpool(ctx, "potrf")
-        t = time.perf_counter()
-        for _ in range(n_dags):
-            ptasks["n"] = insert_potrf_tasks(tp, Pm)
-        tp.wait(); tp.close(); ctx.wait()
-        torch.cuda.synchronize()
-        return time.perf_counter() - t
+        before = PTDTD_STATS.snapshot()
+        with dtd_engine(ptt, native):
+            tp = ptt.DTDTaskpool(ctx, "potrf")
+            t = time.perf_counter()
+            for _ in range(n_dags):
+                ptasks["n"] = insert_potrf_tasks(tp, Pm)
+            tp.wait(); tp.close(); ctx.wait()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t
+        check_lane(tp, ctx, before, ptasks["n"] * n_dags, native,
+                   "DTD POTRF")
+        return secs
 
     run_potrf(1)
     L = torch.from_numpy(Pm.to_dense()).to("cuda", torch.float64).tril()
@@ -1880,13 +2154,27 @@ def main() -> int:
     if not resid < 1e-5:
         raise AssertionError(f"POTRF residual check failed: {resid}")
     del L, A64
-    potrf_s, p_lo, p_hi = slope(run_potrf)
+    potrf_slopes = slopes_in_turns(run_potrf)
+    potrf_s = potrf_slopes[True][0]
     spd_dev = spd_t.to("cuda")
     chol_ms = cuda_time_ms(lambda: torch.linalg.cholesky_ex(spd_dev), iters=5)
-    log(f"DTD POTRF f32 N={pN} TS={pTS}: T1 {p_lo:.3f} s, T3 {p_hi:.3f} s, "
-        f"slope {potrf_s * 1e3:.1f} ms/DAG -> "
-        f"{potrf_flops(pN) / 1e9 / potrf_s:.1f} GFLOP/s "
-        f"(yardstick torch.linalg.cholesky_ex: {chol_ms:.3f} ms)")
+    for native, (s_, lo_, hi_) in potrf_slopes.items():
+        log(f"DTD POTRF f32 N={pN} TS={pTS}, {engine_name(native)}: T1 "
+            f"{lo_:.3f} s, T3 {hi_:.3f} s, slope {s_ * 1e3:.1f} ms/DAG -> "
+            f"{potrf_flops(pN) / 1e9 / s_:.1f} GFLOP/s (yardstick "
+            f"torch.linalg.cholesky_ex: {chol_ms:.3f} ms) ({smi})")
+    got = {}
+    for native in (True, False):
+        run_potrf(1, native)
+        got[native] = tiles_of(torch, Pm)
+    same = torch.equal(got[True], got[False])
+    log(f"DTD POTRF: every one of the {ptasks['n']} tasks a DAG took the "
+        f"engine asked for; one DAG's factor, native lane and Python "
+        f"engine: {'bit-identical' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("the DTD POTRF factor differs between the "
+                             "native lane and the Python engine")
+    del got
     del spd_dev
     captured_potrf(ptt, torch, ctx, spd, potrf_s, chol_ms)
     ctx.fini()
@@ -1912,6 +2200,7 @@ def main() -> int:
                flash_entry(K, torch, gen, flash_launches, flash_by_route),
                stencil_entry(K, torch, gen, stencil_launches),
                matmul]
+    kernels[0]["launches_by_lane"] = lane_launches
     for e in kernels:
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path")

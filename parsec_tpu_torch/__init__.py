@@ -5,14 +5,19 @@ applications are DAGs of tile tasks with dataflow dependencies, inserted
 through the dynamic insert-task interface (DTD) and executed by a runtime
 that manages versioned tile copies between host memory and the card. Task
 bodies are torch functions; the hot tile kernels are written by hand in CUDA
-C++ (``csrc/``) and built with nvcc at first use.
+C++ (``csrc/``) and built with nvcc at first use; the DTD engine and the
+scheduler plane are C++ host lanes (``csrc/ptdtd.cpp``, ``csrc/ptsched.cpp``)
+built with the host compiler at first use (:mod:`parsec_tpu_torch.native`).
 
 Layer map:
   utils/   — config (MCA params), logging
-  core/    — task model, scheduling, termdet, PINS, the progress loop
+  core/    — task model, scheduling, the scheduler plane, termdet, PINS,
+             the progress loop
   data/    — data copies/coherency, collections, tiled matrices
   device/  — device modules: the CPU and the CUDA card
-  dsl/     — DTD insert_task
+  dsl/     — DTD insert_task (the native engine's per-task and batched
+             lanes, the Python engine), graph capture
+  native   — build and load of the C++ host lanes
   ops/     — tile bodies (gemm, potrf) and the CUDA kernels (gemm_chain,
              flash_attention)
   parallel/ — the model layer: the GPT-class LM's serving path (forward,

@@ -144,6 +144,12 @@ class Context:
             ExecutionStream(i, self, vp_id=self.vpmap.thread_to_vp(i))
             for i in range(self.nb_cores)
         ]
+        #: True when the user picked a scheduler policy explicitly (ctor
+        #: arg or --mca sched): execution-order policy then matters to
+        #: them, and order-bypassing fast lanes (the DTD batched drain,
+        #: which backfills outside the scheduler queues) must not engage
+        self.sched_explicit = scheduler is not None or \
+            mca.get("sched", "lfq") != "lfq"
         self.sched = sched_mod.create(scheduler)
         self.sched.install(self)
         for s in self.streams:
@@ -151,6 +157,15 @@ class Context:
         # device registry (lazy import to avoid cycles)
         from ..device.device import DeviceRegistry
         self.devices = DeviceRegistry(self)
+        #: native multi-pool scheduler plane (core/sched_plane.py): the
+        #: shared ready plane the DTD batched lane drains through —
+        #: per-worker hot queues, work stealing, weighted DRR across
+        #: taskpools, admission windows. None when --mca sched_native 0,
+        #: --mca native_enabled 0, the context has a CUDA device (its pools
+        #: stay off the batched lane), or the selected scheduler policy has
+        #: no native flavor (counted fallback)
+        from .sched_plane import SchedPlane
+        self.sched_plane = SchedPlane.maybe_create(self)
         self._taskpools: Dict[int, Taskpool] = {}
         self._active = 0
         self._cv = threading.Condition()
@@ -160,6 +175,22 @@ class Context:
         self._work_event = threading.Event()
         self._error: Optional[BaseException] = None
         self._prio_seen = False   # any nonzero-priority task ever scheduled
+        #: weak bound-method refs invoked when a progress loop starts or
+        #: starves — producers holding amortization buffers (the DTD ready
+        #: batch, the batched lane's insert buffer) drain here so direct
+        #: _progress_loop users see their tasks. WEAK on purpose: a dropped
+        #: taskpool must not be pinned alive by a hook it once registered
+        self._drain_hooks: List = []
+        #: the per-context native DTD engine (set by DTDTaskpool), the map
+        #: from its per-task-lane ids to their Python tasks, and the count
+        #: of LIVE batched-lane pools: while any pool has the batched
+        #: insert lane armed, every stream's hot loop drains the engine's
+        #: internal ready structure (drain_ready). A count, not a sticky
+        #: flag: each pool's final completion decrements it, so later
+        #: non-batch pools don't pay an empty drain every idle iteration
+        self._dtd_neng = None
+        self._dtd_ntasks: Dict[int, Task] = {}
+        self._dtd_batch_pools = 0
         # per-thread stream binding
         self._tls = threading.local()
         self._tls.stream = self.streams[0]
@@ -177,6 +208,27 @@ class Context:
         output.debug_verbose(2, "runtime",
                              f"context up: {self.nb_cores} streams, "
                              f"sched={self.sched.name}, device={self.device}")
+
+    # ------------------------------------------------------------ drain hooks
+    def register_drain_hook(self, bound_method) -> None:
+        import weakref
+        self._drain_hooks.append(weakref.WeakMethod(bound_method))
+
+    def unregister_drain_hook(self, bound_method) -> None:
+        self._drain_hooks = [r for r in self._drain_hooks
+                             if r() is not None and r() != bound_method]
+
+    def _run_drain_hooks(self) -> None:
+        dead = False
+        for ref in tuple(self._drain_hooks):
+            fn = ref()
+            if fn is None:
+                dead = True
+                continue
+            fn()
+        if dead:
+            self._drain_hooks = [r for r in self._drain_hooks
+                                 if r() is not None]
 
     # ------------------------------------------------------------------ setup
     def add_taskpool(self, tp: Taskpool) -> None:
@@ -291,6 +343,11 @@ class Context:
         for t in self._workers:
             t.join(timeout=5.0)
         self.devices.fini()
+        # the per-context engine and plane outlive pools: release them
+        # with the context (a live pool keeps its own engine reference)
+        self._dtd_neng = None
+        self._dtd_ntasks = {}
+        self.sched_plane = None
         self._release_gc_hold()  # error paths can finalize w/ pools active
 
     # ------------------------------------------------------------------ scheduling
@@ -336,6 +393,40 @@ class Context:
         # threadlocal binding (workers bind in _worker_main); unknown
         # threads (user code) act as the master stream
         return getattr(self._tls, "stream", None) or self.streams[0]
+
+    # ------------------------------------------------------------ native lane
+    def _dtd_drain(self, stream: ExecutionStream) -> bool:
+        """One burst through the DTD engine's batched ready-drain (the
+        in-lane execute of the batched insert lane): pops ready batch-lane
+        tasks, runs their bodies through per-class batched callbacks, and
+        feeds completions straight back into the release walk without
+        surfacing intermediate ids. Only newly-ready PER-TASK-lane
+        successors come back (``surfaced``) and enter the ordinary
+        scheduler. Body exceptions poison the engine lane and propagate
+        through the usual error machinery."""
+        eng = self._dtd_neng
+        if eng is None:
+            return False
+        try:
+            nexec, surfaced = eng.drain_ready(256, 4096, stream.th_id)
+        except BaseException as e:  # noqa: BLE001 — a batched body raised
+            if self._error is None:
+                self._error = e
+            self._work_event.set()
+            if stream.is_master:
+                raise
+            return True
+        if nexec:
+            stream.nb_executed += nexec
+        if surfaced:
+            ntasks = self._dtd_ntasks
+            rtasks = []
+            for rid in surfaced:
+                t = ntasks[rid]
+                t.deps_remaining = 0    # paranoid-check coherence
+                rtasks.append(t)
+            self.schedule(rtasks, stream)
+        return nexec > 0 or bool(surfaced)
 
     # ------------------------------------------------------------------ hot loop
     def _worker_main(self, stream: ExecutionStream) -> None:
@@ -404,6 +495,7 @@ class Context:
         misses = 0
         deadline = None if timeout is None else time.monotonic() + timeout
         backoff_max = mca.get("runtime_backoff_max_us", 1000) / 1e6
+        self._run_drain_hooks()
         while not until():
             if self._error is not None:
                 if stream.is_master:
@@ -422,6 +514,14 @@ class Context:
                 else:
                     task, distance = self.sched.select(stream)
                 stream.nb_selects += 1
+            if task is None and self._dtd_batch_pools:
+                # native DTD batched lane: drain the engine's internal
+                # ready structure through per-class batched callbacks.
+                # AFTER the scheduler select on purpose: batched tasks all
+                # carry priority 0 (prioritized inserts ride the per-task
+                # lane), so scheduler-queued work — which includes every
+                # prioritized task — must preempt the batch backfill
+                did_something |= self._dtd_drain(stream)
             if task is not None:
                 misses = 0
                 # drain a burst before re-checking the loop conditions: the
@@ -488,16 +588,34 @@ class Context:
                 did_something = True
             if not did_something:
                 misses += 1
+                self._run_drain_hooks()   # starving: drain buffers
                 if deadline is not None and time.monotonic() > deadline:
                     return
                 # exponential backoff while starving (ref: scheduling.c:801-804)
-                time.sleep(min(backoff_max, 1e-6 * (1 << min(misses, 10))))
+                cap = backoff_max
+                if self.sched_plane is not None and self._dtd_batch_pools \
+                        and self.sched_plane.queued_total() > 0:
+                    # "no local work" is NOT global with multiple pools:
+                    # this stream's last pick starved, but the plane holds
+                    # queued work (another pool's overflow spill) a fresh
+                    # arbitration round will hand out — stay hot instead
+                    # of parking a worker against a non-empty plane
+                    cap = 2e-5
+                time.sleep(min(cap, 1e-6 * (1 << min(misses, 10))))
 
     # ------------------------------------------------------------------ task FSM
     def _task_progress(self, stream: ExecutionStream, task: Task,
                        distance: int = 0) -> int:
         """__parsec_task_progress (ref: scheduling.c:507)."""
         tc = task.task_class
+        if getattr(task, "nid", -1) >= 0 and not self.pins.paranoid \
+                and not self.paranoid and tc.fast_inline and not tc.jit_ok:
+            # DTD native lane: eager CPU body, synchronous completion — one
+            # fused call replaces the prepare/execute/complete FSM. With
+            # PINS enabled the lean cycle fires the core lifecycle events
+            # itself; --mca pins_paranoid 1 restores the full per-task FSM
+            task.taskpool._lean_cycle(stream, task)
+            return HOOK_DONE
         if task.status < TASK_STATUS_PREPARE_INPUT:
             task.status = TASK_STATUS_PREPARE_INPUT
             if tc.prepare_input is not None:

@@ -10,8 +10,18 @@ reference's linked callback lists.
 from __future__ import annotations
 
 import threading
+import weakref
 from typing import Callable, Dict, List
 
+from ..utils import mca
+
+mca.register(
+    "pins_paranoid", False,
+    "Full-fidelity instrumentation: force instrumented pools OFF the "
+    "native DTD engine so every task pays the per-task Python PINS cycle "
+    "(every callback fires per task, including the PREPARE_INPUT pair). "
+    "Default off: the native engine stays engaged under PINS and fires "
+    "the core lifecycle events itself", type=bool)
 
 
 # Event names (ref: PINS_FLAG enum, parsec/mca/pins/pins.h:26-55)
@@ -47,12 +57,31 @@ class PinsManager:
         self._chains: Dict[str, List[Callable]] = {e: [] for e in ALL_EVENTS}
         self._lock = threading.Lock()
         self.enabled = False
+        #: True when instrumentation must eject pools from the native
+        #: engine (``enabled`` and ``--mca pins_paranoid 1``). This — not
+        #: ``enabled`` — is what the lane-eligibility gates consult, so
+        #: plain instrumentation keeps the hot path native. Cached as a
+        #: plain attribute because the DTD per-task progress path reads it
+        #: per task; recomputed when a callback registers (the only way
+        #: ``enabled`` flips) and when the mca param changes.
+        self.paranoid = False
+        ref = weakref.ref(self)
+
+        def _recompute(_value=None, _ref=ref):
+            m = _ref()
+            if m is not None:
+                m.paranoid = m.enabled and mca.get("pins_paranoid", False)
+
+        self._recompute_paranoid = _recompute
+        mca.params.on_change("pins_paranoid", _recompute)
+        _recompute()
 
     def register(self, event: str, cb: Callable) -> None:
         """PARSEC_PINS_REGISTER: prepend cb to the event chain."""
         with self._lock:
             self._chains[event].insert(0, cb)
             self.enabled = True
+        self._recompute_paranoid()
 
     def unregister(self, event: str, cb: Callable) -> None:
         with self._lock:
@@ -61,6 +90,7 @@ class PinsManager:
             except ValueError:
                 pass
             self.enabled = any(self._chains.values())
+        self._recompute_paranoid()
 
     def fire(self, event: str, stream, task, extra=None) -> None:
         """PARSEC_PINS(...) macro equivalent; no-op when nothing registered."""

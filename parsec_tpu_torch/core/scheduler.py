@@ -53,6 +53,14 @@ class SchedulerModule:
     name = "base"
     priority = 0  # component selection priority, highest wins
 
+    #: native arbitration flavor of this policy on the scheduler plane
+    #: (csrc/ptsched.h): "wdrr" | "fifo" | "prio" | "rndsteal", or None
+    #: when the policy has no native analogue — the plane then declines
+    #: (counted in SCHED_STATS["policy_fallback"]) and every engine keeps
+    #: its private ready structure, so ``--mca sched <name>`` selects
+    #: ordering uniformly across the interpreted and native paths
+    native_policy: Optional[str] = None
+
     def install(self, context) -> None:
         self.context = context
 
@@ -348,6 +356,7 @@ class SchedLFQ(_LocalQueuesBase):
     spilling straight to the shared system dequeue; distance-ordered steal
     (ref: parsec/mca/sched/lfq/sched_lfq_module.c:73, hbbuffer.c)."""
     name = "lfq"
+    native_policy = "wdrr"
     priority = 20
 
     def flow_init(self, stream) -> None:
@@ -393,6 +402,7 @@ class SchedPBQ(_LocalQueuesBase):
     the system queue — hot work never leaves the owning stream
     (ref: sched_pbq, hbbuffer_push_all_by_priority)."""
     name = "pbq"
+    native_policy = "prio"
 
     flow_init = SchedLFQ.flow_init
 
@@ -414,6 +424,7 @@ class SchedLHQ(_LocalQueuesBase):
     walks it back down before crossing to other VPs
     (ref: sched_lhq_module.c, nested hbbuffers per hwloc level)."""
     name = "lhq"
+    native_policy = "wdrr"
 
     def install(self, context) -> None:
         super().install(context)
@@ -521,6 +532,7 @@ class SchedLTQ(_LocalQueuesBase):
     the victim's best heap and SPLITS it, carrying half home — related
     tasks migrate together (ref: sched_ltq_module.c + maxheap.c)."""
     name = "ltq"
+    native_policy = "prio"
 
     def flow_init(self, stream) -> None:
         with self._init_lock:
@@ -600,6 +612,7 @@ class SchedLL(_LocalQueuesBase):
     """Local LIFO: push and pop the same end (depth-first), steal the other
     (ref: sched_ll)."""
     name = "ll"
+    native_policy = "fifo"
 
     def flow_init(self, stream) -> None:
         with self._init_lock:
@@ -628,6 +641,7 @@ class SchedLLP(_LocalQueuesBase):
     priority class); no system queue; thieves take from the cold end
     (ref: sched_llp, parsec_lifo_with_prio)."""
     name = "llp"
+    native_policy = "prio"
 
     def flow_init(self, stream) -> None:
         with self._init_lock:
@@ -694,6 +708,7 @@ class _GlobalBase(SchedulerModule):
 class SchedGD(_GlobalBase):
     """Global dequeue (ref: sched_gd)."""
     name = "gd"
+    native_policy = "fifo"
 
     def schedule(self, stream, tasks, distance: int = 0) -> None:
         tasks = list(tasks)
@@ -711,6 +726,7 @@ class SchedGD(_GlobalBase):
 class SchedRND(_GlobalBase):
     """Random order global queue (ref: sched_rnd)."""
     name = "rnd"
+    native_policy = "rndsteal"
 
     def install(self, context) -> None:
         super().install(context)
@@ -757,17 +773,20 @@ class SchedAP(_GlobalHeapBase):
     """Absolute priority (ref: sched_ap): depth-first (LIFO) among equal
     priorities — the freshest ready task continues the critical path."""
     name = "ap"
+    native_policy = "prio"
     tie_lifo = True
 
 
 class SchedSPQ(_GlobalHeapBase):
     """Shared priority queue (ref: sched_spq)."""
     name = "spq"
+    native_policy = "prio"
 
 
 class SchedIP(_GlobalHeapBase):
     """Inverse priority (ref: sched_ip): lowest priority first."""
     name = "ip"
+    native_policy = None   # inverse priority has no native flavor
     sign = 1
 
 

@@ -1,0 +1,66 @@
+// C-level contract between the native engines (_ptexec, _ptdtd) and the
+// native device lane (_ptdev) — the fourth separate CPython extension.
+//
+// Same linkage model as ptcomm_iface.h: the artifacts share no symbols
+// and meet at runtime through PyCapsules carrying plain-C vtables. Both
+// directions of the device hot path are GIL-free:
+//
+//   engine -> device  (PtDevSubmitVtbl): a release sweep (or a comm
+//     ingest) discovering a newly-ready DEVICE-BODIED task enqueues it
+//     onto the device lane's lock-free MPSC pending queue — one function
+//     call, no GIL, never blocks. The task does NOT enter the engine's
+//     ready structure (a device chore no longer makes the pool
+//     ineligible; it surfaces here instead — the rsurf pattern of the
+//     comm lane applied to the device plane).
+//
+//   device -> engine  (PtDevRetireVtbl): the device manager thread
+//     observed a dispatched task's completion events (the device
+//     array's readiness, the cudaEventQuery of device_gpu.c:2593) and lands the
+//     completion straight into the engine's release walk — successor
+//     decrements, slot retires and ready pushes all run without the GIL,
+//     exactly like a local CPU retire (the kernel_epilog ->
+//     complete_task_execution edge of device_gpu.c:3179, funneled).
+//
+// Lifetime rules (enforced by the device lane's Python owner, which
+// owns both ends): the Lane pins the engine object with a Python reference
+// for the bind window (bind_pool INCREFs, unbind_pool DECREFs), and a
+// bound engine must be unbound before the Lane is destroyed. Vtables
+// are POD copied by value; `dev`/`obj` are borrowed pointers whose
+// validity is exactly the bind window.
+
+#ifndef PARSEC_TPU_PTDEV_IFACE_H
+#define PARSEC_TPU_PTDEV_IFACE_H
+
+#include <stdint.h>
+
+// bump on any layout/semantics change; both sides check before use
+#define PTDEV_ABI 1
+
+// capsule names (PyCapsule_New/Import contract)
+#define PTDEV_SUBMIT_CAPSULE "parsec_tpu_torch.ptdev.submit_vtbl"
+#define PTDEV_RETIRE_CAPSULE "parsec_tpu_torch.ptdev.retire_vtbl"
+
+extern "C" {
+
+// device-lane entry point the engine release sweeps call (NO GIL):
+typedef struct PtDevSubmitVtbl {
+    int abi;
+    void *dev;  // the ptdev Lane
+    // enqueue one newly-ready device-bodied task `tid` of pool `pool`
+    // onto the lane's pending queue; never blocks, never takes the GIL
+    void (*submit)(void *dev, uint32_t pool, int32_t tid);
+} PtDevSubmitVtbl;
+
+// engine-side entry point the device manager thread calls (NO GIL):
+typedef struct PtDevRetireVtbl {
+    int abi;
+    void *obj;  // the engine object (ptexec Graph / ptdtd Engine)
+    // task `tid` finished on the device and its outputs already landed in
+    // the Python-owned slots (the manager's poll callback lands them
+    // under the GIL BEFORE this is called): run the release walk
+    void (*retire)(void *obj, int32_t tid);
+} PtDevRetireVtbl;
+
+}  // extern "C"
+
+#endif  // PARSEC_TPU_PTDEV_IFACE_H

@@ -8,8 +8,9 @@ This module stands where parsec/mca/device/cuda + the generic GPU runtime
   whichever thread wins the manager try-lock drives the device (the CAS
   owner/manager model of device_gpu.c:3398-3424).
 * One CUDA stream per device carries every copy and kernel the module issues
-  (the reference splits push/exec/pop over streams[0..n],
-  device_gpu.c:3438-3515; that split is a later step). A ``torch.cuda.Event``
+  (PaRSEC's C splits push/exec/pop over streams[0..n],
+  device_gpu.c:3438-3515; the TPU runtime this port follows has no such
+  split, and neither has the port). A ``torch.cuda.Event``
   recorded after each submit plays the completion event, polled with
   ``query()`` (ref: parsec_device_progress_stream, device_gpu.c:2593). Keeping
   every allocation and use on one stream is also what lets PyTorch's caching

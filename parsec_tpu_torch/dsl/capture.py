@@ -484,7 +484,7 @@ class GraphCapture:
         #: ("flow", tile_index, access) | ("scalar", value) | ("array", arr)
         self.ops: List[Tuple[Any, List[Tuple]]] = []
         #: per op, parallel to ``ops``: what a DEFER replay must restore —
-        #: (priority, name, raw per-flow accesses incl. AFFINITY)
+        #: (priority, where, name, raw per-flow accesses incl. AFFINITY)
         self.op_extras: List[Tuple] = []
         self._tiles: List[Any] = []          # DTDTile, first-use order
         self._tile_ix: Dict[int, int] = {}   # id(tile) -> index
@@ -506,7 +506,7 @@ class GraphCapture:
 
     # ------------------------------------------------------------ recording
     def record(self, fn, args: Sequence[Any], jit: bool, name: str,
-               priority: int = 0) -> None:
+               priority: int = 0, where: Optional[int] = None) -> None:
         from .dtd import AFFINITY, DTDTile, RW
         defer = mca.get("capture_auto_defer", True)
         if not jit:
@@ -537,31 +537,32 @@ class GraphCapture:
                 output.fatal(f"graph capture: argument {a!r} of "
                              f"{name or fn!r} is not traceable")
         self.ops.append((fn, spec))
-        self.op_extras.append((priority, name, tuple(raw_accs)))
+        self.op_extras.append((priority, where, name, tuple(raw_accs)))
 
     def take_ops(self, fuse: bool = False) -> List[Tuple]:
         """Hand the recorded region back as replayable ``(fn, args,
-        priority, name)`` inserts and reset the recording — the auto-defer
-        hand-off: the deferring taskpool re-inserts them through the
-        scheduler in the original program order (DTD sequential consistency
-        makes that a valid serialization) with their original priorities
-        and access bits, so nothing recorded before the non-capturable
-        insert is lost or reordered.
+        priority, where, name)`` inserts and reset the recording — the
+        auto-defer hand-off: the deferring taskpool re-inserts them through
+        the scheduler in the original program order (DTD sequential
+        consistency makes that a valid serialization) with their original
+        priorities, device masks and access bits, so nothing recorded
+        before the non-capturable insert is lost or reordered.
 
         With ``fuse=True`` (``--mca region_fusion``), maximal runs of
-        *fusable* recorded ops — no AFFINITY/NOTRACK bits, uniform priority
-        — collapse into ONE super-task insert each: a single tensor function
-        replaying the run in insertion order over the run's tiles with UNION
-        accesses (one version bump per written tile per region, as capture
-        lands). Each fused function carries ``_ptdtd_fused`` = the member
-        count."""
+        *fusable* recorded ops — default placement (no custom ``where``),
+        no AFFINITY/NOTRACK bits, uniform priority — collapse into ONE
+        super-task insert each: a single tensor function replaying the run
+        in insertion order over the run's tiles with UNION accesses (one
+        version bump per written tile per region, as capture lands). Each
+        fused function carries ``_ptdtd_fused`` = the member count."""
+        from ..core.task import DEV_ALL
         from .dtd import RW, WRITE
         ops, extras, tiles = self.ops, self.op_extras, self._tiles
         self._clear_recording()
 
         def per_task(i: int) -> Tuple:
             fn, spec = ops[i]
-            prio, name, raw_accs = extras[i]
+            prio, where, name, raw_accs = extras[i]
             args: List[Any] = []
             fi = 0
             for e in spec:
@@ -570,13 +571,17 @@ class GraphCapture:
                     fi += 1
                 else:
                     args.append(e[1])
-            return (fn, args, prio, name)
+            return (fn, args, prio, where, name)
 
         if not fuse:
             return [per_task(i) for i in range(len(ops))]
 
         def fusable(i: int) -> bool:
-            return all((acc & ~RW) == 0 for acc in extras[i][2])
+            # default placement only: a custom device mask, AFFINITY, or
+            # NOTRACK bit must keep its own insert
+            _prio, where, _name, raw_accs = extras[i]
+            return where in (None, DEV_ALL) and \
+                all((acc & ~RW) == 0 for acc in raw_accs)
 
         def fuse_run(lo: int, hi: int) -> Tuple:
             run = ops[lo:hi]
@@ -606,8 +611,8 @@ class GraphCapture:
 
             region_fn._ptdtd_fused = hi - lo
             args = [(tiles[gi], accs[li]) for li, gi in enumerate(t_list)]
-            prio, name, _a = extras[lo]
-            return (region_fn, args, prio,
+            prio, _w, name, _a = extras[lo]
+            return (region_fn, args, prio, None,
                     f"fused[{hi - lo}]" + (f":{name}" if name else ""))
 
         rmin = int(mca.get("region_fusion_min", 2))

@@ -27,6 +27,7 @@ from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple
 import torch
 
 from ..utils import mca
+from ..utils.counters import Counters
 
 mca.register("region_fusion", True,
              "A deferred capture window (one that holds a non-capturable "
@@ -41,16 +42,6 @@ mca.register("region_fusion_min", 2,
 mca.register("region_fusion_max", 128,
              "Maximum tasks per fused region: longer runs split into "
              "consecutive chunks", type=int)
-
-
-class Counters(dict):
-    """A dict of named counters with ``snapshot``/``delta`` for tests."""
-
-    def snapshot(self) -> Dict[str, int]:
-        return dict(self)
-
-    def delta(self, snap: Dict[str, int]) -> Dict[str, int]:
-        return {k: v - snap.get(k, 0) for k, v in self.items()}
 
 
 #: the program cache's engagement: ``cache_hits`` nonzero on the second

@@ -26,7 +26,7 @@ from parsec_tpu.ops.potrf import insert_potrf_tasks as ref_insert_potrf
 from parsec_tpu_torch.core.context import Context
 from parsec_tpu_torch.data.matrix import TiledMatrix
 from parsec_tpu_torch.dsl import capture as CAP
-from parsec_tpu_torch.dsl.dtd import DTD_STATS, DTDTaskpool, READ, RW
+from parsec_tpu_torch.dsl.dtd import PTDTD_STATS, DTDTaskpool, READ, RW
 from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
 from parsec_tpu_torch.ops.potrf import (insert_posv_tasks, insert_potrf_tasks,
                                         make_spd)
@@ -585,7 +585,7 @@ def test_capture_auto_defers_noncapturable_window(ctx):
     cap = DTDTaskpool(ctx, "cap-defer", capture=True)
     t = cap.tile_new((4, 4))
     t.data.create_copy(0, torch.ones(4, 4))
-    snap = DTD_STATS.snapshot()
+    snap = PTDTD_STATS.snapshot()
     # window 1: two capturable inserts, then one that defeats capture
     cap.insert_task(lambda x: x * 2.0, (t, RW))
     cap.insert_task(lambda x: x + 1.0, (t, RW))
@@ -595,7 +595,7 @@ def test_capture_auto_defers_noncapturable_window(ctx):
 
     cap.insert_task(host_body, (t, RW), jit=False)
     assert cap._capture_deferred
-    delta = DTD_STATS.delta(snap)
+    delta = PTDTD_STATS.delta(snap)
     assert delta["capture_windows_deferred"] == 1
     # the two recorded inserts went back as ONE fused region
     assert delta["capture_regions_fused"] == 1

@@ -249,6 +249,67 @@ def test_dtd_potrf_on_the_card(gctx):
     assert np.abs(L @ L.T - spd).max() / np.abs(spd).max() < 1e-5
 
 
+def _dtd_gemm_kt20(native: bool):
+    """A 64 x 640 by 640 x 64 bf16 GEMM in 32^2 tiles (kt = 20: the chain
+    kernel) on a fresh card context, with the native engine or the Python
+    one: (C, tasks, kernel launches, per-task-lane tasks, device-executed
+    tasks)."""
+    from parsec_tpu_torch.dsl.dtd import PTDTD_STATS
+    if not native:
+        mca.set("native_enabled", False)
+    mca.set("device_load_balance_allow_cpu", False)
+    c = Context(nb_cores=1)
+    try:
+        rng = np.random.default_rng(20)
+        mats = [collection_from_numpy(n, d, 32, 32, dtype=torch.bfloat16)
+                for n, d in (("A", rng.standard_normal((64, 640))),
+                             ("B", rng.standard_normal((640, 64))),
+                             ("C", rng.standard_normal((64, 64))))]
+        before, stats = K.gemm_chain.launches, PTDTD_STATS.snapshot()
+        tp = DTDTaskpool(c, "gemm20")
+        n = insert_gemm_tasks(tp, *mats, batch_k=True)
+        lane = len(c._dtd_ntasks)
+        _drain(c, tp)
+        assert c._dtd_ntasks == {}
+        assert PTDTD_STATS.delta(stats)["pools_batch"] == 0
+        return (mats[2].to_dense(), n, K.gemm_chain.launches - before, lane,
+                _dev(c).executed_tasks)
+    finally:
+        c.fini()
+        mca.params.unset("native_enabled")
+        mca.params.unset("device_load_balance_allow_cpu")
+
+
+def test_dtd_gemm_native_lane_equals_python_engine_on_the_card():
+    """Every task of the kt = 20 DAG takes the native per-task lane (the
+    batched lane stays off on a card context), the chain kernel runs once
+    a tile, and C equals the Python engine's bit for bit."""
+    _need_card()
+    got, n, launches, lane, executed = _dtd_gemm_kt20(True)
+    want, n_py, launches_py, lane_py, _ = _dtd_gemm_kt20(False)
+    assert n == n_py == 4 and lane == n and lane_py == 0
+    assert launches == launches_py == n == executed
+    np.testing.assert_array_equal(got, want)
+
+
+def test_batched_lane_off_on_a_card_context(gctx):
+    """Repeat inserts of one body on a card context stay on the per-task
+    lane: each returns its task, and the context arms no batched pool."""
+    tp = DTDTaskpool(gctx, "nobatch")
+    t = tp.tile_new((4, 4))
+    t.data.create_copy(0, torch.zeros(4, 4))
+
+    def inc(x):
+        return x + 1.0
+
+    tasks = [tp.insert_task(inc, (t, RW)) for _ in range(8)]
+    assert all(task is not None and task.nid >= 0 for task in tasks)
+    assert tp._neng is not None and not tp._batch_on
+    assert gctx._dtd_batch_pools == 0 and gctx.sched_plane is None
+    _drain(gctx, tp)
+    assert float(t.data.newest_copy().payload.cpu()[0, 0]) == 8.0
+
+
 def test_stage_in_once_then_eviction_writes_back(gctx):
     """On the card: a chain over one tile stages it in once; a budget of one
     tile then evicts it with its newest version written back home."""

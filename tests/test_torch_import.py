@@ -43,8 +43,11 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
 
 def test_no_port_source_names_jax_or_the_reference():
     pattern = re.compile(r"\bjax\b|\bparsec_tpu\b(?!_torch)", re.IGNORECASE)
-    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files = [p for p in PORT.rglob("*")
+             if p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
     assert len(files) >= 20
+    assert {p.name for p in files} >= {"ptdtd.cpp", "ptsched.cpp",
+                                       "ptsched.h"}
     hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pattern.search(line)]
