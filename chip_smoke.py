@@ -51,7 +51,19 @@ port's main paths through the entry points a user calls:
   chain and stencil kernels' launches from the replayed graphs counted as
   the graph's kernel nodes times its replays; and the LM's decode step as
   one replayed graph (kept across calls), in turns with the eager loop, at
-  64 tokens and at 4.
+  64 tokens and at 4;
+* the PTG frontend on a card context (``compile_ptg(src).instantiate(ctx,
+  ...)``, ``ctx.add_taskpool``, ``ctx.wait()``): the reference benchmark's
+  PTG legs on the native execution lane (``csrc/ptexec.cpp``, built with
+  the host C++ compiler beside the other lanes) and on the Python FSM in
+  turns — INIT plus 1024 CTL chains of 8 (8193 tasks), EP with 20000
+  flowless tasks (agglomerated, scheduled FSM, scheduled native) and
+  data-flow chains 512 x 16 (the written-back tiles bit for bit the same)
+  — each native run required to have engaged the lane; then the PTG GEMM
+  with a ``[type=CUDA]`` body (f32, N = 8192 in 512 x 512 tiles, 4096
+  tasks, on the CUDA device module; the pool's lane decline counted) held
+  to ``torch.matmul`` (max err / max|ref| < 1e-5, TF32 off), with its
+  slope, device busy time and idle share.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -1846,6 +1858,257 @@ def matmul_main(K, torch, gen) -> dict:
     return entry
 
 
+# the reference benchmark's PTG legs (bench.py:643-745, 959-990): the EP
+# flowless class, the data-flow chains and the CTL chains gated by INIT
+PTG_EP_SRC = "%global NT\nEP(i)\n  i = 0 .. NT-1\nBODY\n  pass\nEND\n"
+PTG_EP_N = 20000
+PTG_DF_SRC = (
+    "%global NT\n%global DEPTH\n%global descX\n%global descY\n"
+    "T(i, l)\n  i = 0 .. NT-1\n  l = 0 .. DEPTH-1\n"
+    "  RW X <- (l == 0) ? descX(0, i) : X T(i, l-1)\n"
+    "       -> (l < DEPTH-1) ? X T(i, l+1) : descY(0, i)\n"
+    "BODY\n  pass\nEND\n")
+PTG_DF_NT, PTG_DF_DEPTH = 512, 16
+PTG_CHAIN_SRC = (
+    "%global NT\n%global DEPTH\n"
+    "INIT(z)\n  z = 0 .. 0\n"
+    "  CTL S -> (DEPTH >= 1) ? S T(1 .. NT, 1)\nBODY\n  pass\nEND\n\n"
+    "T(i, l)\n  i = 1 .. NT\n  l = 1 .. DEPTH\n"
+    "  CTL S <- (l == 1) ? S INIT(0) : S T(i, l-1)\n"
+    "        -> (l < DEPTH) ? S T(i, l+1)\nBODY\n  pass\nEND\n")
+PTG_CHAIN_NT, PTG_CHAIN_DEPTH = 1024, 8
+# the reference's PTG GEMM (tests/test_ptg.py GEMM_SRC) with its body in
+# torch; f32, 16 x 16 x 16 tiles of 512^2 (N = 8192): 4096 tasks over three
+# 256 MiB matrices on the card
+PTG_GEMM_SRC = """
+%global MT
+%global NT
+%global KT
+%global descA
+%global descB
+%global descC
+
+GEMM(m, n, k)
+  m = 0 .. MT-1
+  n = 0 .. NT-1
+  k = 0 .. KT-1
+  : descC(m, n)
+  priority = KT - k
+  READ A <- descA(m, k)
+  READ B <- descB(k, n)
+  RW   C <- (k == 0) ? descC(m, n) : C GEMM(m, n, k-1)
+       -> (k < KT-1) ? C GEMM(m, n, k+1) : descC(m, n)
+BODY [type=CUDA]
+  C = C + torch.matmul(A, B)
+END
+"""
+PTG_GEMM_T, PTG_GEMM_TS = 16, 512
+
+
+@contextlib.contextmanager
+def ptg_mode(ptt, native: bool = True, agglomerate: bool = True):
+    """PTG pools added in the block take the native execution lane
+    (``native``) or the Python FSM (``--mca ptg_native_exec 0``), with or
+    without the agglomerated sweep of flowless classes."""
+    if not native:
+        ptt.mca.set("ptg_native_exec", False)
+    if not agglomerate:
+        ptt.mca.set("ptg_agglomerate", False)
+    try:
+        yield
+    finally:
+        ptt.mca.params.unset("ptg_native_exec")
+        ptt.mca.params.unset("ptg_agglomerate")
+
+
+def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
+    """Phase 9: the PTG frontend on the card context, through
+    ``compile_ptg(src).instantiate(ctx, ...)``, ``ctx.add_taskpool`` and
+    ``ctx.wait()``: the reference benchmark's chain, EP and data-flow legs
+    on the native execution lane and on the Python FSM, in turns, each
+    native run required to have engaged the lane; then the PTG GEMM with a
+    ``[type=CUDA]`` body (the interpreted FSM on the CUDA device module, its
+    lane decline counted) held to ``torch.matmul``, timed and profiled.
+    ``device`` is where the tensors and collections live: the card, or the
+    CPU for a rehearsal on a CPU context with the CUDA device module over
+    the CPU (``--mca device_cuda_over_cpu 1``) at cut sizes."""
+    import statistics
+    from parsec_tpu_torch.device.cuda import CUDADevice
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    t_phase = time.perf_counter()
+    if ctx.sched_plane is not None:
+        raise AssertionError("a card context must have no scheduler plane")
+    dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
+
+    def timed(prog, globals_, collections, n_tasks, native, agglomerate=True,
+              name="ptg"):
+        """One pool run to completion: (tasks/s, the PTEXEC_STATS delta).
+        A native run must have engaged the lane, an FSM run must not."""
+        s0 = PTEXEC_STATS.snapshot()
+        with ptg_mode(ptt, native, agglomerate):
+            tp = prog.instantiate(ctx, globals=globals_,
+                                  collections=collections, name=name)
+            t0 = time.perf_counter()
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=600)
+            secs = time.perf_counter() - t0
+        d = PTEXEC_STATS.delta(s0)
+        lane = native and not (agglomerate and getattr(tp, "_agglomerated",
+                                                       0))
+        if d["pools_engaged"] != int(lane):
+            raise AssertionError(
+                f"PTG {name}: pools_engaged rose by {d['pools_engaged']}, "
+                f"expected {int(lane)} (PTEXEC_STATS delta {d})")
+        return n_tasks / secs, d
+
+    def in_turns(run, modes, reps: int = 3) -> dict:
+        """One warm run of each mode, then ``reps`` measured runs of each
+        in turns; {mode: [tasks/s, ...]}."""
+        for m in modes:
+            run(m)
+        rates = {m: [] for m in modes}
+        for _ in range(reps):
+            for m in modes:
+                rates[m].append(run(m))
+        return rates
+
+    # -- the chains: INIT + NT CTL chains of DEPTH, empty bodies (the
+    # reference's tasks_per_sec shape) --
+    chain = compile_ptg(PTG_CHAIN_SRC, "chain_ep")
+    n_chain = PTG_CHAIN_NT * PTG_CHAIN_DEPTH + 1
+    rates = in_turns(lambda native: timed(
+        chain, {"NT": PTG_CHAIN_NT, "DEPTH": PTG_CHAIN_DEPTH}, {}, n_chain,
+        native, name="chain")[0], (True, False))
+    med = {m: statistics.median(r) for m, r in rates.items()}
+    log(f"PTG chains {PTG_CHAIN_NT}x{PTG_CHAIN_DEPTH} + INIT ({n_chain} "
+        f"tasks, empty bodies): native lane median {med[True]:,.0f} "
+        f"tasks/s (runs {', '.join(f'{x:,.0f}' for x in rates[True])}), "
+        f"Python FSM median {med[False]:,.0f} tasks/s (runs "
+        f"{', '.join(f'{x:,.0f}' for x in rates[False])}); every native run "
+        f"engaged the lane ({smi})")
+
+    # -- EP: 20000 flowless tasks, agglomerated, scheduled FSM, scheduled
+    # native --
+    ep = compile_ptg(PTG_EP_SRC, "ep")
+    modes = {"agglomerated": (True, True), "scheduled FSM": (False, False),
+             "scheduled native": (True, False)}
+    rates = in_turns(lambda m: timed(
+        ep, {"NT": PTG_EP_N}, {}, PTG_EP_N, modes[m][0], modes[m][1],
+        name="ep")[0], tuple(modes))
+    log(f"PTG EP {PTG_EP_N} tasks: " + ", ".join(
+        f"{m} {statistics.median(r):,.0f} tasks/s" for m, r in rates.items())
+        + f" (medians of 3 after a warm run; {smi})")
+
+    # -- data-flow chains 512 x 16: RW chains from descX to descY (payloads
+    # card tensors), native then the FSM; the written-back tiles equal
+    # each other and descX bit for bit --
+    df = compile_ptg(PTG_DF_SRC, "df_chain")
+    X = ptt.TiledMatrix("descX", 1, PTG_DF_NT, 1, 1, device=device)
+    X.fill(lambda m, i: torch.randn(1, 1))
+    Ys = {m: ptt.TiledMatrix(f"descY{int(m)}", 1, PTG_DF_NT, 1, 1,
+                             device=device) for m in (True, False)}
+    n_df = PTG_DF_NT * PTG_DF_DEPTH
+    rates = in_turns(lambda native: timed(
+        df, {"NT": PTG_DF_NT, "DEPTH": PTG_DF_DEPTH},
+        {"descX": X, "descY": Ys[native]}, n_df, native, name="df")[0],
+        (True, False))
+    tiles = {m: torch.cat([Y.data_of(0, i).newest_copy().payload.reshape(1)
+                           for i in range(PTG_DF_NT)]) for m, Y in Ys.items()}
+    x = torch.cat([X.data_of(0, i).newest_copy().payload.reshape(1)
+                   for i in range(PTG_DF_NT)])
+    same = torch.equal(tiles[True], tiles[False]) and \
+        torch.equal(tiles[True], x) and tiles[True].device.type == device
+    log(f"PTG data-flow chains {PTG_DF_NT}x{PTG_DF_DEPTH} ({n_df} tasks): "
+        f"native lane median {statistics.median(rates[True]):,.0f} tasks/s, "
+        f"Python FSM median {statistics.median(rates[False]):,.0f} tasks/s; "
+        f"written-back tiles native vs FSM vs descX "
+        f"{'bit-identical' if same else 'DIFFER'} ({smi})")
+    if not same:
+        raise AssertionError("the PTG data-flow chains' written-back tiles "
+                             "differ between the lane and the FSM")
+    del X, Ys, tiles, x
+
+    # -- the PTG GEMM with a [type=CUDA] body: f32 N = 8192 in 512^2 tiles
+    # on the card, TF32 off --
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the f32 GEMM gate needs it off")
+    T, TS = PTG_GEMM_T, PTG_GEMM_TS
+    N = T * TS
+    gen = torch.Generator(device=device).manual_seed(8)
+    a = torch.randn(N, N, device=device, generator=gen)
+    b = torch.randn(N, N, device=device, generator=gen)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+
+    def tiled(name, dense):
+        M = ptt.TiledMatrix(name, N, N, TS, TS, device=device)
+        M.fill(lambda m, n: dense[m * TS:(m + 1) * TS, n * TS:(n + 1) * TS])
+        return M
+    A, B = tiled("descA", a), tiled("descB", b)
+    Cs = [tiled(f"descC{j}", torch.zeros(N, N, device=device))
+          for j in range(3)]
+    gemm = compile_ptg(PTG_GEMM_SRC, "gemm")
+    ntask = T ** 3
+    declines = []
+
+    def run_gemm(n_dags: int) -> float:
+        """``n_dags`` GEMM pools (each its own C) added together, run to
+        completion: wall seconds. Every task must have run on the CUDA
+        device module and each pool's lane decline must be counted."""
+        s0 = PTEXEC_STATS.snapshot()
+        e0 = dev.executed_tasks
+        sync()
+        t0 = time.perf_counter()
+        for j in range(n_dags):
+            ctx.add_taskpool(gemm.instantiate(
+                ctx, globals={"MT": T, "NT": T, "KT": T},
+                collections={"descA": A, "descB": B, "descC": Cs[j]},
+                name=f"gemm{j}"))
+        ctx.wait(timeout=600)
+        sync()
+        secs = time.perf_counter() - t0
+        d = PTEXEC_STATS.delta(s0)
+        declines.append(d["pools_device_declined"])
+        if d["pools_device_declined"] != n_dags or d["pools_engaged"]:
+            raise AssertionError(f"PTG GEMM: lane accounting {d}")
+        if dev.executed_tasks - e0 != ntask * n_dags:
+            raise AssertionError(
+                f"PTG GEMM: {dev.executed_tasks - e0} tasks ran on the CUDA "
+                f"device, expected {ntask * n_dags}")
+        return secs
+
+    for C in Cs:
+        C.fill(lambda m, n: torch.zeros(TS, TS))
+    t_first = run_gemm(1)
+    got = torch.cat([torch.cat([Cs[0].data_of(m, n).newest_copy().payload
+                                for n in range(T)], 1) for m in range(T)])
+    ref = torch.matmul(a, b)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"PTG GEMM f32 N={N} TS={TS} ({ntask} tasks, [type=CUDA] body): "
+        f"first DAG {t_first:.3f} s; max err / max|ref| against "
+        f"torch.matmul = {rel:.3e}")
+    if not (got.device.type == device and rel < 1e-5):
+        raise AssertionError(f"PTG GEMM f32 gate failed: {rel}")
+    del got, ref
+    gemm_s, t1, t3 = slope(run_gemm)
+    mm_ms = cuda_time_ms(lambda: torch.matmul(a, b), iters=5)
+    log(f"PTG GEMM: T1 {t1:.3f} s, T3 {t3:.3f} s, slope {gemm_s:.3f} s/DAG "
+        f"-> {2 * N ** 3 / 1e9 / gemm_s:.1f} GFLOP/s (yardstick "
+        f"torch.matmul f32 {N}^3: {mm_ms:.3f} ms) ({smi})")
+    busy, window, by_name = device_profile(torch, lambda: run_gemm(1))
+    log(idle_line("PTG GEMM one DAG", busy, window))
+    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
+        log(f"  device {ms:8.3f} ms  {name[:100]}")
+    log(f"PTG GEMM lane declines by reason: pools_device_declined "
+        f"{sum(declines)} over {len(declines)} runs ({sum(declines)} pools; "
+        f"the device-bodied pools run the interpreted FSM on the CUDA "
+        f"device module), pools_ineligible 0, pools_fallback 0")
+    del A, B, Cs, a, b
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"PTG phase wall time {wall:.1f} s")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1874,7 +2137,9 @@ def main() -> int:
     # ---- 2. kernel check ------------------------------------------------
     t0 = time.perf_counter()
     names = ("gemm_chain", "flash_attention", "stencil1d")
-    lanes = ("ptdtd", "ptsched")         # the host lanes: C++, no device code
+    # the host lanes (C++, no device code): the DTD engine, the PTG lane,
+    # the scheduler plane and the native core (the dependency table)
+    lanes = ("ptdtd", "ptexec", "ptsched", "ptcore")
     py_h = os.path.join(sysconfig.get_paths()["include"], "Python.h")
     log(f"Python headers for the host lanes: {py_h} "
         f"{'present' if os.path.exists(py_h) else 'MISSING'}")
@@ -2195,7 +2460,12 @@ def main() -> int:
     # ---- 8. the blocked matmul's entry point, held and timed ------------
     matmul = matmul_main(K, torch, gen)
 
-    # ---- 9. kernel line at the main paths' shapes -----------------------
+    # ---- 9. the PTG frontend on a card context --------------------------
+    ctx = ptt.Context(nb_cores=1)
+    ptg_lane(ptt, torch, ctx, smi)
+    ctx.fini()
+
+    # ---- 10. kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
                flash_entry(K, torch, gen, flash_launches, flash_by_route),
                stencil_entry(K, torch, gen, stencil_launches),

@@ -8,6 +8,9 @@ bodies are torch functions; the hot tile kernels are written by hand in CUDA
 C++ (``csrc/``) and built with nvcc at first use; the DTD engine and the
 scheduler plane are C++ host lanes (``csrc/ptdtd.cpp``, ``csrc/ptsched.cpp``)
 built with the host compiler at first use (:mod:`parsec_tpu_torch.native`).
+The PTG frontend (``dsl/ptg/``) compiles a JDF-style program into task
+classes and drains eligible pools through the native execution lane
+(``csrc/ptexec.cpp``).
 
 Layer map:
   utils/   — config (MCA params), logging
@@ -16,7 +19,8 @@ Layer map:
   data/    — data copies/coherency, collections, tiled matrices
   device/  — device modules: the CPU and the CUDA card
   dsl/     — DTD insert_task (the native engine's per-task and batched
-             lanes, the Python engine), graph capture
+             lanes, the Python engine), graph capture, the PTG frontend
+             (parser, compiler, the native ptexec lane)
   native   — build and load of the C++ host lanes
   ops/     — tile bodies (gemm, potrf) and the CUDA kernels (gemm_chain,
              flash_attention)
@@ -30,7 +34,7 @@ runs every body on the CPU.
 
 __version__ = "0.1.0"
 
-from .core.context import Context
+from .core.context import Context, fini, init
 from .core.task import (
     Task, TaskClass, Taskpool, Flow, Dep, Chore,
     HOOK_DONE, HOOK_AGAIN, HOOK_ASYNC, HOOK_NEXT, HOOK_DISABLE, HOOK_ERROR,
@@ -42,7 +46,7 @@ from .dsl.dtd import AFFINITY, DTDTaskpool, READ, RW, WRITE
 from .utils import mca
 
 __all__ = [
-    "Context", "Task", "TaskClass", "Taskpool", "Flow", "Dep", "Chore", "mca",
+    "Context", "init", "fini", "Task", "TaskClass", "Taskpool", "Flow", "Dep", "Chore", "mca",
     "HOOK_DONE", "HOOK_AGAIN", "HOOK_ASYNC", "HOOK_NEXT", "HOOK_DISABLE",
     "HOOK_ERROR",
     "FLOW_ACCESS_READ", "FLOW_ACCESS_WRITE", "FLOW_ACCESS_RW",

@@ -13,6 +13,12 @@ Re-design of parsec/parsec.c (parsec_init, :405) + parsec/scheduling.c:
   and ``__parsec_execute`` (scheduling.c:126): prepare_input → best-device
   selection → chore evaluate/hook → return-code dispatch
   (DONE/AGAIN/ASYNC/NEXT/DISABLE, scheduling.c:518-566).
+* ``generic_release_deps`` re-creates the dependency-release engine
+  (parsec_release_dep_fct, parsec.c:1837) for task classes that declare
+  ``Dep`` descriptors (the PTG frontend) instead of their own hooks.
+* ``_ptexec_drain`` joins the native PTG execution lane
+  (``csrc/ptexec.cpp``): a PTG pool that handed its whole FSM to the lane
+  is drained from every stream's hot loop.
 
 GPU-first shape: CUDA chores enqueue their kernels on the device module's
 stream and return ``HOOK_ASYNC``; the progress loop polls the device modules
@@ -38,8 +44,8 @@ from . import pins as pins_mod
 from . import scheduler as sched_mod
 from . import termdet as termdet_mod
 from .task import (
-    HOOK_AGAIN, HOOK_ASYNC, HOOK_DISABLE, HOOK_DONE, HOOK_ERROR, HOOK_NEXT,
-    Task, Taskpool,
+    FLOW_ACCESS_CTL, HOOK_AGAIN, HOOK_ASYNC, HOOK_DISABLE, HOOK_DONE,
+    HOOK_ERROR, HOOK_NEXT, Task, TaskClass, Taskpool,
     TASK_STATUS_COMPLETE, TASK_STATUS_HOOK, TASK_STATUS_PREPARE_INPUT,
 )
 
@@ -191,6 +197,10 @@ class Context:
         self._dtd_neng = None
         self._dtd_ntasks: Dict[int, Task] = {}
         self._dtd_batch_pools = 0
+        #: PTG pools on the native execution lane, in the order they were
+        #: enqueued: (taskpool, lane dict) pairs every stream drains
+        self._ptexec_q: List = []
+        self._ptexec_lock = threading.Lock()
         # per-thread stream binding
         self._tls = threading.local()
         self._tls.stream = self.streams[0]
@@ -348,6 +358,7 @@ class Context:
         self._dtd_neng = None
         self._dtd_ntasks = {}
         self.sched_plane = None
+        self._ptexec_q = []
         self._release_gc_hold()  # error paths can finalize w/ pools active
 
     # ------------------------------------------------------------------ scheduling
@@ -428,6 +439,179 @@ class Context:
             self.schedule(rtasks, stream)
         return nexec > 0 or bool(surfaced)
 
+    # ------------------------------------------------------------ PTG lane
+    def _ptexec_enqueue(self, tp: Taskpool, lane: Dict[str, Any]) -> None:
+        """A PTG taskpool handed its whole FSM to the native execution
+        lane (dsl/ptg/compiler.py ``_ptexec_prepare``); every stream's hot
+        loop drains it."""
+        with self._ptexec_lock:
+            self._ptexec_q.append((tp, lane))
+            # scheduler plane, LAZY arming (the one-pool fast path): a
+            # lone lane graph keeps its private allocation-free ready
+            # vector. The moment a SECOND pool runs concurrently (or a pool
+            # carries explicit QoS config), every queued lane binds: ready
+            # structures migrate into the plane mid-run (safe hand-off,
+            # see ptexec.cpp sched_bind) and the drain arbitrates by DRR.
+            # A context with a CUDA device has no plane (sched_plane.py),
+            # so its lanes keep their private vectors
+            if self.sched_plane is not None and (
+                    len(self._ptexec_q) > 1
+                    or getattr(tp, "qos_weight", None)
+                    or getattr(tp, "admission_window", None)
+                    or mca.get("sched_admission_window", 0)):
+                for tp_i, lane_i in self._ptexec_q:
+                    self._sched_pool_bind(tp_i, lane_i)
+        self._work_event.set()
+
+    def _sched_pool_bind(self, tp: Taskpool, lane: Dict[str, Any]) -> None:
+        """Register ``tp`` on the scheduler plane and move its lane
+        graph's ready structure there (idempotent; declines — full pool
+        table, bind refusal — keep the private vector: engagement is
+        unchanged, only cross-pool arbitration is lost)."""
+        plane = self.sched_plane
+        if plane is None or lane.get("sched_pool") is not None \
+                or lane.get("finalized"):
+            return
+        h = plane.register_pool(tp.name, plane.KIND_PTEXEC,
+                                weight=getattr(tp, "qos_weight", None),
+                                window=getattr(tp, "admission_window",
+                                               None))
+        if h < 0:
+            return
+        try:
+            lane["graph"].sched_bind(plane.capsule, h)
+        except Exception:  # noqa: BLE001 — keep the private structure
+            plane.unregister_pool(h)
+            return
+        lane["sched_pool"] = h
+
+    def _ptexec_drain(self, stream: ExecutionStream) -> bool:
+        """One burst through the front lane graph. The burst budget shrinks
+        when this stream's scheduler queues hold work so a live lane cannot
+        starve concurrently-active taskpools; the graph's run() never
+        blocks, so a starved call returns straight to the hot loop.
+
+        For data-flow pools the callback IS the data path: each batched
+        dispatch reads its inputs from the lane's slot array, runs the
+        bodies, lands outputs back into slots, and clears the slot ids the
+        engine retired (the datarepo usagelmt/usagecnt protocol, kept in C)
+        — generic_prepare_input / generic_release_deps never run for lane
+        tasks.
+
+        With the scheduler plane armed and SEVERAL lane graphs queued, the
+        pool to serve is picked by the plane's weighted DRR
+        (``next_ptexec``) instead of always the FRONT graph, and the burst
+        budget is capped by the pool's DRR quantum (``charge()`` spends the
+        credits back)."""
+        plane = self.sched_plane
+        quantum = None
+        pool_h = None
+        with self._ptexec_lock:
+            if not self._ptexec_q:
+                return False
+            tp, lane = self._ptexec_q[0]
+            if plane is not None and len(self._ptexec_q) > 1:
+                pick = plane.next_ptexec()
+                if pick is not None:
+                    h, quantum = pick
+                    for tp_i, lane_i in self._ptexec_q:
+                        if lane_i.get("sched_pool") == h:
+                            tp, lane = tp_i, lane_i
+                            pool_h = h
+                            break
+                    else:
+                        quantum = None   # pool already retired: front graph
+        graph = lane["graph"]
+        # short bursts whenever (a) ordinary queues hold work, or (b) the
+        # lane dispatches Python bodies — a body-callback burst is bounded
+        # in TASK count, not time, so a long budget would blind this stream
+        # to newly scheduled tasks and peer errors for the whole burst.
+        # Empty-body walks run millions of tasks a second, so the long
+        # budget still returns promptly
+        if lane["callback"] is not None or self.sched.has_local_work(stream):
+            budget = 4096
+        else:
+            budget = 1 << 22
+        if quantum is not None:
+            budget = max(256, min(budget, quantum))
+        try:
+            mine = graph.run(lane["callback"], 256, budget, stream.th_id)
+        except BaseException as e:  # noqa: BLE001 — a body raised
+            with self._ptexec_lock:
+                self._ptexec_retire_locked(lane)
+            self._ptexec_abandon(lane)
+            if self._error is None:
+                self._error = e
+            self._work_event.set()
+            if stream.is_master:
+                raise           # workers park; the master surfaces the error
+            return True
+        stream.nb_executed += mine
+        if pool_h is not None and mine:
+            plane.charge(pool_h, mine)
+        if graph.failed():
+            # poisoned by another stream's body exception: that stream
+            # owns the propagation; just retire the queue entry
+            with self._ptexec_lock:
+                self._ptexec_retire_locked(lane)
+            self._ptexec_abandon(lane)
+            return True
+        if graph.done():
+            fin = False
+            with self._ptexec_lock:
+                if not lane.get("finalized"):
+                    lane["finalized"] = True
+                    fin = True
+                self._ptexec_retire_locked(lane)
+            if fin:
+                tp._ptexec_finalize(lane)
+                self._sched_pool_retire(lane)
+            return True
+        return mine > 0
+
+    def _ptexec_retire_locked(self, lane: Dict[str, Any]) -> None:
+        """Drop ``lane`` from the drain queue wherever it sits (the DRR
+        arbiter serves graphs out of front order). _ptexec_lock held."""
+        for i, (_tp, l_) in enumerate(self._ptexec_q):
+            if l_ is lane:
+                self._ptexec_q.pop(i)
+                return
+
+    def _sched_pool_retire(self, lane: Dict[str, Any]) -> None:
+        """Free a finished/errored lane graph's scheduler-plane pool slot
+        (idempotent: sched_unbind on an unbound graph is a no-op)."""
+        h = lane.get("sched_pool")
+        if h is None or self.sched_plane is None:
+            return
+        try:
+            # the GRAPH owns its slot (sched_unbind frees it natively);
+            # the wrapper only forgets the name mapping — a second free
+            # here could kill an unrelated pool that reused the slot
+            lane["graph"].sched_unbind()
+        except Exception:  # noqa: BLE001 — a peer is still mid-batch
+            return      # (poisoned graph): keep the handle so the next
+                        # stream's abandon retries; dealloc frees anyway
+        lane.pop("sched_pool", None)
+        self.sched_plane.forget_pool(h)
+
+    def _ptexec_abandon(self, lane: Dict[str, Any]) -> None:
+        """Drop an errored data-mode lane's slot payloads. Each stream
+        that exits the poisoned graph attempts this; the LAST one out
+        (graph idle — after a poison no worker can claim a new batch, so
+        idleness is stable) clears the payload list. Clearing earlier
+        would yank inputs out from under a peer still mid-callback;
+        leaking instead would pin every produced payload for the
+        taskpool's remaining lifetime."""
+        self._sched_pool_retire(lane)        # free the plane pool slot
+        slots = lane.get("slots")
+        if not slots:
+            return
+        with self._ptexec_lock:
+            if lane.get("finalized") or not lane["graph"].idle():
+                return
+            lane["finalized"] = True
+        slots.clear()
+
     # ------------------------------------------------------------------ hot loop
     def _worker_main(self, stream: ExecutionStream) -> None:
         self._tls.stream = stream
@@ -503,6 +687,10 @@ class Context:
                 return  # workers park quietly; the master surfaces the error
             # poll device modules (our analogue of the GPU manager thread)
             did_something = bool(self.devices.progress(stream))
+            # native PTG execution lane: join the front graph's batched C
+            # walk (returns promptly when starved — see _ptexec_drain)
+            if self._ptexec_q:
+                did_something |= self._ptexec_drain(stream)
             task = stream.next_task
             stream.next_task = None
             distance = 0
@@ -593,7 +781,8 @@ class Context:
                     return
                 # exponential backoff while starving (ref: scheduling.c:801-804)
                 cap = backoff_max
-                if self.sched_plane is not None and self._dtd_batch_pools \
+                if self.sched_plane is not None \
+                        and (self._ptexec_q or self._dtd_batch_pools) \
                         and self.sched_plane.queued_total() > 0:
                     # "no local work" is NOT global with multiple pools:
                     # this stream's last pick starved, but the plane holds
@@ -618,16 +807,23 @@ class Context:
             return HOOK_DONE
         if task.status < TASK_STATUS_PREPARE_INPUT:
             task.status = TASK_STATUS_PREPARE_INPUT
+            pins_on = self.pins.enabled
+            if tc.prepare_input is None and not tc.flows and not pins_on:
+                # nothing to resolve — but only skip the PREPARE pins
+                # events when instrumentation is off (trace consumers pair
+                # intervals and must see symmetric streams per task)
+                return self._execute(stream, task)
+            if pins_on:
+                self.pins.fire(pins_mod.PREPARE_INPUT_BEGIN, stream, task)
             if tc.prepare_input is not None:
-                pins_on = self.pins.enabled
-                if pins_on:
-                    self.pins.fire(pins_mod.PREPARE_INPUT_BEGIN, stream, task)
                 rc = tc.prepare_input(stream, task)
-                if pins_on:
-                    self.pins.fire(pins_mod.PREPARE_INPUT_END, stream, task)
-                if rc == HOOK_AGAIN:
-                    self.schedule([task], stream, distance)
-                    return rc
+            else:
+                rc = self.generic_prepare_input(stream, task)
+            if pins_on:
+                self.pins.fire(pins_mod.PREPARE_INPUT_END, stream, task)
+            if rc == HOOK_AGAIN:
+                self.schedule([task], stream, distance)
+                return rc
         return self._execute(stream, task)
 
     def _execute(self, stream: ExecutionStream, task: Task) -> int:
@@ -702,6 +898,8 @@ class Context:
             self.pins.fire(pins_mod.RELEASE_DEPS_BEGIN, stream, task)
         if tc.release_deps is not None:
             tc.release_deps(stream, task)
+        else:
+            self.generic_release_deps(stream, task)
         if pins_on:
             self.pins.fire(pins_mod.RELEASE_DEPS_END, stream, task)
             self.pins.fire(pins_mod.COMPLETE_EXEC_END, stream, task)
@@ -710,3 +908,161 @@ class Context:
         task.taskpool.addto_nb_tasks(-1)
         if tc.release_task is not None:
             tc.release_task(stream, task)
+
+    # ------------------------------------------------------------------ deps engine
+    def generic_prepare_input(self, stream: ExecutionStream, task: Task) -> int:
+        """Generic data_lookup: resolve input copies from repos / collections
+        (the role of the generated data_lookup, ref: jdf2c.c:45)."""
+        tp = task.taskpool
+        for flow in task.task_class.flows:
+            slot = task.data[flow.flow_index]
+            if slot.data_in is not None or flow.access & FLOW_ACCESS_CTL:
+                continue
+            for dep in flow.deps_in:
+                if dep.cond is not None and not dep.cond(task.locals):
+                    continue
+                if dep.task_class is None:
+                    # direct read from a data collection (JDF: "A <- A(k)")
+                    if dep.data_ref is not None:
+                        data = dep.data_ref(task.locals)
+                        slot.data_in = data.get_copy() \
+                            if hasattr(data, "get_copy") else data
+                else:
+                    plocals_seq = dep.target_locals(task.locals) \
+                        if dep.target_locals else [task.locals]
+                    plocals = plocals_seq[0] \
+                        if not isinstance(plocals_seq, dict) else plocals_seq
+                    pkey = dep.task_class.make_key(tp, plocals)
+                    repo = tp.repos[dep.task_class.task_class_id]
+                    entry = repo.lookup_entry(pkey) if repo is not None \
+                        else None
+                    if entry is None:
+                        output.fatal(f"missing repo entry {pkey} for "
+                                     f"{task!r} flow {flow.name}")
+                    slot.data_in = entry.data[dep.flow_index]
+                    slot.source_repo_entry = entry
+                break
+        return HOOK_DONE
+
+    def generic_release_deps(self, stream: ExecutionStream, task: Task) -> None:
+        """Generic release-deps (ref: parsec_release_dep_fct parsec.c:1837).
+
+        Walks output deps, updates successor dependency masks/counters
+        (parsec.c:1657), collects newly-ready tasks and schedules them
+        (scheduling keeps the highest-priority task as ``next_task``, ref:
+        __parsec_schedule_vp scheduling.c:360). One rank: every successor
+        is local.
+        """
+        tp = task.taskpool
+        tc = task.task_class
+        ready: List[Task] = []
+        # publish produced copies into this class's repo for local successors
+        repo = tp.repos[tc.task_class_id]
+        # publish every flow that local successors will consume — written
+        # flows and forwarded reads alike (count_deps_fct role, parsec.c:1448)
+        wants_repo = repo is not None and any(
+            any(d.task_class is not None for d in f.deps_out)
+            for f in tc.flows if not (f.access & FLOW_ACCESS_CTL))
+        entry = None
+        nb_uses = 0
+        if wants_repo:
+            entry = repo.lookup_entry_and_create(task.key)
+            for f in tc.flows:
+                if f.deps_out and not (f.access & FLOW_ACCESS_CTL):
+                    slot = task.data[f.flow_index]
+                    out = slot.data_out if slot.data_out is not None \
+                        else slot.data_in
+                    entry.data[f.flow_index] = out
+
+        def visit(dep, succ_locals: Dict[str, int]) -> None:
+            succ_tc = dep.task_class
+            key = succ_tc.make_key(tp, succ_locals)
+            contribution = 1 if succ_tc.count_mode else (1 << dep.dep_index)
+            goal = (succ_tc.dependencies_goal_fn(succ_locals)
+                    if succ_tc.dependencies_goal_fn is not None else None)
+            if tp.update_deps(succ_tc, key, contribution, goal):
+                ready.append(self.make_task(tp, succ_tc, dict(succ_locals)))
+
+        for flow in tc.flows:
+            null_checked = False
+            for dep in flow.deps_out:
+                if dep.cond is not None and not dep.cond(task.locals):
+                    continue
+                if dep.task_class is None:
+                    continue  # write-back to memory handled by the body/copy model
+                if not null_checked and not (flow.access & FLOW_ACCESS_CTL):
+                    # forwarding no-data on a data flow is a program bug the
+                    # runtime must catch at the source (ref: "A NULL is
+                    # forwarded", parsec.c:1879; ptgpp forward_*_NULL tests)
+                    null_checked = True
+                    slot = task.data[flow.flow_index]
+                    out = slot.data_out if slot.data_out is not None \
+                        else slot.data_in
+                    if (out.payload if hasattr(out, "payload") else out) is None:
+                        output.fatal(
+                            f"A NULL is forwarded\n"
+                            f"\tfrom: {tc.name}{task.key} flow {flow.name}\n"
+                            f"\tto:   {dep.task_class.name}")
+                targets = dep.target_locals(task.locals) \
+                    if dep.target_locals else [task.locals]
+                if isinstance(targets, dict):
+                    targets = [targets]
+                for tl in targets:
+                    visit(dep, tl)
+                    if not (flow.access & FLOW_ACCESS_CTL):
+                        # CTL consumers never look the entry up (their
+                        # prepare_input skips data resolution), so counting
+                        # them in the usage limit would make the entry
+                        # unretirable
+                        nb_uses += 1
+        if entry is not None:
+            repo.entry_addto_usage_limit(task.key, max(nb_uses, 1))
+        # consume source repo entries (one use each)
+        for flow in tc.flows:
+            slot = task.data[flow.flow_index]
+            if slot.source_repo_entry is not None:
+                slot.source_repo_entry._repo.entry_used_once(
+                    slot.source_repo_entry.key)
+        if ready:
+            ready.sort(key=lambda t: -t.priority)
+            # only claim the hot-path slot when it is free: device epilogs can
+            # release several tasks on the same stream within one progress
+            # sweep, and overwriting a pending next_task would lose it forever
+            # (mirrors __parsec_schedule_vp pushing the displaced task back)
+            if stream.next_task is None:
+                stream.next_task, rest = ready[0], ready[1:]
+            else:
+                rest = ready
+            if rest:
+                self.schedule(rest, stream)
+
+    def make_task(self, tp: Taskpool, tc: TaskClass,
+                  locals_: Dict[str, int], priority: Optional[int] = None) -> Task:
+        if priority is None:
+            prio = tc.properties.get("priority", 0)
+            priority = prio(locals_) if callable(prio) else prio
+        return Task(tp, tc, locals_, priority)
+
+
+# ---------------------------------------------------------------------------
+# module-level convenience mirroring parsec_init/parsec_fini
+# ---------------------------------------------------------------------------
+_default_context: Optional[Context] = None
+
+
+def init(nb_cores: Optional[int] = None, argv: Optional[List[str]] = None,
+         **kw) -> Context:
+    """parsec_init equivalent (ref: parsec/parsec.c:405): the process's
+    default context, made on first call (``device=`` as for
+    :class:`Context`: the card unless the caller asks for the CPU)."""
+    global _default_context
+    if _default_context is None or _default_context._finalized:
+        _default_context = Context(nb_cores=nb_cores, argv=argv, **kw)
+    return _default_context
+
+
+def fini() -> None:
+    global _default_context
+    if _default_context is not None:
+        _default_context.fini()
+        _default_context = None

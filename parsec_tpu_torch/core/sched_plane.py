@@ -15,7 +15,9 @@ plane per :class:`~parsec_tpu_torch.core.context.Context`:
   (``tp.qos_weight`` or ``--mca sched_pool_weight``) and an admission
   window (``tp.admission_window`` or ``--mca sched_admission_window``);
   the handle routes their ready tasks through the plane (DTD:
-  ``Engine.register_class(..., pool=h)``);
+  ``Engine.register_class(..., pool=h)``; PTG: ``Graph.sched_bind``, armed
+  when a second lane pool runs beside the first, and served by weighted
+  DRR through :meth:`next_ptexec`);
 * **admission** — :meth:`over_window` / :meth:`count_stall` back the DTD
   insert path's backpressure (``insert_task(..., nowait=)``).
 """
@@ -75,6 +77,7 @@ class SchedPlane:
             quantum=QUANTUM)
         #: the capsule the engines bind through (owns a plane ref)
         self.capsule = self.plane.plane_capsule()
+        self.KIND_PTEXEC = mod.KIND_PTEXEC
         self.KIND_PTDTD = mod.KIND_PTDTD
         self._pools: Dict[int, str] = {}       # handle -> pool name
         self._lock = threading.Lock()
@@ -136,6 +139,28 @@ class SchedPlane:
             return          # already freed (idempotent retire paths)
         self.plane.unregister_pool(h)
         SCHED_STATS["pools_retired"] += 1
+
+    def forget_pool(self, h: Optional[int]) -> None:
+        """Drop the name mapping for a slot whose NATIVE free belongs to
+        someone else (a sched-bound ptexec graph frees its own slot in
+        sched_unbind/dealloc — a second native free here could kill an
+        unrelated pool that reused the slot)."""
+        if h is None or h < 0:
+            return
+        with self._lock:
+            if self._pools.pop(h, None) is not None:
+                SCHED_STATS["pools_retired"] += 1
+
+    # ------------------------------------------------------- arbitration
+    def next_ptexec(self):
+        """DRR pick among registered ptexec pools with queued work:
+        (handle, quantum) or None. The context's lane drain uses this to
+        choose WHICH graph a worker serves next and for how many credits
+        (charge() spends them back)."""
+        return self.plane.next_pool(self.KIND_PTEXEC)
+
+    def charge(self, h: int, n: int) -> None:
+        self.plane.charge(h, n)
 
     def queued_total(self) -> int:
         """Ready items across every live pool — the starvation-backoff

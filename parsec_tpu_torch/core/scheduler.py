@@ -90,6 +90,13 @@ class SchedulerModule:
     def stats(self, stream) -> Dict[str, int]:
         return {}
 
+    def has_local_work(self, stream) -> bool:
+        """Cheap peek: does this stream see queued tasks without popping?
+        The native execution lane (core/context.py:_ptexec_drain) sizes
+        its bursts by this — a live lane must interleave with, not starve,
+        taskpools riding the ordinary queues. False negatives only cost
+        one long burst; the default is safe for modules without queues."""
+        return False
 
     def remove(self, context) -> None:
         pass
@@ -344,7 +351,8 @@ class _LocalQueuesBase(SchedulerModule):
         return {"local_len": len(self._local(stream)),
                 "system_len": len(self._system)}
 
-
+    def has_local_work(self, stream) -> bool:
+        return bool(len(self._local(stream)) or len(self._system))
 
 
 # ---------------------------------------------------------------------------
@@ -702,7 +710,8 @@ class _GlobalBase(SchedulerModule):
     def flow_init(self, stream) -> None:
         pass
 
-
+    def has_local_work(self, stream) -> bool:
+        return len(self._q) > 0
 
 
 class SchedGD(_GlobalBase):
@@ -759,7 +768,8 @@ class _GlobalHeapBase(SchedulerModule):
     def flow_init(self, stream) -> None:
         pass
 
-
+    def has_local_work(self, stream) -> bool:
+        return len(self._heap) > 0
 
     def schedule(self, stream, tasks, distance: int = 0) -> None:
         for t in tasks:

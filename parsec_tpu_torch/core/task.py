@@ -27,6 +27,8 @@ import threading
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
+from ..utils import mca
+
 # ---------------------------------------------------------------------------
 # Hook return codes (ref: parsec/parsec_internal.h PARSEC_HOOK_RETURN_*)
 # ---------------------------------------------------------------------------
@@ -247,7 +249,7 @@ class Taskpool:
         self._nb_tasks = 0
         self._nb_pending_actions = 0
         self._completed_event = threading.Event()
-        # dependency-tracking state: task_class_id -> dict
+        # dependency-tracking state: task_class_id -> table (dict or native)
         self._deps: List[Any] = []
         self._deps_locks: List[threading.Lock] = []
         # per-task-class data repos, installed by the DSL
@@ -328,7 +330,10 @@ class Taskpool:
             goal = tc.dependencies_goal
         table = self._deps[tc.task_class_id]
         if table is None:
-            table = self._pick_dep_backend(tc)
+            table = self._pick_dep_backend(tc, key)
+        if not isinstance(table, dict):
+            # the native dependency table (csrc/ptcore.cpp, native.py)
+            return table.update(key, contribution, goal, tc.count_mode)
         with self._deps_locks[tc.task_class_id]:
             cur = table.get(key, 0)
             if tc.count_mode:
@@ -342,17 +347,38 @@ class Taskpool:
             table[key] = cur
             return False
 
-    def _pick_dep_backend(self, tc: TaskClass) -> Dict[Any, int]:
-        """Create the class's dependency table on first use (the reference
-        also offers a native C++ table; this slice keeps the dict)."""
+    def _pick_dep_backend(self, tc: TaskClass, key: Any):
+        """Create the class's dependency table on first use, by key shape:
+        the native table (csrc/ptcore.cpp) takes int-tuple keys, the
+        DSL-generated common case; other keys (a user ``make_key_fn``'s)
+        and ``--mca native_enabled 0`` take a dict. A failed build of the
+        native core raises."""
         with self._deps_locks[tc.task_class_id]:
             table = self._deps[tc.task_class_id]
-            if table is None:
-                table = self._deps[tc.task_class_id] = {}
+            if table is not None:
+                return table
+            from .. import native
+            if mca.get("native_enabled", True) and \
+                    native.NativeDepTable.key_ok(key):
+                table = native.NativeDepTable()
+            else:
+                table = {}
+            self._deps[tc.task_class_id] = table
             return table
+
+    def task_rank_of(self, tc: TaskClass, locals_: Dict[str, int]) -> int:
+        """Owner-computes rank of a task instance. One rank until the
+        distributed half of the port lands: a PTG class's affinity still
+        answers (it names rank 0 on a one-rank collection)."""
+        rank_of = getattr(tc, "_ptg_rank_of", None)
+        if rank_of is not None:
+            return rank_of(locals_)
+        return 0
 
     def dep_state(self, tc: TaskClass, key: Any) -> int:
         table = self._deps[tc.task_class_id]
         if table is None:
             return 0
+        if not isinstance(table, dict):
+            return table.get(key)
         return table.get(key, 0)

@@ -26,6 +26,10 @@ This module stands where parsec/mca/device/cuda + the generic GPU runtime
 * Task batching (parsec_gpu_task_collect_batch, device_gpu.c:2229):
   compatible queued tasks are handed to a batch hook in one dispatch when the
   task class opts in.
+* :func:`make_cuda_hook` builds the chore hook of a PTG ``BODY
+  [type=CUDA]`` (the generated GPU hook, jdf2c.c:6613). PTG intermediates
+  ride as tensors with no backing ``Data``: they bypass the tile heap and
+  are only placed on the card.
 
 Test mode (``--mca device_cuda_over_cpu 1`` on a ``device="cpu"`` context)
 registers the same module over CPU tensors with events that are complete at
@@ -42,7 +46,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
 import torch
 
 from ..core.task import (DEV_CUDA, FLOW_ACCESS_CTL, FLOW_ACCESS_WRITE,
-                         HOOK_ASYNC, Task)
+                         HOOK_ASYNC, HOOK_DONE, Task)
 from ..data.data import (COHERENCY_INVALID, COHERENCY_OWNED, COHERENCY_SHARED,
                          Data, DataCopy)
 from ..utils import mca, output
@@ -290,11 +294,19 @@ class CUDADevice(DeviceModule):
             if flow.access & FLOW_ACCESS_CTL or slot.data_in is None:
                 inputs.append(None)
                 continue
+            data = getattr(slot.data_in, "original", None)
+            if data is None:
+                # a PTG intermediate (a tensor, or a copy attached to no
+                # Data): no heap entry, just placed on the card
+                payload = getattr(slot.data_in, "payload", slot.data_in)
+                inputs.append(None if payload is None else
+                              torch.as_tensor(payload).to(
+                                  self.torch_device, non_blocking=True))
+                continue
             # pin between stage-in and epilog: the eviction walks skip copies
             # with readers > 0, so an inflight task's inputs can never be
             # evicted under it (device_gpu.c:1210)
-            dev_copy = self._stage_in_copy(slot.data_in.original, flow.access,
-                                           pin=True)
+            dev_copy = self._stage_in_copy(data, flow.access, pin=True)
             slot.data_in = dev_copy
             gt.pinned.append(dev_copy)
             inputs.append(dev_copy.payload)
@@ -375,7 +387,10 @@ class CUDADevice(DeviceModule):
             arr = outs[oi]
             oi += 1
             slot = task.data[flow.flow_index]
-            data = slot.data_in.original
+            data = getattr(slot.data_in, "original", None)
+            if data is None:
+                slot.data_out = arr         # a PTG intermediate
+                continue
             copy = data.get_copy(self.device_index)
             if copy is None:
                 copy = data.create_copy(self.device_index, arr, COHERENCY_OWNED)
@@ -475,6 +490,44 @@ class CUDADevice(DeviceModule):
         self._lru_sizes.clear()
         self._resident_bytes = 0
         self._pending.clear()
+
+
+def make_cuda_hook(submit: Callable) -> Callable:
+    """Build a chore hook that dispatches ``submit`` on the selected CUDA
+    device (the generated GPU hook, jdf2c.c:6613, wrapping the body into a
+    gpu_task for the kernel scheduler). ``submit(device, task, inputs)``
+    returns the output tensors of the WRITE flows in flow order. With no
+    CUDA device selected the body runs inline on the host copies."""
+    def hook(stream, task: Task) -> int:
+        dev = task.selected_device
+        if not isinstance(dev, CUDADevice):
+            return _run_inline(stream, task, submit)
+        return dev.kernel_scheduler(stream, task, CUDATask(task, submit))
+    return hook
+
+
+def _run_inline(stream, task: Task, submit: Callable) -> int:
+    """Run a device body synchronously on the host copies (no CUDA device
+    was selected for the task)."""
+    inputs = []
+    for flow in task.task_class.flows:
+        slot = task.data[flow.flow_index]
+        inputs.append(None if slot.data_in is None
+                      else getattr(slot.data_in, "payload", slot.data_in))
+    outs = _as_tuple(submit(None, task, inputs))
+    oi = 0
+    for flow in task.task_class.flows:
+        if flow.access & FLOW_ACCESS_WRITE and oi < len(outs):
+            slot = task.data[flow.flow_index]
+            data = getattr(slot.data_in, "original", None)
+            if data is not None:
+                slot.data_in.payload = outs[oi]
+                data.bump_version(slot.data_in.device_index)
+                slot.data_out = slot.data_in
+            else:
+                slot.data_out = outs[oi]
+            oi += 1
+    return HOOK_DONE
 
 
 def _as_tuple(outs) -> tuple:

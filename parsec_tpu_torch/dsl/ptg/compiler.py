@@ -1,0 +1,1425 @@
+"""PTG compiler: ProgramSpec → runtime task classes.
+
+Stands where the reference's jdf2c.c code generator stands (SURVEY §2.5:
+structure/symbols/flows/deps/startup/init/ctor/keys/hooks/data_lookup/
+release_deps/iterate_successors), but instead of emitting C against the
+task-class contract it *builds* :class:`..core.task.TaskClass` objects
+directly:
+
+* parameter ranges → the startup enumerator counting the task space and
+  seeding ready tasks (the generated startup/internal_init, jdf2c.c:3047,3455)
+* guarded in-deps → ``prepare_input`` (the generated data_lookup, jdf2c.c:45)
+  + per-task dependency goals (count mode — the DYNAMIC_HASH_TABLE dep mode)
+* guarded out-deps → ``Dep`` descriptors consumed by the generic
+  release-deps engine (iterate_successors, jdf2c.c:47)
+* BODY blocks → chores: the body text becomes a plain Python function of
+  (params..., flows...) returning its written flows, with ``torch`` and
+  ``np`` in its namespace. A ``BODY [type=CUDA]`` (or ``type=TPU``) gets a
+  CUDA chore that runs it through the device module's stream, plus a CPU
+  twin of the same function
+* memory out-deps → write-back to the data collection at completion
+
+Eligible pools hand their whole FSM to the native execution lane
+(``csrc/ptexec.cpp``, :meth:`PTGTaskpool._ptexec_prepare`). Region fusion,
+the cost model and the native device lane of the reference are not ported
+yet for PTG pools: ``--mca device_native`` defaults to off, and
+``--mca region_fusion`` (on by default for the DTD capture window,
+``dsl/fusion.py``) leaves PTG pools per-task unless the caller sets it;
+either, asked for where it would take effect, raises
+``NotImplementedError``. A device-bodied pool on a context with a CUDA
+device runs the interpreted FSM on the device module (counted in
+``PTEXEC_STATS["pools_device_declined"]``).
+
+Python expressions are compiled once at class-build time and evaluated
+against task locals + user globals.
+"""
+
+from __future__ import annotations
+
+import textwrap
+import threading
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ...core.context import Context
+from ...core.datarepo import DataRepo
+from ...core.futures import DataCopyFuture
+from ...core.task import (
+    Chore, DEV_CPU, DEV_CUDA, Dep, Flow, FLOW_ACCESS_CTL, FLOW_ACCESS_READ,
+    FLOW_ACCESS_RW, FLOW_ACCESS_WRITE, HOOK_DONE, Task, TaskClass, Taskpool,
+)
+from ...data.data import COHERENCY_OWNED, DataCopy
+from ...data.reshape import NamedDatatype, default_datatype
+from ...device.cuda import make_cuda_hook
+from ...utils import mca, output
+from ...utils.counters import LaneStats
+from .. import fusion  # noqa: F401 — registers --mca region_fusion
+from . import parser as P
+
+mca.register("ptg_agglomerate", True,
+             "Execute statically-independent flowless PTG classes "
+             "as one fused sweep at startup (no per-task "
+             "scheduling cycle)", type=bool)
+mca.register("ptg_native_exec", True,
+             "Drain eligible PTG taskpools (CTL and DATA-flow classes "
+             "with single ungated CPU chores, incl. priorities) through "
+             "the native execution lane (csrc/ptexec.cpp): the full "
+             "dependency FSM — dep decrement, ready heap, data-slot "
+             "retire — runs batched in C with the GIL dropped. "
+             "Ineligible pools (named datatypes/reshapes, PINS paranoid, "
+             "multi-chore classes, device bodies on a CUDA context) run "
+             "the Python FSM", type=bool)
+mca.register("device_native", False,
+             "Run device-bodied PTG classes on the native device lane "
+             "(ptdev). Not ported yet (ROADMAP queue 1, item 3): 1 raises "
+             "NotImplementedError on a device pool of a CUDA context",
+             type=bool)
+
+#: where the parts of the reference's PTG lane that are not ported yet
+#: stand in ROADMAP.md
+_ROADMAP_ITEM = ("ROADMAP.md queue 1, item 3: the ptdev lane, the cost "
+                 "model and region fusion on the PTG lane")
+
+#: lane-engagement accounting (the LaneStats snapshot()/delta() helpers,
+#: not raw key pokes). ``pools_fallback`` counts pools whose classes were
+#: ALL eligible yet the lane still declined (flatten refusal) — the silent
+#: perf regression no throughput number reliably catches on a noisy host.
+#: ``pools_ineligible`` counts pools declined by DESIGN (ineligible class
+#: features or pool-level gates: pins-paranoid/debug-paranoid/mca-off).
+#: ``pools_device_declined`` counts device-bodied pools on a context with a
+#: CUDA device: they run the interpreted FSM on the device module until
+#: the native device lane is ported
+PTEXEC_STATS = LaneStats(pools_engaged=0, tasks_engaged=0,
+                         pools_fallback=0, pools_ineligible=0,
+                         pools_device_declined=0)
+
+_ACCESS_MAP = {
+    P.FLOW_READ: FLOW_ACCESS_READ,
+    P.FLOW_WRITE: FLOW_ACCESS_WRITE,
+    P.FLOW_RW: FLOW_ACCESS_RW,
+    P.FLOW_CTL: FLOW_ACCESS_CTL,
+}
+
+def _payload_of(v: Any) -> Any:
+    return v.payload if isinstance(v, DataCopy) else v
+
+
+class _Expr:
+    """One compiled Python expression evaluated against task locals."""
+
+    __slots__ = ("code", "src")
+    is_range = False
+
+    def __init__(self, src: str) -> None:
+        self.src = src = src.strip()
+        try:
+            self.code = compile(src, f"<ptg:{src}>", "eval")
+        except SyntaxError as e:
+            raise P.PTGSyntaxError(f"bad expression {src!r}: {e}") from e
+
+    def __call__(self, env: Dict[str, Any]) -> Any:
+        return eval(self.code, env)  # noqa: S307 - the DSL is code by design
+
+    def values(self, env: Dict[str, Any]) -> List[int]:
+        return [int(self(env))]
+
+
+class _RangeExpr:
+    """A JDF range endpoint index ``lo .. hi`` — broadcast/gather fan-out
+    (e.g. ``-> Y WORK(0 .. W-1)`` multicasts one output to many tasks)."""
+
+    __slots__ = ("lo", "hi")
+    is_range = True
+
+    def __init__(self, lo: str, hi: str) -> None:
+        self.lo = _Expr(lo)
+        self.hi = _Expr(hi)
+
+    def values(self, env: Dict[str, Any]) -> List[int]:
+        return list(range(int(self.lo(env)), int(self.hi(env)) + 1))
+
+
+def _index_expr(src: str):
+    # top-level '..' only (not inside parens/brackets)
+    depth = 0
+    for i, c in enumerate(src):
+        if c in "([":
+            depth += 1
+        elif c in ")]":
+            depth -= 1
+        elif c == "." and depth == 0 and src[i:i+2] == ".." and src[i:i+3] != "...":
+            return _RangeExpr(src[:i], src[i+2:])
+    return _Expr(src)
+
+
+class PTGTaskpool(Taskpool):
+    """A taskpool instantiated from a PTG program."""
+
+    def __init__(self, program: "PTGProgram", ctx: Context,
+                 globals_: Dict[str, Any],
+                 collections: Dict[str, Any],
+                 name: Optional[str] = None,
+                 datatypes: Optional[Dict[str, NamedDatatype]] = None) -> None:
+        super().__init__(name or program.spec.name)
+        self.program = program
+        self.ctx = ctx
+        # named dep datatypes (the arenas_datatypes table of the generated
+        # taskpool, ref parsec_internal.h:42-47); DEFAULT is the identity
+        self.datatypes: Dict[str, NamedDatatype] = {"DEFAULT": default_datatype()}
+        self.datatypes.update(datatypes or {})
+        #: (id(source payload), dtt name) -> DataCopyFuture — the reshape
+        #: promise table: every consumer of (copy, datatype) shares ONE
+        #: conversion (ref: parsec_reshape.c repo entries;
+        #: input_dep_single_copy_reshape.jdf)
+        self._typed_cache: Dict[Tuple[int, str], DataCopyFuture] = {}
+        self._typed_lock = threading.Lock()
+        #: compiled out-dep tables per (producer class, flow) for the
+        #: guard-exact producer-datatype lookup
+        self._odt_cache: Dict[Tuple[str, str], List] = {}
+        self.env_base: Dict[str, Any] = {"__builtins__": {}}
+        self.env_base.update({
+            "min": min, "max": max, "abs": abs, "range": range, "len": len,
+            "int": int, "divmod": divmod,
+        })
+        prologue_names: Dict[str, Any] = {}
+        if program.spec.prologue:
+            # the '%{...%}' host-language escape (jdf2c.c:54): full Python,
+            # executed once per instantiation; its definitions become
+            # program globals visible to ranges, guards, and bodies
+            pns: Dict[str, Any] = {"np": np, "torch": torch}
+            try:
+                exec(compile(program.spec.prologue,  # noqa: S102
+                             f"<ptg-prologue:{program.spec.name}>", "exec"),
+                     pns)
+            except Exception as e:
+                output.fatal(f"PTG taskpool {self.name}: prologue failed: {e}")
+            prologue_names = {k: v for k, v in pns.items()
+                              if not k.startswith("__")
+                              and k not in ("np", "torch")}
+            self.env_base.update(prologue_names)
+        self.env_base.update(globals_)
+        self.collections = collections
+        missing = [g for g in program.spec.globals
+                   if g not in globals_ and g not in collections
+                   and g not in prologue_names]
+        if missing:
+            output.fatal(f"PTG taskpool {self.name}: missing globals {missing}")
+        #: native execution lane state (set by _startup when eligible) and
+        #: the decline reason ("ineligible" | "device" | "fallback" | None
+        #: = engaged)
+        self._ptexec_state: Optional[Dict[str, Any]] = None
+        self._ptexec_refusal: Optional[str] = None
+        self._build()
+
+    # ------------------------------------------------------------------ build
+    def _build(self) -> None:
+        spec = self.program.spec
+        self._classes: Dict[str, TaskClass] = {}
+        # pass 1: shells
+        for tcs in spec.task_classes:
+            tc = TaskClass(tcs.name, nb_locals=len(tcs.params))
+            tc.count_mode = True
+            for fs in tcs.flows:
+                tc.add_flow(Flow(fs.name, _ACCESS_MAP[fs.access]))
+            tc.make_key = (lambda params: (
+                lambda tp, loc: tuple(loc[p] for p in params)
+            ))(tcs.params)
+            # the wire always carries the canonical parameter tuple, even
+            # when make_key_fn customizes the local hash key (the receiving
+            # rank re-derives locals from it)
+            tc._ptg_canonical_key = (lambda params: (
+                lambda task: tuple(task.locals[p] for p in params)
+            ))(tcs.params)
+            self.add_task_class(tc)
+            self.repos[tc.task_class_id] = DataRepo(tc.nb_flows, tcs.name)
+            self._classes[tcs.name] = tc
+        # pass 2: deps, goals, hooks
+        for tcs in spec.task_classes:
+            self._build_class(tcs, self._classes[tcs.name])
+        self.startup_hook = self._startup
+
+    def _env(self, locals_: Dict[str, int]) -> Dict[str, Any]:
+        env = dict(self.env_base)
+        env.update(locals_)
+        return env
+
+    def _build_class(self, tcs: P.TaskClassSpec, tc: TaskClass) -> None:
+        spec = self.program.spec
+        # ranges
+        ranges = [(r.param, _Expr(r.lo_expr), _Expr(r.hi_expr), _Expr(r.step_expr))
+                  for r in tcs.ranges]
+        # order ranges by parameter declaration order
+        order = {p: i for i, p in enumerate(tcs.params)}
+        ranges.sort(key=lambda r: order[r[0]])
+        tc._ptg_ranges = ranges
+        tc._ptg_spec = tcs
+        # header property block (ref: udf.jdf user-defined functions):
+        # names resolve against the taskpool globals at instantiate time
+        mk_fn = self._resolve_callable(tcs, "make_key_fn",
+                                       tcs.header_props.get("make_key_fn"))
+        if mk_fn is not None:
+            # user-defined task key (ref: udf.jdf ud_make_key): fn(tp,
+            # locals) -> hashable key used by the dep repo/hash tables
+            tc.make_key = mk_fn
+        te_fn = self._resolve_callable(tcs, "time_estimate",
+                                       tcs.header_props.get("time_estimate"))
+        if te_fn is not None:
+            # feeds best-device selection (ref: parsec_internal.h:431-458
+            # time_estimate; consumed by DeviceRegistry.select_best_device)
+            tc.time_estimate = te_fn
+        tc._ptg_startup_fn = self._resolve_callable(
+            tcs, "startup_fn", tcs.header_props.get("startup_fn"))
+
+        if tcs.priority_expr:
+            prio = _Expr(tcs.priority_expr)
+            tc.properties["priority"] = lambda loc, _p=prio: int(_p(self._env(loc)))
+        if tcs.affinity is not None:
+            aff_name = tcs.affinity.name
+            aff_exprs = [_Expr(e) for e in tcs.affinity.index_exprs]
+            def affinity_rank(loc, _n=aff_name, _e=aff_exprs):
+                dc = self.collections.get(_n)
+                if dc is None:
+                    return 0
+                env = self._env(loc)
+                return dc.rank_of(*[ex(env) for ex in _e])
+            tc._ptg_rank_of = affinity_rank
+        else:
+            tc._ptg_rank_of = lambda loc: 0
+
+        # in-deps: per flow, ordered guarded alternatives
+        in_specs: List[List[Tuple]] = []
+        for fs in tcs.flows:
+            alts = []
+            for d in fs.deps:
+                if d.direction != "in":
+                    continue
+                guard = _Expr(d.guard) if d.guard else None
+                alts.append((guard, self._mk_ep(d.endpoint, d.dtt)))
+                if d.else_endpoint is not None:
+                    alts.append(("else", self._mk_ep(d.else_endpoint, d.dtt)))
+            in_specs.append(alts)
+        tc._ptg_in_specs = in_specs
+
+        def active_in(alts: List[Tuple], env: Dict[str, Any]):
+            taken = False
+            for guard, ep in alts:
+                if guard is None:
+                    return ep
+                if guard == "else":
+                    if not taken:
+                        return ep
+                    continue
+                taken = bool(guard(env))
+                if taken:
+                    return ep
+            return None
+
+        def goal_fn(loc: Dict[str, int]) -> int:
+            env = self._env(loc)
+            goal = 0
+            for alts in in_specs:
+                ep = active_in(alts, env)
+                if ep is not None and ep["kind"] == "task":
+                    n = 1
+                    for ex in ep["exprs"]:
+                        if ex.is_range:
+                            n *= len(ex.values(env))
+                    goal += n
+            return goal
+
+        tc.dependencies_goal_fn = goal_fn
+        tc._ptg_active_in = active_in
+        for fs, alts in zip(tcs.flows, in_specs):
+            if fs.access == P.FLOW_CTL:
+                continue
+            for _guard, ep in alts:
+                if ep and ep["kind"] == "task" and \
+                        any(ex.is_range for ex in ep["exprs"]):
+                    raise P.PTGSyntaxError(
+                        f"{tcs.name}.{fs.name}: range gather is only valid "
+                        f"on CTL flows (a data flow has exactly one input)")
+
+        # out-deps -> generic-engine Dep descriptors
+        for fi, fs in enumerate(tcs.flows):
+            flow = tc.flows[fi]
+            for d in fs.deps:
+                if d.direction != "out":
+                    continue
+                self._add_out_dep(tc, flow, d.guard, d.endpoint, dtt=d.dtt,
+                                  dtt_remote=d.dtt_remote)
+                if d.else_endpoint is not None:
+                    self._add_out_dep(tc, flow, d.guard, d.else_endpoint,
+                                      negate=True, dtt=d.dtt,
+                                      dtt_remote=d.dtt_remote)
+
+        # hooks — flowless AND CTL-only classes (the EP/control shapes)
+        # skip the data prepare hook entirely instead of paying per-task
+        # env construction for flows that carry no data (the generic
+        # prepare's CTL skip is a cheap loop; this one built an env first)
+        has_data_flows = any(not (f.access & FLOW_ACCESS_CTL)
+                             for f in tc.flows)
+        tc.prepare_input = self._mk_prepare_input(tc) if has_data_flows \
+            else None
+        if any(getattr(f, "_ptg_mem_out", None) for f in tc.flows):
+            tc.complete_execution = self._mk_complete(tc)
+        nb_bodies = 0
+        for body in tcs.bodies:
+            fn = self._compile_body(tcs, body)
+            if nb_bodies == 0:
+                tc._ptg_body_fn = fn    # cross-DSL replay (pins ptg_to_dtd)
+            # [evaluate = fn]: per-incarnation gate (ref: udf.jdf evaluate
+            # properties selecting the chore); fn(stream, task) -> HOOK_*
+            evaluate = self._resolve_callable(tcs, "evaluate", body.evaluate)
+            if body.device == "CUDA":
+                tc.add_chore(Chore(DEV_CUDA, make_cuda_hook(
+                    self._mk_cuda_submit(tc, fn)), evaluate=evaluate))
+                # device bodies also serve as host chores through the same
+                # function (a context without a CUDA device runs them there)
+                tc.add_chore(Chore(DEV_CPU, self._mk_cpu_hook(tc, fn),
+                                   evaluate=evaluate))
+            else:
+                tc.add_chore(Chore(DEV_CPU, self._mk_cpu_hook(tc, fn),
+                                   evaluate=evaluate))
+            nb_bodies += 1
+
+    def _resolve_callable(self, tcs: P.TaskClassSpec, prop: str,
+                          name: Optional[str]):
+        """Resolve a user-function property name against the taskpool
+        globals; fatal when it does not name a callable."""
+        if name is None:
+            return None
+        fn = self.env_base.get(name)
+        if not callable(fn):
+            output.fatal(f"{tcs.name}: property {prop}={name!r} does not "
+                         f"name a callable in the taskpool globals")
+        return fn
+
+    def _mk_ep(self, ep: Optional[P.Endpoint],
+               dtt: Optional[str] = None) -> Optional[Dict[str, Any]]:
+        if ep is None:
+            return None
+        return {
+            "kind": ep.kind,
+            "name": ep.name,
+            "flow": ep.flow,
+            "exprs": [_index_expr(e) for e in ep.index_exprs],
+            "dtt": dtt,
+        }
+
+    # ------------------------------------------------------------- datatypes
+    def _dtt(self, name: Optional[str]) -> Optional[NamedDatatype]:
+        if name is None:
+            return None
+        d = self.datatypes.get(name)
+        if d is None:
+            output.fatal(f"PTG taskpool {self.name}: dep references unknown "
+                         f"datatype {name!r} (registered: "
+                         f"{sorted(self.datatypes)})")
+        return d
+
+    def _typed_payload(self, value: Any, dtt: Optional[NamedDatatype]) -> Any:
+        """Reshape-promise path (ref: parsec_get_copy_reshape_from_dep,
+        parsec_internal.h:688-696): the conversion runs lazily, ONCE, and is
+        shared by every consumer of (source copy, datatype). Identity
+        datatypes return the original untouched (avoidable_reshape.jdf)."""
+        if dtt is None or dtt.identity:
+            return value
+        payload = _payload_of(value)
+        key = (id(payload), dtt.name)
+        with self._typed_lock:
+            fut = self._typed_cache.get(key)
+            if fut is None:
+                src = value if isinstance(value, DataCopy) \
+                    else DataCopy(None, 0, payload)
+                fut = DataCopyFuture(src, dtt, lambda c, d: d.convert(c))
+                self._typed_cache[key] = fut
+        return fut.request()
+
+    def _out_dep_table(self, peer_name: str, peer_flow: str) -> List:
+        """Compiled (guard, [(which, class, flow, index_exprs)], dtt, wire)
+        rows for a producer flow's out-deps (compiled once per edge)."""
+        key = (peer_name, peer_flow)
+        tbl = self._odt_cache.get(key)
+        if tbl is None:
+            tbl = []
+            pf = self.program.spec.task_class(peer_name).flow(peer_flow)
+            for d in (pf.deps if pf is not None else []):
+                if d.direction != "out":
+                    continue
+                g = _Expr(d.guard) if d.guard else None
+                eps = {}
+                for which, ep in (("then", d.endpoint),
+                                  ("else", d.else_endpoint)):
+                    if ep is not None and ep.kind == "task":
+                        eps[which] = (ep.name, ep.flow,
+                                      [_index_expr(e) for e in ep.index_exprs])
+                wire = d.dtt_remote if d.dtt_remote is not None else d.dtt
+                tbl.append((g, eps, d.dtt, wire))
+            self._odt_cache[key] = tbl
+        return tbl
+
+    def _producer_out_dtt(self, peer_name: str, peer_flow: str,
+                          my_class: str, my_flow: str,
+                          plocals: Dict[str, int],
+                          my_key: Tuple[int, ...]
+                          ) -> Tuple[Optional[str], Optional[str]]:
+        """(local [type], wire type) the producer declared on the out-dep
+        that ACTUALLY feeds this task — guards evaluated under the
+        producer's locals and the fan-out index set checked against my key
+        (a flow may have several typed edges to the same class/flow behind
+        different guards)."""
+        env = self._env(plocals)
+        import itertools
+        for g, eps, dtt, wire in self._out_dep_table(peer_name, peer_flow):
+            # guard/index exceptions propagate: the sender side evaluates
+            # the same expressions (dep.cond / target_locals) and lets them
+            # raise, and the two ends of a remote edge must agree
+            which = "then"
+            if g is not None:
+                which = "then" if bool(g(env)) else "else"
+            ep = eps.get(which)
+            if ep is None or ep[0] != my_class or ep[1] != my_flow:
+                continue
+            axes = [ex.values(env) for ex in ep[2]]
+            if tuple(my_key) not in set(itertools.product(*axes)):
+                continue
+            return dtt, wire
+        return None, None
+
+    def _add_out_dep(self, tc: TaskClass, flow: Flow, guard: Optional[str],
+                     ep: P.Endpoint, negate: bool = False,
+                     dtt: Optional[str] = None,
+                     dtt_remote: Optional[str] = None) -> None:
+        gexpr = _Expr(guard) if guard else None
+
+        def cond(loc, _g=gexpr, _n=negate):
+            if _g is None:
+                return True
+            v = bool(_g(self._env(loc)))
+            return (not v) if _n else v
+
+        if ep.kind == "task":
+            peer_tc = self._classes[ep.name]
+            peer_spec = self.program.spec.task_class(ep.name)
+            peer_flow_idx = next(i for i, f in enumerate(peer_spec.flows)
+                                 if f.name == ep.flow)
+            exprs = [_index_expr(e) for e in ep.index_exprs]
+
+            def target_locals(loc, _e=exprs, _params=tuple(peer_spec.params)):
+                env = self._env(loc)
+                import itertools
+                axes = [ex.values(env) for ex in _e]
+                return [dict(zip(_params, combo))
+                        for combo in itertools.product(*axes)]
+
+            dep = Dep(
+                task_class=peer_tc, flow_index=peer_flow_idx,
+                dep_index=len(flow.deps_out), cond=cond,
+                target_locals=target_locals,
+                datatype=dtt)        # named datatype (local reshape)
+            # [type_remote] overrides the wire datatype only — local
+            # successors keep the original copy (local_no_reshape.jdf)
+            dep.wire_datatype = dtt_remote if dtt_remote is not None else dtt
+            flow.deps_out.append(dep)
+        elif ep.kind == "memory":
+            exprs = [_Expr(e) for e in ep.index_exprs]
+            flow._ptg_mem_out = getattr(flow, "_ptg_mem_out", [])
+            flow._ptg_mem_out.append((cond, ep.name, exprs, dtt))
+        # 'null' endpoints: data is dropped
+
+    # ------------------------------------------------------------------ hooks
+    def _mk_prepare_input(self, tc: TaskClass):
+        my_class = tc._ptg_spec.name
+        my_flows = [f.name for f in tc._ptg_spec.flows]
+
+        def prepare_input(stream, task: Task) -> int:
+            env = self._env(task.locals)
+            # datatype resolution always compares CANONICAL parameter
+            # tuples, independent of any user make_key_fn hash key
+            canonical_key = tc._ptg_canonical_key(task)
+            for fi, flow in enumerate(tc.flows):
+                if flow.access & FLOW_ACCESS_CTL:
+                    # control deps carry no data: their only job (the
+                    # dependency count) was done at the producer's release
+                    continue
+                alts = tc._ptg_in_specs[fi]
+                ep = tc._ptg_active_in(alts, env)
+                if ep is None:
+                    continue
+                slot = task.data[fi]
+                in_dtt = self._dtt(ep.get("dtt"))
+                if ep["kind"] == "memory":
+                    dc = self.collections.get(ep["name"])
+                    if dc is None:
+                        output.fatal(f"unknown collection {ep['name']!r}")
+                    data = dc.data_of(*[ex(env) for ex in ep["exprs"]])
+                    copy = data.newest_copy()
+                    if in_dtt is not None and not in_dtt.identity:
+                        # read-reshape: a NEW typed datacopy, shared by all
+                        # consumers of (copy, datatype) via the promise table
+                        slot.data_in = self._typed_payload(copy, in_dtt)
+                    else:
+                        # unattached wrapper: body outputs never mutate the
+                        # collection implicitly (write-back = explicit out-deps)
+                        slot.data_in = DataCopy(None, 0, _payload_of(copy))
+                elif ep["kind"] == "task":
+                    peer = self._classes[ep["name"]]
+                    peer_spec = self.program.spec.task_class(ep["name"])
+                    pkey = tuple(ex.values(env)[0] for ex in ep["exprs"])
+                    pf_idx = next(i for i, f in enumerate(peer_spec.flows)
+                                  if f.name == ep["flow"])
+                    plocals = dict(zip(peer_spec.params, pkey))
+                    out_dtt_name, _wire = self._producer_out_dtt(
+                        ep["name"], ep["flow"], my_class, my_flows[fi],
+                        plocals, canonical_key)
+                    repo = self.repos[peer.task_class_id]
+                    # repo entries are stored under the producer's task key,
+                    # which may come from a user make_key_fn
+                    entry = repo.lookup_entry(peer.make_key(self, plocals))
+                    if entry is None:
+                        output.fatal(f"{task!r}: missing repo entry "
+                                     f"{ep['name']}{pkey}")
+                    value = entry.data[pf_idx]
+                    # output-reshape (producer's [type]) then input-reshape
+                    # (this dep's [type]) when they differ; identical names
+                    # convert exactly once (avoidable_reshape.jdf)
+                    out_dtt = self._dtt(out_dtt_name)
+                    value = self._typed_payload(value, out_dtt)
+                    if in_dtt is not None and (out_dtt is None
+                                               or in_dtt.name != out_dtt.name):
+                        value = self._typed_payload(value, in_dtt)
+                    slot.data_in = value
+                    slot.source_repo_entry = entry
+                elif ep["kind"] == "new":
+                    slot.data_in = None
+            return HOOK_DONE
+        return prepare_input
+
+    def _body_inputs(self, tc: TaskClass, task: Task) -> List[Any]:
+        vals = [task.locals[p] for p in tc._ptg_spec.params]
+        for fi, flow in enumerate(tc.flows):
+            if flow.access & FLOW_ACCESS_CTL:
+                continue
+            vals.append(_payload_of(task.data[fi].data_in))
+        return vals
+
+    def _store_outputs(self, tc: TaskClass, task: Task, outs) -> None:
+        if outs is None:
+            outs = ()
+        elif not isinstance(outs, (tuple, list)):
+            outs = (outs,)
+        oi = 0
+        for fi, flow in enumerate(tc.flows):
+            if flow.access & FLOW_ACCESS_CTL or not (flow.access & FLOW_ACCESS_WRITE):
+                continue
+            if oi < len(outs):
+                task.data[fi].data_out = outs[oi]
+            oi += 1
+
+    def _mk_cpu_hook(self, tc: TaskClass, fn):
+        if all(f.access & FLOW_ACCESS_CTL for f in tc.flows):
+            # flowless or CTL-only class (the EP/control-task shapes): no
+            # tensors flow through the body. The agglomerated-sweep entry
+            # (flowless) and the native execution lane's batched-dispatch
+            # entry (CTL-only) both call the body with the class parameters
+            raw = fn
+            tc._ptg_raw_body = raw
+
+            def flowless_hook(stream, task: Task) -> int:
+                raw(*[task.locals[p] for p in tc._ptg_spec.params])
+                return HOOK_DONE
+            return flowless_hook
+
+        def hook(stream, task: Task) -> int:
+            outs = fn(*self._body_inputs(tc, task))
+            self._store_outputs(tc, task, outs)
+            return HOOK_DONE
+        return hook
+
+    def _mk_cuda_submit(self, tc: TaskClass, fn):
+        def submit(device, task: Task, inputs: List[Any]):
+            vals = [task.locals[p] for p in tc._ptg_spec.params]
+            for fi, flow in enumerate(tc.flows):
+                if flow.access & FLOW_ACCESS_CTL:
+                    continue
+                vals.append(inputs[fi])
+            return fn(*vals)
+        return submit
+
+    def _mk_complete(self, tc: TaskClass):
+        def complete(stream, task: Task) -> int:
+            env = self._env(task.locals)
+            for fi, flow in enumerate(tc.flows):
+                mem_outs = getattr(flow, "_ptg_mem_out", None)
+                if not mem_outs:
+                    continue
+                slot = task.data[fi]
+                value = slot.data_out if slot.data_out is not None else \
+                    _payload_of(slot.data_in)
+                value = _payload_of(value)
+                for cond, dc_name, exprs, dtt_name in mem_outs:
+                    if not cond(task.locals):
+                        continue
+                    dc = self.collections.get(dc_name)
+                    data = dc.data_of(*[ex(env) for ex in exprs])
+                    host = data.get_copy(0)
+                    dtt = self._dtt(dtt_name)
+                    if host is None:
+                        v = value if dtt is None or dtt.identity \
+                            else dtt.extract(value)
+                        data.create_copy(0, v, COHERENCY_OWNED)
+                    elif dtt is not None and not dtt.identity:
+                        # typed write-back merges only the datatype's region
+                        # into the tile; the complement is preserved
+                        host.payload = dtt.insert(host.payload, value)
+                    else:
+                        host.payload = value
+                    data.bump_version(0)
+            return HOOK_DONE
+        return complete
+
+    def _compile_body(self, tcs: P.TaskClassSpec, body: P.BodySpec):
+        """Body text → function(params..., flows...) -> written flows. The
+        body is the plain function: torch dispatches each operation to the
+        tensors' device, so a CUDA body's operations land on the device
+        module's stream with no compile step."""
+        data_flows = [f.name for f in tcs.flows if f.access != P.FLOW_CTL]
+        written = [f.name for f in tcs.flows
+                   if f.access in (P.FLOW_WRITE, P.FLOW_RW)]
+        args = list(tcs.params) + data_flows
+        for name in args:
+            if not name.isidentifier():
+                raise P.PTGSyntaxError(f"bad identifier {name!r}")
+        src = textwrap.dedent(body.source)
+        import re as _re
+        if _re.search(r"\breturn\b", src):
+            raise P.PTGSyntaxError(
+                f"BODY of {tcs.name} must not use 'return'; written flows "
+                f"are returned automatically", body.line_no)
+        fn_src = (f"def __ptg_body__({', '.join(args)}):\n"
+                  + textwrap.indent(src if src.strip() else "pass", "    ")
+                  + f"\n    return ({', '.join(written)}{',' if written else ''})")
+        ns: Dict[str, Any] = {}
+        ns.update(self.env_base)
+        ns.setdefault("torch", torch)
+        ns.setdefault("np", np)
+        try:
+            exec(compile(fn_src, f"<ptg-body:{tcs.name}>", "exec"), ns)  # noqa: S102
+        except SyntaxError as e:
+            raise P.PTGSyntaxError(
+                f"BODY of {tcs.name} does not compile: {e}", body.line_no) from e
+        return ns["__ptg_body__"]
+
+    def _declare_complete(self) -> None:
+        super()._declare_complete()
+        # retire the reshape-promise table: the graph is done, no consumer
+        # can request them again (the reference retires reshape promises
+        # with repo-entry refcounts)
+        with self._typed_lock:
+            self._typed_cache.clear()
+
+
+    def _enumerate(self):
+        """Yield every locals assignment in the task space, class by class
+        (the generated startup-task enumerator, jdf2c.c:3047)."""
+        for tcs in self.program.spec.task_classes:
+            tc = self._classes[tcs.name]
+            yield from ((tc, loc) for loc in self._enum_class(tc))
+
+    def _enum_class(self, tc: TaskClass):
+        ranges = tc._ptg_ranges
+        def rec(i: int, loc: Dict[str, int]):
+            if i == len(ranges):
+                yield dict(loc)
+                return
+            param, lo, hi, step = ranges[i]
+            env = self._env(loc)
+            lo_v, hi_v, st_v = int(lo(env)), int(hi(env)), int(step(env))
+            end = hi_v + 1 if st_v > 0 else hi_v - 1
+            for v in range(lo_v, end, st_v):        # inclusive, like JDF
+                loc[param] = v
+                yield from rec(i + 1, loc)
+            loc.pop(param, None)
+        yield from rec(0, {})
+
+    def _agglomerable(self, tc: TaskClass) -> bool:
+        """A class the runtime may execute as ONE fused sweep at startup:
+        statically proven independent — no flows at all (so no deps in or
+        out, no data, nothing downstream waits on any instance) and no
+        custom startup seeding. The PTG analogue of capture: when the
+        static structure proves there is nothing to schedule AROUND, the
+        per-task scheduling cycle is pure overhead (the reference pays ~0
+        for that cycle in C; we eliminate it instead)."""
+        return (not tc.flows
+                and getattr(tc, "_ptg_startup_fn", None) is None
+                # exactly one ungated body: multi-incarnation classes pick
+                # a chore per task ([evaluate] gates, device choice) — the
+                # sweep must not bypass that selection
+                and len(tc.incarnations) == 1
+                and tc.incarnations[0].evaluate is None
+                # a sweep runs on the startup thread: with worker streams
+                # the per-task path spreads instances across cores instead
+                and len(self.ctx.streams) == 1
+                and mca.get("ptg_agglomerate", True)
+                and not self.ctx.pins.enabled
+                and not self.ctx.paranoid)
+
+    def _enum_class_fast(self, tc: TaskClass):
+        """Param-value tuples via itertools.product when every range bound
+        is static (depends on globals only); None when bounds reference
+        other params (triangular spaces fall back to the dict walk)."""
+        import itertools
+        env0 = self._env({})
+        rs = []
+        for i, (param, lo, hi, step) in enumerate(tc._ptg_ranges):
+            if param != tc._ptg_spec.params[i]:
+                return None
+            try:
+                lo_v, hi_v, st_v = int(lo(env0)), int(hi(env0)), int(step(env0))
+            except Exception:  # noqa: BLE001 — bound needs an outer param
+                return None
+            rs.append(range(lo_v, hi_v + 1 if st_v > 0 else hi_v - 1, st_v))
+        return itertools.product(*rs) if rs else iter(((),))
+
+    def _run_agglomerated(self, stream, tc: TaskClass) -> int:
+        """Execute a proven-independent flowless class as one fused sweep;
+        returns the instance count (reported executed, never scheduled)."""
+        raw = tc._ptg_raw_body
+        n = 0
+        it = self._enum_class_fast(tc)
+        if it is not None:
+            for vals in it:
+                raw(*vals)
+                n += 1
+        else:
+            params = tc._ptg_spec.params
+            for loc in self._enum_class(tc):
+                raw(*[loc[p] for p in params])
+                n += 1
+        stream.nb_executed += n
+        return n
+
+    # ------------------------------------------------------- native exec lane
+    def _ptexec_class_device(self, tc: TaskClass) -> bool:
+        """True for the device-bodied shape (``BODY [type=CUDA]``):
+        exactly the two ungated incarnations _build_class emits — the CUDA
+        chore plus its CPU twin running the same function."""
+        incs = tc.incarnations
+        return (len(incs) == 2 and incs[0].device_type == DEV_CUDA
+                and incs[1].device_type == DEV_CPU
+                and incs[0].evaluate is None and incs[1].evaluate is None)
+
+    def _ptexec_class_eligible(self, tc: TaskClass) -> bool:
+        """May this class's whole FSM run inside the native lane
+        (native/src/ptexec.cpp)?  Eligibility = the per-task cycle carries
+        no state the lane does not model. The lane models: CTL edges, DATA
+        flows (the versioned slot hand-off + the datarepo usagelmt/usagecnt
+        retire protocol live in the lane's per-task slot array), memory
+        reads/write-backs, ``priority`` properties (a native ready heap),
+        and device-bodied classes, whose CPU twin runs the same function
+        through the lane dispatch when the context has no CUDA device
+        (which is exactly what the interpreted FSM's chore selection would
+        have picked). It does NOT model: named datatypes (reshape
+        promises), evaluate-gated or >2-incarnation chore selection,
+        multi-body classes, or custom startup seeding. Pool-level gates
+        (PINS paranoid, debug paranoid, a CUDA device under device
+        classes) live in :meth:`_ptexec_prepare`."""
+        if getattr(tc, "_ptg_startup_fn", None) is not None:
+            return False
+        if tc._ptg_spec.header_props.get("make_key_fn") is not None:
+            # a user task-key function feeds the dep repos / hash tables —
+            # machinery the lane bypasses entirely; calling (or silently
+            # not calling) a user hook is observable behavior
+            return False
+        if len(tc._ptg_spec.bodies) != 1:
+            return False
+        if not self._ptexec_class_device(tc):
+            if len(tc.incarnations) != 1 or \
+                    tc.incarnations[0].device_type != DEV_CPU or \
+                    tc.incarnations[0].evaluate is not None:
+                return False
+        has_body = tc._ptg_spec.bodies[0].source.strip() not in ("", "pass")
+        if not any(not (f.access & FLOW_ACCESS_CTL) for f in tc.flows):
+            # CTL/flowless: non-empty bodies dispatch through the raw-body
+            # callback (params only, no data marshalling)
+            return not has_body or getattr(tc, "_ptg_raw_body", None) is not None
+        # data flows: any NAMED datatype means reshape promises / typed
+        # write-backs — state that stays with the Python FSM
+        for alts in tc._ptg_in_specs:
+            for _guard, ep in alts:
+                if ep is not None and ep.get("dtt") is not None:
+                    return False
+        for f in tc.flows:
+            for dep in f.deps_out:
+                if dep.datatype is not None or \
+                        getattr(dep, "wire_datatype", None) is not None:
+                    return False
+            for mo in getattr(f, "_ptg_mem_out", None) or []:
+                if mo[3] is not None:     # (cond, dc_name, exprs, dtt_name)
+                    return False
+        # non-empty data bodies dispatch the class function
+        return not has_body or getattr(tc, "_ptg_body_fn", None) is not None
+
+    #: the builtins __init__ injects into env_base — identical in every
+    #: instantiation, so they never enter the cache signature. Matched by
+    #: IDENTITY: a user global that shadows one of these names is real
+    #: state and must poison the cache key instead.
+    _PTEXEC_SAFE_ENV = {"min": min, "max": max, "abs": abs, "range": range,
+                        "len": len, "int": int, "divmod": divmod}
+
+    def _ptexec_cache_key(self, names: Tuple[str, ...], place: Tuple):
+        """Cache signature for the flattened graph: the task space and the
+        edge structure depend only on the program text and the globals the
+        range/guard/index expressions read. Non-primitive globals (incl.
+        user callables a guard might invoke) make the instantiation
+        uncacheable — flatten still runs, per pool.
+
+        ``place`` is the placement fingerprint (the context's device and
+        whether a CUDA device module is registered), so a cached entry is
+        never replayed on another kind of context."""
+        sig = []
+        for k, v in self.env_base.items():
+            if k == "__builtins__" or self._PTEXEC_SAFE_ENV.get(k) is v:
+                continue
+            if v is None or isinstance(v, (int, float, str, bool)):
+                sig.append((k, v))
+            else:
+                return None
+        return (tuple(sorted(sig)), names, place)
+
+    def _ptexec_flatten(self, classes: List[TaskClass]):
+        """Emit the flattened tables the native lane consumes (the jdf2c
+        moment: the whole control structure leaves Python): the CSR
+        successor table + per-task dependency goals, and — for data-flow
+        pools — each task's flow table: one data slot per (task, data
+        flow), per-slot usage limits (the repo usagelmt, counted from the
+        consumer side), input slot references resolved from the guarded
+        in-deps, memory reads (symbolic: collection name + static index,
+        resolved per pool), memory write-backs, and per-task priorities.
+        Returns None when the declared in/out dep sides disagree — the
+        Python FSM would mask one-sided declarations differently, so the
+        lane refuses rather than diverge."""
+        id_of: Dict[Tuple[int, Tuple[int, ...]], int] = {}
+        params_by_class: List[List[Tuple[int, ...]]] = []
+        bases: List[int] = []
+        n = 0
+        for ci, tc in enumerate(classes):
+            params = tc._ptg_spec.params
+            insts = [tuple(loc[p] for p in params)
+                     for loc in self._enum_class(tc)]
+            bases.append(n)
+            params_by_class.append(insts)
+            for key in insts:
+                id_of[(ci, key)] = n
+                n += 1
+        class_index = {tc._ptg_spec.name: ci
+                       for ci, tc in enumerate(classes)}
+        # per-class data-flow tables: flow indices that carry data, in flow
+        # order (= the body's flow-argument order, _compile_body)
+        dflows_by_class = [[fi for fi, f in enumerate(tc.flows)
+                            if not (f.access & FLOW_ACCESS_CTL)]
+                           for tc in classes]
+        has_data = any(dflows_by_class)
+        has_prio = any("priority" in tc.properties for tc in classes)
+        # slot assignment: contiguous per task, one per data flow
+        slot_base = [0] * n
+        n_slots = 0
+        if has_data:
+            for ci, tc in enumerate(classes):
+                nd = len(dflows_by_class[ci])
+                for key in params_by_class[ci]:
+                    slot_base[id_of[(ci, key)]] = n_slots
+                    n_slots += nd
+        goals = [0] * n
+        prio = [0] * n
+        edges: List[List[int]] = [[] for _ in range(n)]
+        indeg = [0] * n
+        in_refs = [-1] * n_slots    # per slot: the owning flow's input ref
+        slot_uses = [0] * n_slots   # per slot: task-kind consumer count
+        in_edges: List[List[int]] = [[] for _ in range(n)] if has_data else []
+        mem_idx_of: Dict[Tuple[str, Tuple[int, ...]], int] = {}
+        mem_reads: List[Tuple[str, Tuple[int, ...]]] = []
+        writebacks: List[Tuple[int, int, str, Tuple[int, ...]]] = []
+        for ci, tc in enumerate(classes):
+            params = tc._ptg_spec.params
+            prio_fn = tc.properties.get("priority")
+            dflows = dflows_by_class[ci]
+            # replay the param tuples materialized above instead of
+            # re-walking the range expressions (halves flatten latency)
+            for key in params_by_class[ci]:
+                loc = dict(zip(params, key))
+                my_id = id_of[(ci, key)]
+                goals[my_id] = tc.dependencies_goal_fn(loc)
+                if prio_fn is not None:
+                    p = int(prio_fn(loc))
+                    if not (-(1 << 31) <= p < (1 << 31)):
+                        # the native heap is int32; the Python FSM orders
+                        # by full ints — decline rather than wrap/clamp
+                        # into a different dispatch order
+                        return None
+                    prio[my_id] = p
+                for flow in tc.flows:
+                    for dep in flow.deps_out:
+                        if dep.task_class is None:
+                            continue
+                        if dep.cond is not None and not dep.cond(loc):
+                            continue
+                        si = class_index.get(dep.task_class.name)
+                        if si is None:
+                            return None     # edge into a non-lane class
+                        sparams = classes[si]._ptg_spec.params
+                        targets = dep.target_locals(loc) \
+                            if dep.target_locals else [loc]
+                        if isinstance(targets, dict):
+                            targets = [targets]
+                        for tl in targets:
+                            sid = id_of.get(
+                                (si, tuple(tl[p] for p in sparams)))
+                            if sid is None:
+                                return None  # successor outside the space
+                            edges[my_id].append(sid)
+                            indeg[sid] += 1
+                if not dflows:
+                    continue
+                # the data side of the flow table: resolve this task's
+                # active in-dep per data flow (exactly what prepare_input
+                # does, once, at flatten instead of per dispatch)
+                env = self._env(loc)
+                base = slot_base[my_id]
+                for dj, fi in enumerate(dflows):
+                    ep = tc._ptg_active_in(tc._ptg_in_specs[fi], env)
+                    if ep is None or ep["kind"] in ("new", "null"):
+                        pass                          # ref stays -1 (no input)
+                    elif ep["kind"] == "task":
+                        si = class_index.get(ep["name"])
+                        if si is None:
+                            return None   # producer outside the lane set
+                        peer_spec = classes[si]._ptg_spec
+                        pf_idx = next(i for i, f in enumerate(peer_spec.flows)
+                                      if f.name == ep["flow"])
+                        try:
+                            pdj = dflows_by_class[si].index(pf_idx)
+                        except ValueError:
+                            return None   # data read from a CTL flow
+                        pkey = tuple(ex.values(env)[0] for ex in ep["exprs"])
+                        pid = id_of.get((si, pkey))
+                        if pid is None:
+                            return None   # producer outside the space
+                        ref = slot_base[pid] + pdj
+                        in_refs[base + dj] = ref
+                        slot_uses[ref] += 1           # the repo usagelmt
+                        in_edges[my_id].append(ref)
+                    elif ep["kind"] == "memory":
+                        idx = tuple(int(ex(env)) for ex in ep["exprs"])
+                        mk = (ep["name"], idx)
+                        mi = mem_idx_of.get(mk)
+                        if mi is None:
+                            mi = mem_idx_of[mk] = len(mem_reads)
+                            mem_reads.append(mk)
+                        in_refs[base + dj] = -2 - mi
+                    else:
+                        return None       # an endpoint kind the lane ignores
+                    mem_outs = getattr(tc.flows[fi], "_ptg_mem_out", None)
+                    if mem_outs:
+                        for cond, dc_name, exprs, _dtt in mem_outs:
+                            if not cond(loc):
+                                continue
+                            idx = tuple(int(ex(env)) for ex in exprs)
+                            writebacks.append((my_id, dj, dc_name, idx))
+        if indeg != goals:
+            # producer-declared edges and consumer-declared goals disagree
+            output.debug_verbose(1, "ptg",
+                                 f"{self.name}: native lane refused "
+                                 f"(in-dep goals != out-dep edges)")
+            return None
+        off = [0] * (n + 1)
+        for i, e in enumerate(edges):
+            off[i + 1] = off[i] + len(e)
+        succs: List[int] = []
+        for e in edges:
+            succs.extend(e)
+        flat = {"n": n, "goals": goals, "off": off, "succs": succs,
+                "bases": bases, "params": params_by_class,
+                "prio": prio if has_prio else None, "data": None}
+        if has_data:
+            in_off = [0] * (n + 1)
+            for i, e in enumerate(in_edges):
+                in_off[i + 1] = in_off[i] + len(e)
+            in_slots: List[int] = []
+            for e in in_edges:
+                in_slots.extend(e)
+            # per-id class index: the dispatch loop runs per TASK — a list
+            # lookup beats a bisect over the class bases at that frequency
+            cls_of: List[int] = []
+            for ci in range(len(classes)):
+                cls_of.extend([ci] * len(params_by_class[ci]))
+            flat["data"] = {
+                "slot_base": slot_base, "n_slots": n_slots,
+                "in_refs": in_refs, "slot_uses": slot_uses,
+                "in_off": in_off, "in_slots": in_slots,
+                "ndflows": [len(d) for d in dflows_by_class],
+                "dflow_idx": dflows_by_class,   # THE per-class data-flow
+                # index rule (body-argument order) — derived once, shipped
+                # to the dispatch callback instead of re-derived there
+                "cls_of": cls_of,
+                "mem_reads": mem_reads, "writebacks": writebacks,
+            }
+        return flat
+
+    def _ptexec_prepare(self, agg) -> Optional[Dict[str, Any]]:
+        """Build (or fetch from the program cache) the native-lane state
+        for this pool, or None → the Python FSM runs as before. The fall
+        back is per-pool: one ineligible class keeps cross-class release
+        edges in Python, so the whole pool stays there.
+        ``self._ptexec_refusal`` records WHY a pool declined —
+        "ineligible" (by design: class features or pool-level gates),
+        "device" (device bodies on a context with a CUDA device) or
+        "fallback" (every class eligible, but the flatten refused) —
+        feeding the PTEXEC_STATS split."""
+        ctx = self.ctx
+        self._ptexec_refusal = "ineligible"
+        # PINS does not eject pools from the lane; only --mca pins_paranoid
+        # 1 restores the full per-task Python instrumentation
+        if (not mca.get("ptg_native_exec", True)
+                or not mca.get("native_enabled", True)
+                or ctx.pins.paranoid or ctx.paranoid):
+            return None
+        classes = [self._classes[tcs.name]
+                   for tcs in self.program.spec.task_classes
+                   if tcs.name not in agg]
+        if not classes:
+            return None
+        for tc in classes:
+            if not self._ptexec_class_eligible(tc):
+                return None
+        on_card = any(d.type & DEV_CUDA for d in ctx.devices.devices)
+        if any(self._ptexec_class_device(tc) for tc in classes) and on_card:
+            # device-bodied classes with a CUDA device registered: the
+            # reference surfaces them onto its native device lane; until
+            # that lane is ported they run the interpreted FSM on the
+            # device module, so the bodies still run on the card
+            if mca.get("device_native", False):
+                raise NotImplementedError(
+                    f"PTG taskpool {self.name}: --mca device_native 1 "
+                    f"(the native device lane) is not ported yet "
+                    f"({_ROADMAP_ITEM})")
+            self._ptexec_refusal = "device"
+            return None
+        # without a CUDA device the CPU twin of a device class runs through
+        # the ordinary lane dispatch — the chore the interpreted FSM's
+        # device selection would pick on that context
+        # region fusion of PTG data pools: only an explicit setting asks
+        # for it (the parameter's default serves the DTD capture window)
+        if not mca.is_default("region_fusion") \
+                and mca.get("region_fusion", True) and any(
+                    not (f.access & FLOW_ACCESS_CTL)
+                    for tc in classes for f in tc.flows):
+            raise NotImplementedError(
+                f"PTG taskpool {self.name}: --mca region_fusion 1 is not "
+                f"ported yet ({_ROADMAP_ITEM})")
+        self._ptexec_refusal = "fallback"
+        from ... import native as native_mod
+        mod = native_mod.load_ptexec()
+        names = tuple(f"{self.program.spec.name}.{tc._ptg_spec.name}"
+                      for tc in classes)
+        # the placement fingerprint: the context's device and whether a
+        # CUDA device module is registered. The flattened tables do not
+        # depend on it today, but a card context's entry must never be
+        # replayed on a CPU one once device placement joins the plan
+        key = self._ptexec_cache_key(names, (str(ctx.device), on_card))
+        cache = self.program.__dict__.setdefault("_ptexec_cache", {})
+        flat = cache.get(key) if key is not None else None
+        if flat is None:
+            flat = self._ptexec_flatten(classes)
+            if flat is None:
+                return None
+            if key is not None:
+                cache[key] = flat
+        self._ptexec_refusal = None
+        if flat["n"] == 0:
+            return {"n": 0}
+        # the CSR (the expensive flatten) is shared across instantiations;
+        # the Graph (counters + ready state + list parsing) is built fresh
+        # PER POOL — a stream holding a stale drain-queue entry can then
+        # never walk another pool's tasks, and bodies/callbacks (which
+        # resolve against THIS instantiation's globals) can never cross
+        # pools. Empty bodies dispatch nothing at all.
+        data = flat["data"]
+        if data is None:
+            graph = mod.Graph(flat["goals"], flat["off"], flat["succs"],
+                              flat["prio"])
+            bodies = [None if tc._ptg_spec.bodies[0].source.strip()
+                      in ("", "pass") else tc._ptg_raw_body for tc in classes]
+            callback = None
+            if any(b is not None for b in bodies):
+                callback = self._mk_ptexec_callback(flat["bases"], bodies,
+                                                    flat["params"])
+            return {"graph": graph, "callback": callback,
+                    "n": flat["n"], "finalized": False}
+        # data-flow pool: the graph additionally owns slot LIFETIMES (the
+        # usagelmt/usagecnt retire protocol); Python owns slot VALUES —
+        # one flat list the batched callback reads inputs from and lands
+        # outputs into. Memory endpoints were flattened symbolically
+        # (collection name + static index) so the cached CSR stays valid
+        # across instantiations with different collection dicts.
+        graph = mod.Graph(flat["goals"], flat["off"], flat["succs"],
+                          flat["prio"], data["in_off"], data["in_slots"],
+                          data["slot_uses"])
+        slots: List[Any] = [None] * data["n_slots"]
+        mem_datas = []
+        for dc_name, idx in data["mem_reads"]:
+            dc = self.collections.get(dc_name)
+            if dc is None:
+                output.fatal(f"PTG taskpool {self.name}: unknown "
+                             f"collection {dc_name!r}")
+            mem_datas.append(dc.data_of(*idx))
+        writebacks: Dict[int, List] = {}
+        for tid, dj, dc_name, idx in data["writebacks"]:
+            dc = self.collections.get(dc_name)
+            if dc is None:
+                output.fatal(f"PTG taskpool {self.name}: unknown "
+                             f"collection {dc_name!r}")
+            writebacks.setdefault(tid, []).append((dj, dc.data_of(*idx)))
+        lane = {"graph": graph, "slots": slots,
+                "n": flat["n"], "finalized": False}
+        lane["callback"] = self._mk_ptexec_data_callback(
+            flat, classes, slots, mem_datas, writebacks)
+        return lane
+
+
+    def _ptexec_class_fns(self, classes: List[TaskClass], data):
+        """Per-class (dispatch fn, written flow positions): the body
+        function for data classes, the raw body for CTL classes, None for
+        empty bodies."""
+        fns, written = [], []
+        for ci, tc in enumerate(classes):
+            empty = tc._ptg_spec.bodies[0].source.strip() in ("", "pass")
+            if data["ndflows"][ci]:
+                fns.append(None if empty else tc._ptg_body_fn)
+                written.append(tuple(
+                    dj for dj, fi in enumerate(data["dflow_idx"][ci])
+                    if tc.flows[fi].access & FLOW_ACCESS_WRITE))
+            else:
+                fns.append(None if empty
+                           else getattr(tc, "_ptg_raw_body", None))
+                written.append(())
+        return fns, written
+
+    def _mk_ptexec_callback(self, bases: List[int], bodies,
+                            params_by_class):
+        """Batched body dispatch: the engine hands over a list of ready
+        task ids; every body must run before it returns (successor release
+        happens after, preserving release-edge ordering for observers)."""
+        import bisect as _bisect
+        def run_batch(ids):
+            for i in ids:
+                k = _bisect.bisect_right(bases, i) - 1
+                fn = bodies[k]
+                if fn is not None:
+                    fn(*params_by_class[k][i - bases[k]])
+        return run_batch
+
+    def _mk_ptexec_data_callback(self, flat, classes: List[TaskClass],
+                                 slots: List[Any], mem_datas,
+                                 writebacks: Dict[int, List]):
+        """Batched dispatch for data-flow pools — the lane's replacement
+        for generic_prepare_input + the body hook + complete_execution +
+        the repo side of generic_release_deps, amortized over one Python
+        call per ~256 ready tasks:
+
+        * inputs resolve from the slot array (producer outputs), memory
+          endpoints (``newest_copy`` at dispatch time, matching the Python
+          FSM's prepare-at-ready timing), or None (``NEW``);
+        * non-empty bodies call the class's function (the same object the
+          CPU hook dispatches) — empty bodies forward inputs
+          by identity with no dispatch at all;
+        * every data flow's post-body value lands in the task's own slot
+          (data_out for written flows, forwarded data_in otherwise), then
+          memory out-deps write back and bump the data version;
+        * ``retired`` slot ids (reported by the engine once a slot's last
+          consumer body has run) drop their payload reference — the
+          entry-retire moment of core/datarepo.py, one list op instead of
+          a locked hash-table dance per use.
+
+        Payloads stay what the bodies made them: a tensor on the card is
+        held in its slot and handed to the next body as it is, never moved
+        through numpy.
+        """
+        bases = flat["bases"]
+        params_by_class = flat["params"]
+        data = flat["data"]
+        slot_base = data["slot_base"]
+        in_refs = data["in_refs"]
+        slot_uses = data["slot_uses"]
+        ndflows = data["ndflows"]
+        cls_of = data["cls_of"]
+        fns, written_by_class = self._ptexec_class_fns(classes, data)
+        # single-data-flow classes whose flow is WRITTEN are the hot shape
+        # (RW chains); the dispatch loop specializes them. A READ-only
+        # single flow must take the general path: its body returns an
+        # EMPTY written tuple and the flow forwards the input unchanged
+        single = [nd == 1 and w == (0,)
+                  for nd, w in zip(ndflows, written_by_class)]
+
+        def _null_guard(k, i):
+            raise RuntimeError(
+                f"A NULL is forwarded from {classes[k]._ptg_spec.name}"
+                f"{tuple(params_by_class[k][i - bases[k]])} (native lane)")
+
+        def run_batch(ids, retired):
+            # locals: this loop runs once per TASK of every data pool
+            _slots, _refs, _uses = slots, in_refs, slot_uses
+            _base, _cls, _wb = slot_base, cls_of, writebacks
+            for j in retired:
+                _slots[j] = None          # the entry-retire moment
+            for i in ids:
+                k = _cls[i]
+                fn = fns[k]
+                nd = ndflows[k]
+                if nd == 0:               # CTL class riding a data pool
+                    if fn is not None:
+                        fn(*params_by_class[k][i - bases[k]])
+                    continue
+                base = _base[i]
+                if single[k]:
+                    r = _refs[base]
+                    if r >= 0:
+                        v = _slots[r]
+                    elif r == -1:
+                        v = None
+                    else:
+                        copy = mem_datas[-2 - r].newest_copy()
+                        v = None if copy is None else copy.payload
+                    if fn is not None:
+                        v = fn(*params_by_class[k][i - bases[k]], v)[0]
+                    if v is None and _uses[base] > 0:
+                        _null_guard(k, i)    # parsec.c:1879 source guard
+                    _slots[base] = v
+                    wbs = _wb.get(i)
+                    if wbs is None:
+                        continue
+                    vals = (v,)
+                else:
+                    vals = []
+                    for dj in range(nd):
+                        r = _refs[base + dj]
+                        if r >= 0:
+                            vals.append(_slots[r])
+                        elif r == -1:
+                            vals.append(None)
+                        else:
+                            copy = mem_datas[-2 - r].newest_copy()
+                            vals.append(None if copy is None
+                                        else copy.payload)
+                    if fn is not None:
+                        outs = fn(*params_by_class[k][i - bases[k]], *vals)
+                        for oj, dj in enumerate(written_by_class[k]):
+                            vals[dj] = outs[oj]
+                    for dj in range(nd):
+                        v = vals[dj]
+                        if v is None and _uses[base + dj] > 0:
+                            _null_guard(k, i)
+                        _slots[base + dj] = v
+                    wbs = _wb.get(i)
+                    if wbs is None:
+                        continue
+                for dj, dref in wbs:
+                    v = vals[dj]
+                    host = dref.get_copy(0)
+                    if host is None:
+                        dref.create_copy(0, v, COHERENCY_OWNED)
+                    else:
+                        host.payload = v
+                    dref.bump_version(0)
+        return run_batch
+
+    def _ptexec_finalize(self, lane: Dict[str, Any]) -> None:
+        """Called exactly once (by whichever stream drains the graph last)
+        after every lane task executed: retire the task accounting in one
+        step — the per-task complete/release cycle already ran in C — and
+        drop the remaining slot payloads (terminal outputs were already
+        written back by the callback; slots the last release sweep retired
+        never met another dispatch to clear them)."""
+        output.debug_verbose(2, "ptg",
+                             f"{self.name}: native lane retired "
+                             f"{lane['n']} tasks")
+        slots = lane.get("slots")
+        if slots:
+            slots.clear()
+        self.addto_nb_tasks(-lane["n"])
+
+    # ------------------------------------------------------------------ startup
+    def _startup(self, stream, tp) -> List[Task]:
+        total = 0
+        ready: List[Task] = []
+        agg = {tcs.name for tcs in self.program.spec.task_classes
+               if self._agglomerable(self._classes[tcs.name])}
+        self._agglomerated = 0
+        for name in agg:
+            self._agglomerated += self._run_agglomerated(
+                stream, self._classes[name])
+        nonagg = any(tcs.name not in agg
+                     for tcs in self.program.spec.task_classes)
+        lane = self._ptexec_prepare(agg)
+        if lane is not None:
+            PTEXEC_STATS["pools_engaged"] += 1
+            PTEXEC_STATS["tasks_engaged"] += lane["n"]
+            self._ptexec_state = lane
+            self.set_nb_tasks(lane["n"])
+            if lane["n"]:
+                self.ctx._ptexec_enqueue(self, lane)
+            output.debug_verbose(2, "ptg",
+                                 f"{self.name}: {lane['n']} tasks on the "
+                                 f"native execution lane")
+            return []
+        if nonagg and mca.get("ptg_native_exec", True):
+            PTEXEC_STATS[{"fallback": "pools_fallback",
+                          "device": "pools_device_declined"}.get(
+                              self._ptexec_refusal, "pools_ineligible")] += 1
+        for tcs in self.program.spec.task_classes:
+            if tcs.name in agg:
+                continue        # executed above, never scheduled/counted
+            tc = self._classes[tcs.name]
+            for loc in self._enum_class(tc):
+                total += 1
+                if getattr(tc, "_ptg_startup_fn", None) is not None:
+                    continue    # custom startup seeds this class below
+                if tc.dependencies_goal_fn(loc) == 0:
+                    ready.append(self.ctx.make_task(self, tc, loc))
+        # user-defined startup (ref: udf.jdf startup_fn): fn(taskpool,
+        # task_class) yields the locals of this class's initial ready tasks
+        for tcs in self.program.spec.task_classes:
+            tc = self._classes[tcs.name]
+            fn = getattr(tc, "_ptg_startup_fn", None)
+            if fn is None:
+                continue
+            for loc in fn(self, tc):
+                loc = dict(loc)
+                ready.append(self.ctx.make_task(self, tc, loc))
+        self.set_nb_tasks(total)
+        output.debug_verbose(2, "ptg",
+                             f"{self.name}: {total} tasks, {len(ready)} at startup")
+        return ready
+
+
+class PTGProgram:
+    """A compiled PTG program; instantiate per (globals, collections) run."""
+
+    def __init__(self, spec: P.ProgramSpec) -> None:
+        self.spec = spec
+
+    def instantiate(self, ctx: Context, globals: Optional[Dict[str, Any]] = None,
+                    collections: Optional[Dict[str, Any]] = None,
+                    name: Optional[str] = None,
+                    datatypes: Optional[Dict[str, NamedDatatype]] = None
+                    ) -> PTGTaskpool:
+        return PTGTaskpool(self, ctx, dict(globals or {}),
+                           dict(collections or {}), name,
+                           datatypes=datatypes)
+
+
+def compile_ptg(source: str, name: str = "ptg") -> PTGProgram:
+    """Compile PTG source (the parsec-ptgpp entry point)."""
+    return PTGProgram(P.parse(source, name))

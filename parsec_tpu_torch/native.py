@@ -1,6 +1,8 @@
-"""The native host lanes: the DTD engine and the scheduler plane as CPython
-extensions built from the package's own C++ (``csrc/ptdtd.cpp``,
-``csrc/ptsched.cpp``).
+"""The native host lanes: the DTD engine, the PTG execution lane and the
+scheduler plane as CPython extensions built from the package's own C++
+(``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``, ``csrc/ptsched.cpp``), and the
+native core (``csrc/ptcore.cpp``: the dependency table) as a plain C library
+bound with ctypes.
 
 They run on the host, beside the card, so they are built with the host C++
 compiler (``$CXX``, else ``c++``) and the flags
@@ -13,7 +15,9 @@ build once, and ``os.replace`` publishes a finished file atomically.
 
 Why CPython extensions and not ctypes: the engine is called once per task
 on the insert and completion paths, where a ctypes call (about 2 us) would
-cost more than the work; a C-extension method call costs about 0.2 us.
+cost more than the work; a C-extension method call costs about 0.2 us. The
+dependency table keeps ctypes, as the reference does: its work per call (a
+hash and a probe under a lock) is what it was measured against.
 
 While ``--mca native_enabled`` is on (the default) a failed build or load
 raises with the compiler's messages; nothing falls back to the Python
@@ -33,13 +37,14 @@ import subprocess
 import sysconfig
 import tempfile
 import threading
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 from .utils import mca, output
 
 mca.register("native_enabled", True,
-             "Use the native C++ lanes (the DTD engine and the scheduler "
-             "plane); 0 selects the Python engine", type=bool)
+             "Use the native C++ lanes (the DTD engine, the PTG execution "
+             "lane, the scheduler plane and the dependency table); 0 "
+             "selects the Python engines", type=bool)
 
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
@@ -78,7 +83,7 @@ def _sources(path: str, seen=None) -> list:
 
 
 def extension_path(stem: str) -> str:
-    """Where :func:`build` puts the extension of ``csrc/<stem>.cpp``."""
+    """Where :func:`build` puts the shared library of ``csrc/<stem>.cpp``."""
     h = hashlib.sha256(" ".join(cxx() + _flags()).encode())
     for path in _sources(os.path.join(CSRC_DIR, f"{stem}.cpp")):
         with open(path, "rb") as f:
@@ -88,9 +93,10 @@ def extension_path(stem: str) -> str:
 
 
 def build(stem: str) -> str:
-    """Compile ``csrc/<stem>.cpp`` into a CPython extension (once per
-    content of the source, its headers, the compiler and the flags) and
-    return its path. Raises with the compiler's messages when it fails."""
+    """Compile ``csrc/<stem>.cpp`` into a shared library (a CPython
+    extension, or the plain C library of ``ptcore``; once per content of
+    the source, its headers, the compiler and the flags) and return its
+    path. Raises with the compiler's messages when it fails."""
     so = extension_path(stem)
     if os.path.exists(so):
         return so
@@ -160,3 +166,104 @@ def load_ptsched():
     round robin and admission windows; None when ``--mca native_enabled
     0``."""
     return _load("ptsched")
+
+
+def load_ptexec():
+    """The PTG execution lane (``csrc/ptexec.cpp``): the generic task FSM
+    (dependency-count decrement, ready detect, batched dispatch, successor
+    release, and in data mode the slot retire protocol) over a flattened
+    successor table, with the GIL dropped across the walk; None when
+    ``--mca native_enabled 0``."""
+    return _load("ptexec")
+
+
+_core = None
+_KEY_MAX = 16
+
+
+def load_core():
+    """The native core (``csrc/ptcore.cpp``) as a ctypes library with its
+    dependency-table signatures set, built at first use; None when
+    ``--mca native_enabled 0``. A failed build raises."""
+    global _core
+    if not mca.get("native_enabled", True):
+        return None
+    if _core is not None:
+        return _core
+    import ctypes
+    with _lock:
+        if _core is None:
+            lib = ctypes.CDLL(build("ptcore"))
+            lib.pt_dep_table_create.restype = ctypes.c_void_p
+            lib.pt_dep_table_create.argtypes = [ctypes.c_uint64]
+            lib.pt_dep_table_destroy.argtypes = [ctypes.c_void_p]
+            lib.pt_dep_table_size.restype = ctypes.c_int64
+            lib.pt_dep_table_size.argtypes = [ctypes.c_void_p]
+            lib.pt_dep_table_update.restype = ctypes.c_int32
+            lib.pt_dep_table_update.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int32, ctypes.c_int64, ctypes.c_int64,
+                ctypes.c_int32]
+            lib.pt_dep_table_get.restype = ctypes.c_int64
+            lib.pt_dep_table_get.argtypes = [
+                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
+                ctypes.c_int32]
+            _core = lib
+            output.debug_verbose(1, "native", "ptcore loaded")
+    return _core
+
+
+class NativeDepTable:
+    """Dependency tracker for int-tuple keys (mask or counter mode), the
+    ``parsec_update_deps_with_mask`` role behind ``Taskpool.update_deps``."""
+
+    __slots__ = ("_t", "_lib")
+
+    def __init__(self, capacity: int = 1 << 16) -> None:
+        self._lib = load_core()
+        if self._lib is None:
+            raise RuntimeError("the native core is off (--mca "
+                               "native_enabled 0)")
+        self._t = self._lib.pt_dep_table_create(capacity)
+        if not self._t:
+            raise MemoryError("pt_dep_table_create failed")
+
+    @staticmethod
+    def key_ok(key) -> bool:
+        if isinstance(key, int):
+            return True
+        return (isinstance(key, tuple) and len(key) <= _KEY_MAX
+                and all(isinstance(k, int) for k in key))
+
+    @staticmethod
+    def _pack(key) -> Tuple[object, int]:
+        # a fresh array per call: update() runs concurrently on worker
+        # threads, and a shared buffer would race before the C side copies it
+        import ctypes
+        if isinstance(key, int):
+            return (ctypes.c_int64 * 1)(key), 1
+        return (ctypes.c_int64 * len(key))(*key), len(key)
+
+    def update(self, key, contribution: int, goal: Optional[int],
+               count_mode: bool) -> bool:
+        buf, klen = self._pack(key)
+        rc = self._lib.pt_dep_table_update(
+            self._t, buf, klen, contribution, -1 if goal is None else goal,
+            1 if count_mode else 0)
+        if rc < 0:
+            raise RuntimeError(f"native dep table error {rc}")
+        return rc == 1
+
+    def get(self, key) -> int:
+        buf, klen = self._pack(key)
+        return self._lib.pt_dep_table_get(self._t, buf, klen)
+
+    def __len__(self) -> int:
+        return self._lib.pt_dep_table_size(self._t)
+
+    def __del__(self) -> None:
+        try:
+            if self._t and self._lib:
+                self._lib.pt_dep_table_destroy(self._t)
+        except Exception:  # noqa: BLE001 - interpreter shutdown
+            pass

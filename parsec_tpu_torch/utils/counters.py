@@ -23,3 +23,8 @@ class Counters(dict):
         """Zero every counter."""
         for k in self:
             self[k] = 0
+
+
+#: the engagement-counter dict of the native lanes (``PTEXEC_STATS``): the
+#: reference's name for the same helper
+LaneStats = Counters

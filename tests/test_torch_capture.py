@@ -48,6 +48,12 @@ def ref_ctx():
     c = pt.Context(nb_cores=1)
     yield c
     c.fini(timeout=30)
+    # the reference's program cache is process-wide: leave it cold, as a
+    # fresh process has it, so that a reference test run later in the same
+    # worker and asserting a first-shape compile
+    # (tests/test_capture.py::test_capture_program_cache) sees a miss
+    from parsec_tpu.dsl import capture as ref_capture
+    ref_capture._program_cache.clear()
 
 
 def _tiles(dense, ts):

@@ -1155,3 +1155,109 @@ def test_captured_lu_and_qr_match_the_scheduler(gctx, which):
                                        atol=1e-4)
     finally:
         CAP._program_cache.clear()
+
+
+# ------------------------------------------------------------ PTG on the card
+
+_PTG_GEMM_SRC = """
+%global MT
+%global NT
+%global KT
+%global descA
+%global descB
+%global descC
+
+GEMM(m, n, k)
+  m = 0 .. MT-1
+  n = 0 .. NT-1
+  k = 0 .. KT-1
+  : descC(m, n)
+  priority = KT - k
+  READ A <- descA(m, k)
+  READ B <- descB(k, n)
+  RW   C <- (k == 0) ? descC(m, n) : C GEMM(m, n, k-1)
+       -> (k < KT-1) ? C GEMM(m, n, k+1) : descC(m, n)
+BODY [type=CUDA]
+  C = C + torch.matmul(A, B)
+END
+"""
+
+
+def _ptg_gemm(ctx, a, b, c, ts):
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    mt, kt, nt = a.shape[0] // ts, a.shape[1] // ts, b.shape[1] // ts
+    A = collection_from_numpy("A", a, ts, ts, device="cpu")
+    B = collection_from_numpy("B", b, ts, ts, device="cpu")
+    C = collection_from_numpy("C", c, ts, ts, device="cpu")
+    tp = compile_ptg(_PTG_GEMM_SRC, "gemm").instantiate(
+        ctx, globals={"MT": mt, "NT": nt, "KT": kt},
+        collections={"descA": A, "descB": B, "descC": C})
+    ctx.add_taskpool(tp)
+    ctx.wait(timeout=120)
+    return C.to_dense()
+
+
+def test_ptg_cuda_gemm_matches_the_cpu_context(gctx):
+    """The PTG GEMM with a ``[type=CUDA]`` body on the card equals the same
+    program on a CPU context (3 x 3 x 3 tiles of 64^2, f32, TF32 off):
+    max err / max|ref| < 1e-5, every task on the CUDA device module, the
+    pool's lane decline counted."""
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS
+    assert not torch.backends.cuda.matmul.allow_tf32
+    rng = np.random.default_rng(11)
+    a, b, c = (rng.standard_normal((192, 192)).astype(np.float32)
+               for _ in range(3))
+    s0 = PTEXEC_STATS.snapshot()
+    got = _ptg_gemm(gctx, a, b, c, 64)
+    assert PTEXEC_STATS.delta(s0)["pools_device_declined"] == 1
+    assert _dev(gctx).executed_tasks == 27
+    cctx = Context(nb_cores=1, device="cpu")
+    try:
+        want = _ptg_gemm(cctx, a, b, c, 64)
+    finally:
+        cctx.fini()
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+
+
+def test_ptg_ctl_chain_engages_the_lane_on_the_card(gctx):
+    """A CTL chain pool on a card context runs on the native lane (the
+    card context has no scheduler plane: the lane keeps its private ready
+    vector)."""
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    src = ("%global NT\n%global DEPTH\n"
+           "T(i, l)\n  i = 0 .. NT-1\n  l = 0 .. DEPTH-1\n"
+           "  CTL S <- (l > 0) ? S T(i, l-1)\n"
+           "        -> (l < DEPTH-1) ? S T(i, l+1)\nBODY\n  pass\nEND\n")
+    assert gctx.sched_plane is None
+    s0 = PTEXEC_STATS.snapshot()
+    tp = compile_ptg(src, "card-chain").instantiate(
+        gctx, globals={"NT": 64, "DEPTH": 8}, collections={})
+    gctx.add_taskpool(tp)
+    gctx.wait(timeout=60)
+    d = PTEXEC_STATS.delta(s0)
+    assert d["pools_engaged"] == 1 and d["tasks_engaged"] == 512
+    assert tp._ptexec_state["graph"].done()
+
+
+def test_ptg_device_pool_counts_its_decline_on_the_card(gctx):
+    """A device-bodied data pool on a card context declines the lane under
+    its own reason, runs its bodies on the card, and its result is the
+    plain chain's."""
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    src = ("%global NT\n%global descA\n"
+           "T(k)\n  k = 0 .. NT-1\n"
+           "  RW X <- (k == 0) ? descA(0, 0) : X T(k-1)\n"
+           "       -> (k < NT-1) ? X T(k+1) : descA(0, 0)\n"
+           "BODY [type=CUDA]\n  X = X * 2.0\nEND\n")
+    A = TiledMatrix("A", 4, 4, 4, 4, device="cuda")
+    A.fill(lambda m, n: np.ones((4, 4), np.float32))
+    s0 = PTEXEC_STATS.snapshot()
+    tp = compile_ptg(src, "card-dev").instantiate(
+        gctx, globals={"NT": 6}, collections={"descA": A})
+    gctx.add_taskpool(tp)
+    gctx.wait(timeout=60)
+    d = PTEXEC_STATS.delta(s0)
+    assert d["pools_device_declined"] == 1 and d["pools_engaged"] == 0
+    assert _dev(gctx).executed_tasks == 6
+    out = A.data_of(0, 0).newest_copy().payload
+    assert out.is_cuda and torch.equal(out.cpu(), torch.full((4, 4), 64.0))

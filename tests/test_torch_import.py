@@ -47,7 +47,9 @@ def test_no_port_source_names_jax_or_the_reference():
              if p.suffix in (".py", ".cu", ".cuh", ".cpp", ".h")]
     assert len(files) >= 20
     assert {p.name for p in files} >= {"ptdtd.cpp", "ptsched.cpp",
-                                       "ptsched.h"}
+                                       "ptsched.h", "ptexec.cpp",
+                                       "ptcore.cpp", "compiler.py",
+                                       "parser.py", "cli.py"}
     hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
             if pattern.search(line)]
@@ -68,6 +70,54 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
     roots = _import_roots("chip_smoke.py")
     assert "jax" not in roots and "parsec_tpu" not in roots
     assert "parsec_tpu_torch" in roots
+
+
+def test_ptg_sources_name_neither_jax_nor_the_reference():
+    """The PTG frontend and the lane it drives stand alone too: no line of
+    ``dsl/ptg/`` or of the engine sources names JAX or the reference
+    package, and the extension's type is the port's own."""
+    pattern = re.compile(r"\bjax\b|\bjnp\b|\bparsec_tpu\b(?!_torch)")
+    files = sorted((PORT / "dsl" / "ptg").glob("*.py")) + [
+        PORT / "csrc" / "ptexec.cpp", PORT / "csrc" / "ptcore.cpp"]
+    assert len(files) >= 6
+    hits = [f"{p.relative_to(ROOT)}:{i}" for p in files
+            for i, line in enumerate(p.read_text().splitlines(), 1)
+            if pattern.search(line)]
+    assert hits == []
+    src = (PORT / "csrc" / "ptexec.cpp").read_text()
+    assert '"parsec_tpu_torch._ptexec.Graph"' in src
+
+
+def test_ptg_cli_runs_without_jax():
+    """``python -m parsec_tpu_torch.dsl.ptg.cli`` checks a source, counts
+    its task space and rejects a bad one, importing neither JAX nor the
+    reference."""
+    import tempfile
+    good = ("%global NT\nT(k)\n  k = 0 .. NT-1\n"
+            "  CTL S <- (k > 0) ? S T(k-1)\n"
+            "        -> (k < NT-1) ? S T(k+1)\nBODY\n  pass\nEND\n")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['cli'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('parsec_tpu_torch.dsl.ptg.cli',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    bad = [n for n in sys.modules if n.split('.')[0] in"
+            " ('jax', 'parsec_tpu')]\n"
+            "    sys.exit(99 if bad else e.code)\n")
+    with tempfile.TemporaryDirectory() as d:
+        ok = pathlib.Path(d) / "ok.ptg"
+        ok.write_text(good)
+        bad = pathlib.Path(d) / "bad.ptg"
+        bad.write_text(good.replace("BODY\n  pass\nEND\n", ""))
+        r = subprocess.run([sys.executable, "-c", code, str(ok),
+                            "--globals", "NT=5"], cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 0, r.stdout + r.stderr
+        assert "T(k)" in r.stdout and "5 task(s)" in r.stdout
+        r = subprocess.run([sys.executable, "-c", code, str(bad)], cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+        assert r.returncode == 1 and "BODY" in r.stderr
 
 
 @pytest.mark.parametrize("script", ["chain_variants.py", "flash_variants.py"])
