@@ -58,12 +58,23 @@ port's main paths through the entry points a user calls:
   the host C++ compiler beside the other lanes) and on the Python FSM in
   turns — INIT plus 1024 CTL chains of 8 (8193 tasks), EP with 20000
   flowless tasks (agglomerated, scheduled FSM, scheduled native) and
-  data-flow chains 512 x 16 (the written-back tiles bit for bit the same)
-  — each native run required to have engaged the lane; then the PTG GEMM
-  with a ``[type=CUDA]`` body (f32, N = 8192 in 512 x 512 tiles, 4096
-  tasks, on the CUDA device module; the pool's lane decline counted) held
-  to ``torch.matmul`` (max err / max|ref| < 1e-5, TF32 off), with its
-  slope, device busy time and idle share.
+  data-flow chains 512 x 16 (the written-back tiles bit for bit the same;
+  the native runs fuse a region a chain) — each native run required to
+  have engaged the lane; then the PTG GEMM with a ``[type=CUDA]`` body
+  (f32, N = 8192 in 512 x 512 tiles, 4096 tasks, TF32 off) in three modes:
+  (a) the native device lane (``csrc/ptdev.cpp``) with its k-chains fused
+  into device regions, each a CUDA graph replayed on the lane's stream,
+  (b) the device lane per task (``--mca region_fusion 0``), (c) the
+  interpreted FSM on the CUDA device module (``--mca device_native 0``):
+  each held to ``torch.matmul`` (max err / max|ref| < 1e-5; (a) on the DAG
+  that captures its graphs and on one that replays them), (b) and (c) and
+  (a) compared bit for bit, the cost model's one exploration of the CPU
+  twin spent in the warm-up and held to the device leg, then each mode's
+  slope in turns, and for one profiled DAG of each its device busy time,
+  idle share and the lanes', coherency table's, cost model's and regions'
+  counters; the placement of every pool, the cost of a completion poll,
+  and a device region's two forms (eager and the CUDA graph) timed on one
+  DAG's regions.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -1926,9 +1937,9 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     ``compile_ptg(src).instantiate(ctx, ...)``, ``ctx.add_taskpool`` and
     ``ctx.wait()``: the reference benchmark's chain, EP and data-flow legs
     on the native execution lane and on the Python FSM, in turns, each
-    native run required to have engaged the lane; then the PTG GEMM with a
-    ``[type=CUDA]`` body (the interpreted FSM on the CUDA device module, its
-    lane decline counted) held to ``torch.matmul``, timed and profiled.
+    native run required to have engaged the lane (the data-flow chains fuse
+    one region a chain); then the PTG GEMM with a ``[type=CUDA]`` body in
+    its three modes (:func:`ptg_gemm_modes`).
     ``device`` is where the tensors and collections live: the card, or the
     CPU for a rehearsal on a CPU context with the CUDA device module over
     the CPU (``--mca device_cuda_over_cpu 1``) at cut sizes."""
@@ -2008,10 +2019,17 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     Ys = {m: ptt.TiledMatrix(f"descY{int(m)}", 1, PTG_DF_NT, 1, 1,
                              device=device) for m in (True, False)}
     n_df = PTG_DF_NT * PTG_DF_DEPTH
-    rates = in_turns(lambda native: timed(
-        df, {"NT": PTG_DF_NT, "DEPTH": PTG_DF_DEPTH},
-        {"descX": X, "descY": Ys[native]}, n_df, native, name="df")[0],
-        (True, False))
+    fused = []
+
+    def df_run(native):
+        rate, d = timed(df, {"NT": PTG_DF_NT, "DEPTH": PTG_DF_DEPTH},
+                        {"descX": X, "descY": Ys[native]}, n_df, native,
+                        name="df")
+        if native:
+            fused.append((d["fused_regions"], d["fused_tasks"],
+                          d["seam_tasks"]))
+        return rate
+    rates = in_turns(df_run, (True, False))
     tiles = {m: torch.cat([Y.data_of(0, i).newest_copy().payload.reshape(1)
                            for i in range(PTG_DF_NT)]) for m, Y in Ys.items()}
     x = torch.cat([X.data_of(0, i).newest_copy().payload.reshape(1)
@@ -2021,7 +2039,8 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     log(f"PTG data-flow chains {PTG_DF_NT}x{PTG_DF_DEPTH} ({n_df} tasks): "
         f"native lane median {statistics.median(rates[True]):,.0f} tasks/s, "
         f"Python FSM median {statistics.median(rates[False]):,.0f} tasks/s; "
-        f"written-back tiles native vs FSM vs descX "
+        f"native runs' (fused_regions, fused_tasks, seam_tasks), in order "
+        f"{fused}; written-back tiles native vs FSM vs descX "
         f"{'bit-identical' if same else 'DIFFER'} ({smi})")
     if not same:
         raise AssertionError("the PTG data-flow chains' written-back tiles "
@@ -2029,9 +2048,169 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     del X, Ys, tiles, x
 
     # -- the PTG GEMM with a [type=CUDA] body: f32 N = 8192 in 512^2 tiles
-    # on the card, TF32 off --
-    if torch.backends.cuda.matmul.allow_tf32:
+    # on the card, TF32 off, in three modes --
+    ptg_gemm_modes(ptt, torch, ctx, dev, smi, device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    wall = time.perf_counter() - t_phase
+    log(f"PTG phase wall time {wall:.1f} s")
+
+
+#: the PTG GEMM's modes: (a) the device lane with device regions (the
+#: default), (b) the device lane per task, (c) the interpreted FSM on the
+#: device module
+GEMM_MODES = {"a": ("ptdev lane, device regions", {}),
+              "b": ("ptdev lane per task", {"region_fusion": False}),
+              "c": ("interpreted FSM on the device module",
+                    {"device_native": False})}
+
+
+@contextlib.contextmanager
+def mca_set(ptt, params: dict):
+    """The MCA parameters ``params`` set for the block."""
+    for k, v in params.items():
+        ptt.mca.set(k, v)
+    try:
+        yield
+    finally:
+        for k in params:
+            ptt.mca.params.unset(k)
+
+
+def poll_cost_us(torch, n: int = 2000) -> tuple:
+    """What one completion poll costs the manager thread on this card:
+    ``torch.cuda.Event.query()`` on a completed event and on one still
+    pending behind a long kernel, microseconds a call."""
+    s = torch.cuda.Stream()
+    done = torch.cuda.Event()
+    done.record(s)
+    s.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        done.query()
+    t_done = (time.perf_counter() - t0) / n * 1e6
+    with torch.cuda.stream(s):
+        torch.cuda._sleep(200_000_000)
+    pend = torch.cuda.Event()
+    pend.record(s)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        pend.query()
+    t_pend = (time.perf_counter() - t0) / n * 1e6
+    s.synchronize()
+    return t_done, t_pend
+
+
+class GraphRegion:
+    """The device-region form the lane does not take, kept here to measure
+    it against the eager form: the region's members captured into one CUDA
+    graph at its first call (inputs in static buffers, clones of that
+    call's), each later call copying its inputs into the static buffers,
+    replaying, and cloning the outputs out of the graph's private pool."""
+
+    def __init__(self, torch, program) -> None:
+        self.torch, self.program = torch, program
+        self.graph = None
+
+    def __call__(self, ext_vals):
+        torch = self.torch
+        if self.graph is None:
+            outs = self.program(ext_vals)                  # warm-up, eager
+            self.static = [t.clone() for t in ext_vals]
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(self.graph,
+                                  stream=torch.cuda.current_stream()):
+                self.outs = self.program(tuple(self.static))
+            return outs
+        for dst, src in zip(self.static, ext_vals):
+            dst.copy_(src, non_blocking=True)
+        self.graph.replay()
+        outs, wbs = self.outs
+        return (tuple(o.clone() for o in outs), tuple(w.clone() for w in wbs))
+
+
+def region_forms(torch, tp, ntask: int) -> dict:
+    """The two forms of a device region's program, timed on one DAG's
+    regions of a finished mode-(a) pool ``tp`` of ``ntask`` tasks (its
+    program's cache holds plans of other sizes too), on one side stream:
+    eager
+    (the lane's form: the members' launches in order) and a CUDA graph of
+    the members (:class:`GraphRegion`). Wall time (the host's part) and
+    device time (CUDA events) of the DAG's regions each way, in turns, the
+    card memory the graphs keep allocated (their pools' free blocks not
+    counted), and whether the graph's write-backs equal the eager ones bit
+    for bit."""
+    from parsec_tpu_torch.dsl.ptg.compiler import _mk_region_program
+    ent = next(e for e in tp.program._ptexec_cache.values()
+               if e["fusion"] is not None and e["flat"]["n"] == ntask
+               and e["fusion"]["dev_mask"] is not None)
+    plan, data = ent["fusion"], ent["flat"]["data"]
+    fns, written = tp._ptexec_class_fns(
+        [tp._classes["GEMM"]], data, host=False)
+    mem = [tp.collections[n].data_of(*i).newest_copy().payload
+           for n, i in data["mem_reads"]]
+    inputs = [tuple(mem[v] for _k, v in rp["ext"])
+              for rp in plan["regions"]]
+    eager = [_mk_region_program(rp, fns, written) for rp in plan["regions"]]
+    graphs = [GraphRegion(torch, p) for p in eager]
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    s.synchronize()
+    held0 = torch.cuda.memory_allocated()
+    with torch.cuda.stream(s):
+        t0 = time.perf_counter()
+        for g, ev in zip(graphs, inputs):     # the first calls: captures
+            g(ev)
+        s.synchronize()
+        cap_s = time.perf_counter() - t0
+    held = torch.cuda.memory_allocated() - held0
+    res = {}
+    for name, progs in (("eager", eager), ("graph", graphs)) * 2:
+        start, end = torch.cuda.Event(True), torch.cuda.Event(True)
+        s.synchronize()
+        with torch.cuda.stream(s):
+            start.record()
+            t0 = time.perf_counter()
+            outs = [p(ev)[1][0] for p, ev in zip(progs, inputs)]
+            wall = time.perf_counter() - t0
+            end.record()
+        s.synchronize()
+        res[name] = (wall * 1e3, start.elapsed_time(end), outs)
+    same = all(torch.equal(x, y) for x, y in
+               zip(res["eager"][2], res["graph"][2]))
+    times = {k: v[:2] for k, v in res.items()}
+    del graphs, res
+    torch.cuda.empty_cache()
+    return {"regions": len(inputs),
+            "members": len(plan["regions"][0]["members"]),
+            "copy_in_mib": sum(t.nbytes for t in inputs[0]) / 2 ** 20,
+            "capture_s": cap_s, "held_mib": held / 2 ** 20,
+            "eager": times["eager"], "graph": times["graph"], "same": same}
+
+
+def ptg_gemm_modes(ptt, torch, ctx, dev, smi, device: str) -> None:
+    """The PTG GEMM (f32, N = 8192 in 512^2 tiles, 4096 tasks,
+    ``[type=CUDA]`` body, TF32 off) in modes (a), (b), (c): a first DAG of
+    each from a zero C held to ``torch.matmul`` ((a) twice: cold regions,
+    then warm), (b) and (c) compared bit for bit, a warm DAG of (b), after
+    which the cost model's one exploration of the CPU twin is spent (held
+    to the device leg's result), the slopes in turns, then one profiled DAG
+    of each with the lane's, the coherency table's, the cost model's and
+    the regions' counters. The placement is the cost model's throughout:
+    every pool but the exploration must stay on the card, and every pool's
+    placement is printed. Before all that, one mode-(a) DAG at N = 16384
+    (32768 tasks), held to ``torch.matmul``, with the card memory it
+    took."""
+    from parsec_tpu_torch.core.costmodel import COSTMODEL_STATS
+    from parsec_tpu_torch.core.costmodel import model as cost_model
+    from parsec_tpu_torch.device.native import PTDEV_STATS
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    if device == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the f32 GEMM gate needs it off")
+    gemm = compile_ptg(PTG_GEMM_SRC, "gemm")
+    # first, while the cost model knows nothing of the class: the default
+    # fusion limits hold, so its k-chains run as device regions
+    big_gemm(ptt, torch, ctx, dev, smi, device, gemm)
     T, TS = PTG_GEMM_T, PTG_GEMM_TS
     N = T * TS
     gen = torch.Generator(device=device).manual_seed(8)
@@ -2046,67 +2225,269 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     A, B = tiled("descA", a), tiled("descB", b)
     Cs = [tiled(f"descC{j}", torch.zeros(N, N, device=device))
           for j in range(3)]
-    gemm = compile_ptg(PTG_GEMM_SRC, "gemm")
     ntask = T ** 3
-    declines = []
+    placements = {m: [] for m in GEMM_MODES}
+    placements["explore"] = []
+    last = {}
+    split = [None]
+    pool_bucket = [0]
+    # the collector's pauses, seconds (a run's share is printed with it)
+    gc_pause = [0.0, None]
 
-    def run_gemm(n_dags: int) -> float:
-        """``n_dags`` GEMM pools (each its own C) added together, run to
-        completion: wall seconds. Every task must have run on the CUDA
-        device module and each pool's lane decline must be counted."""
-        s0 = PTEXEC_STATS.snapshot()
-        e0 = dev.executed_tasks
+    def gc_cb(phase, _info):
+        if phase == "start":
+            gc_pause[1] = time.perf_counter()
+        elif gc_pause[1] is not None:
+            gc_pause[0] += time.perf_counter() - gc_pause[1]
+            gc_pause[1] = None
+    gc.callbacks.append(gc_cb)
+
+    def zero(C):
+        C.fill(lambda m, n: torch.zeros(TS, TS, device=device))
+
+    def dense(C):
+        return torch.cat([torch.cat([C.data_of(m, n).newest_copy().payload
+                                     .to(device) for n in range(T)], 1)
+                          for m in range(T)])
+
+    def run_gemm(n_dags: int, mode: str, cpu_twin: bool = False,
+                 cs=None) -> float:
+        """``n_dags`` GEMM pools (each its own C of ``cs``, by default
+        ``Cs``) added together in ``mode``, run to completion: wall
+        seconds. Every task must have run where the mode puts it, and the
+        lanes' accounting must say so."""
+        cs = Cs if cs is None else cs
+        s0, d0, e0 = (PTEXEC_STATS.snapshot(), PTDEV_STATS.snapshot(),
+                      dev.executed_tasks)
+        g0 = gc_pause[0]
         sync()
         t0 = time.perf_counter()
-        for j in range(n_dags):
-            ctx.add_taskpool(gemm.instantiate(
+        with mca_set(ptt, GEMM_MODES[mode][1]):
+            tps = [gemm.instantiate(
                 ctx, globals={"MT": T, "NT": T, "KT": T},
-                collections={"descA": A, "descB": B, "descC": Cs[j]},
-                name=f"gemm{j}"))
+                collections={"descA": A, "descB": B, "descC": cs[j]},
+                name=f"gemm{j}") for j in range(n_dags)]
+            t1 = time.perf_counter()
+            for tp in tps:
+                ctx.add_taskpool(tp)
+        t2 = time.perf_counter()
         ctx.wait(timeout=600)
         sync()
         secs = time.perf_counter() - t0
-        d = PTEXEC_STATS.delta(s0)
-        declines.append(d["pools_device_declined"])
-        if d["pools_device_declined"] != n_dags or d["pools_engaged"]:
-            raise AssertionError(f"PTG GEMM: lane accounting {d}")
-        if dev.executed_tasks - e0 != ntask * n_dags:
+        # the host's split of the run: the pools' instantiation, the
+        # add_taskpool calls (the lane's prepare: flatten, plan, binding,
+        # and the first dispatches) and the wait
+        split[0] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
+        d, dd = PTEXEC_STATS.delta(s0), PTDEV_STATS.delta(d0)
+        lane = mode != "c"
+        on_dev = 0 if cpu_twin else ntask * n_dags
+        ok = (dev.executed_tasks - e0 == on_dev
+              and dd["pools_fallback"] == 0 and d["pools_fallback"] == 0)
+        if lane:
+            ok &= (d["pools_engaged"] == n_dags
+                   and dd["pools_engaged"] == (0 if cpu_twin else n_dags)
+                   and dd["pools_ineligible"] == 0)
+        else:
+            ok &= (dd["pools_ineligible"] == n_dags
+                   and d["pools_engaged"] == 0)
+        pool_bucket[0] = tps[0]._ptexec_pool_bucket()
+        if not ok:
             raise AssertionError(
-                f"PTG GEMM: {dev.executed_tasks - e0} tasks ran on the CUDA "
-                f"device, expected {ntask * n_dags}")
+                f"PTG GEMM mode ({mode}): accounting PTEXEC {d}, PTDEV "
+                f"{dd}, {dev.executed_tasks - e0} tasks on the device; "
+                f"the model {cost_model.snapshot()}")
+        key = "explore" if cpu_twin else mode
+        costs = {k: cost_model.cost("gemm.GEMM", pool_bucket[0], k)
+                 for k in ("cuda", "cpu")}
+        costs["stage-in"] = cost_model.cost("__stage_in__", pool_bucket[0],
+                                            "cuda")
+        log(f"  pool run ({key}) x{n_dags}: {secs:.3f} s, fused regions "
+            f"{d['fused_regions']}, GC pauses {gc_pause[0] - g0:.3f} s; the "
+            f"model after it, us a task: "
+            + ", ".join(f"{k} {'-' if v is None else f'{v / 1e3:.1f}'}"
+                        for k, v in costs.items()))
+        for tp in tps:
+            st = tp._ptexec_state
+            placements[key].append(
+                "interpreted FSM, device module" if st is None else
+                "ptdev lane" if st.get("dev_pool") is not None else
+                "CPU twin on host copies (execution lane)")
+        last[mode] = tps[-1]
         return secs
 
-    for C in Cs:
-        C.fill(lambda m, n: torch.zeros(TS, TS))
-    t_first = run_gemm(1)
-    got = torch.cat([torch.cat([Cs[0].data_of(m, n).newest_copy().payload
+    ref = torch.matmul(a, b)
+    refmax = ref.abs().max()
+    results = {}
+    # a DAG of each mode from a zero C, each in its own matrix; (a) twice:
+    # its first DAG builds each region's program (cold regions, left out of
+    # the cost model), the second reuses them
+    for j, (mode, what) in enumerate((("a", "first DAG, cold regions"),
+                                      ("a", "second DAG, warm regions"),
+                                      ("b", "first DAG"),
+                                      ("c", "first DAG"))):
+        C = Cs[min(j, 2)]
+        zero(C)
+        t_first = run_gemm(1, mode, cs=[C])
+        got = dense(C)
+        rel = ((got - ref).abs().max() / refmax).item()
+        results[(mode, j)] = got
+        log(f"PTG GEMM f32 N={N} TS={TS} ({ntask} tasks) mode ({mode}) "
+            f"{GEMM_MODES[mode][0]}, {what}: {t_first:.3f} s (instantiate "
+            f"{split[0][0]:.3f}, add_taskpool {split[0][1]:.3f}, wait "
+            f"{split[0][2]:.3f}); max err / max|ref| against torch.matmul "
+            f"= {rel:.3e}")
+        if not (got.device.type == device and rel < 1e-5):
+            raise AssertionError(f"PTG GEMM mode ({mode}) f32 gate: {rel}")
+    same = {k: torch.equal(results[x], results[y]) for k, x, y in (
+        ("(b) vs (c)", ("b", 2), ("c", 3)),
+        ("(a) cold regions vs (b)", ("a", 0), ("b", 2)),
+        ("(a) warm regions vs (b)", ("a", 1), ("b", 2)))}
+    log("PTG GEMM C bit for bit: " + ", ".join(
+        f"{k} {'the same' if v else 'DIFFERENT'}" for k, v in same.items()))
+    # the first (b) DAG was the class's first per-task pool on the lane:
+    # cold, so unobserved. A warm (b) DAG measures the card per task (still
+    # placed there: nothing is measured yet); the next lane instantiation
+    # then explores the CPU twin once — spent here, in the warm-up, on its
+    # own C, and held to the device leg's result
+    run_gemm(1, "b", cs=[Cs[1]])
+    x0 = COSTMODEL_STATS.snapshot()
+    zero(Cs[0])
+    t_x = run_gemm(1, "b", cpu_twin=True)
+    got = dense(Cs[0])
+    rel = ((got - results[("b", 2)]).abs().max() / refmax).item()
+    xd = COSTMODEL_STATS.delta(x0)
+    bucket = last["b"]._ptexec_pool_bucket()
+    per = {k: cost_model.cost("gemm.GEMM", bucket, k) / 1e3
+           for k in ("cuda", "cpu")}
+    log(f"PTG GEMM the cost model's exploration of the CPU twin (mode (b), "
+        f"host copies): {t_x:.3f} s, placements_explore "
+        f"{xd['placements_explore']}, placements_diverged "
+        f"{xd['placements_diverged']}; max err / max|ref| against the "
+        f"device leg = {rel:.3e}; measured per task: card "
+        f"{per['cuda']:.1f} us, CPU twin {per['cpu']:.1f} us")
+    if not (xd["placements_explore"] == 1 and rel < 1e-5):
+        raise AssertionError(f"PTG GEMM CPU-twin exploration: {xd}, {rel}")
+    zero(Cs[0])
+    del results, got
+    for mode in GEMM_MODES:                    # warm runs after the explore
+        run_gemm(1, mode)
+    slopes = slopes_in_turns(run_gemm, engines=tuple(GEMM_MODES))
+    mm_ms = cuda_time_ms(lambda: torch.matmul(a, b), iters=5) \
+        if device == "cuda" else float("nan")
+    for mode, (s_, t1, t3) in slopes.items():
+        log(f"PTG GEMM mode ({mode}) {GEMM_MODES[mode][0]}: T1 {t1:.3f} s, "
+            f"T3 {t3:.3f} s, slope {s_ * 1e3:.1f} ms/DAG -> host "
+            f"{s_ / ntask * 1e6:.1f} us a task, "
+            f"{2 * N ** 3 / 1e9 / s_:.1f} GFLOP/s ({smi})")
+    log(f"yardstick torch.matmul f32 {N}^3: {mm_ms:.3f} ms")
+    lane = ctx._ptdev
+    for mode in GEMM_MODES:
+        s0, d0, c0 = (PTDEV_STATS.snapshot(), COSTMODEL_STATS.snapshot(),
+                      dev.coh_stats())
+        l0 = lane.clane.stats()
+        busy, window, by_name = device_profile(
+            torch, lambda: run_gemm(1, mode))
+        dd, cd = PTDEV_STATS.delta(s0), COSTMODEL_STATS.delta(d0)
+        l1, c1 = lane.clane.stats(), dev.coh_stats()
+        ld = {k: l1[k] - l0[k] for k in ("dispatched", "dispatch_batches",
+                                        "overlap_hits", "late_retires",
+                                        "cb_errors")}
+        coh = {k: c1[k] - c0[k] for k in ("coh_hits", "coh_misses",
+                                         "stage_in_bytes")}
+        st = last[mode]._ptexec_state
+        rs = st["graph"].region_stats() if st is not None else None
+        log(idle_line(f"PTG GEMM mode ({mode}) one DAG", busy, window))
+        for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:3]:
+            log(f"  device {ms:8.3f} ms  {name[:100]}")
+        log(f"  PTDEV_STATS delta {dd}; lane {ld}; CohTable {coh}; "
+            f"COSTMODEL_STATS placements_adaptive "
+            f"{cd['placements_adaptive']}, placements_diverged "
+            f"{cd['placements_diverged']}, decision_ns {cd['decision_ns']}; "
+            f"region_stats {rs}")
+        if mode != "c" and not (ld["cb_errors"] == 0 and rs is not None
+                                and rs["weighted_total"] == ntask):
+            raise AssertionError(f"PTG GEMM mode ({mode}): lane {ld}, "
+                                 f"regions {rs}")
+    log("PTG GEMM placement of every pool: " + "; ".join(
+        f"({m}) " + ", ".join(f"{p} x{placements[m].count(p)}"
+                              for p in sorted(set(placements[m])))
+        for m in placements))
+    if device == "cuda":
+        t_done, t_pend = poll_cost_us(torch)
+        log(f"device lane poll: torch.cuda.Event.query() {t_done:.2f} us on "
+            f"a completed event, {t_pend:.2f} us on a pending one (one "
+            f"event a dispatch batch; {smi})")
+        rf = region_forms(torch, last["a"], ntask)
+        log(f"device region forms, one DAG's {rf['regions']} regions of "
+            f"{rf['members']} members: eager (the lane's form) "
+            f"{rf['eager'][0]:.3f} ms wall ({rf['eager'][1]:.3f} ms "
+            f"device), CUDA graph with {rf['copy_in_mib']:.0f} MiB copied "
+            f"in a region {rf['graph'][0]:.3f} ms wall ({rf['graph'][1]:.3f} "
+            f"ms device); first calls with the captures "
+            f"{rf['capture_s']:.3f} s, {rf['held_mib']:.0f} MiB allocated "
+            f"by the graphs (static inputs, outputs); write-backs bit for bit "
+            f"{'the same' if rf['same'] else 'DIFFERENT'} ({smi})")
+        if not rf["same"]:
+            raise AssertionError("the region graph's write-backs differ")
+    del A, B, Cs, a, b, ref, last
+    gc.callbacks.remove(gc_cb)
+
+
+def big_gemm(ptt, torch, ctx, dev, smi, device: str, gemm) -> None:
+    """One mode-(a) DAG of the PTG GEMM at N = 16384 (32 x 32 x 32 tasks of
+    512^2 f32 tiles, the size of the port's DTD GEMM), from a zero C, held
+    to ``torch.matmul`` at 1e-5 of max|ref|: device regions hold no card
+    memory of their own, and a slot's tile is dropped once its consumers
+    retired, so the run needs the matrices and little else (the peak
+    allocation above them is printed, with whether the cost model kept the
+    regions fused)."""
+    from parsec_tpu_torch.core.costmodel import COSTMODEL_STATS
+    from parsec_tpu_torch.device.native import PTDEV_STATS
+    T, TS = 2 * PTG_GEMM_T, PTG_GEMM_TS
+    N = T * TS
+    gen = torch.Generator(device=device).manual_seed(16)
+    a = torch.randn(N, N, device=device, generator=gen)
+    b = torch.randn(N, N, device=device, generator=gen)
+    mats = {}
+    for name, d in (("descA", a), ("descB", b), ("descC", None)):
+        M = ptt.TiledMatrix(name, N, N, TS, TS, device=device)
+        M.fill(lambda m, n, d=d: torch.zeros(TS, TS, device=device)
+               if d is None else d[m * TS:(m + 1) * TS, n * TS:(n + 1) * TS])
+        mats[name] = M
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    base = torch.cuda.memory_allocated() if device == "cuda" else 0
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    d0, e0 = PTDEV_STATS.snapshot(), dev.executed_tasks
+    f0 = COSTMODEL_STATS.snapshot()
+    t0 = time.perf_counter()
+    tp = gemm.instantiate(ctx, globals={"MT": T, "NT": T, "KT": T},
+                          collections=mats, name="gemm16k")
+    ctx.add_taskpool(tp)
+    ctx.wait(timeout=600)
+    sync()
+    secs = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20 \
+        if device == "cuda" else float("nan")
+    dd, fd = PTDEV_STATS.delta(d0), COSTMODEL_STATS.delta(f0)
+    rs = tp._ptexec_state["graph"].region_stats()
+    C = mats["descC"]
+    got = torch.cat([torch.cat([C.data_of(m, n).newest_copy().payload
                                 for n in range(T)], 1) for m in range(T)])
+    del mats, C, tp
     ref = torch.matmul(a, b)
     rel = ((got - ref).abs().max() / ref.abs().max()).item()
-    log(f"PTG GEMM f32 N={N} TS={TS} ({ntask} tasks, [type=CUDA] body): "
-        f"first DAG {t_first:.3f} s; max err / max|ref| against "
-        f"torch.matmul = {rel:.3e}")
-    if not (got.device.type == device and rel < 1e-5):
-        raise AssertionError(f"PTG GEMM f32 gate failed: {rel}")
-    del got, ref
-    gemm_s, t1, t3 = slope(run_gemm)
-    mm_ms = cuda_time_ms(lambda: torch.matmul(a, b), iters=5)
-    log(f"PTG GEMM: T1 {t1:.3f} s, T3 {t3:.3f} s, slope {gemm_s:.3f} s/DAG "
-        f"-> {2 * N ** 3 / 1e9 / gemm_s:.1f} GFLOP/s (yardstick "
-        f"torch.matmul f32 {N}^3: {mm_ms:.3f} ms) ({smi})")
-    busy, window, by_name = device_profile(torch, lambda: run_gemm(1))
-    log(idle_line("PTG GEMM one DAG", busy, window))
-    for name, ms in sorted(by_name.items(), key=lambda kv: -kv[1])[:4]:
-        log(f"  device {ms:8.3f} ms  {name[:100]}")
-    log(f"PTG GEMM lane declines by reason: pools_device_declined "
-        f"{sum(declines)} over {len(declines)} runs ({sum(declines)} pools; "
-        f"the device-bodied pools run the interpreted FSM on the CUDA "
-        f"device module), pools_ineligible 0, pools_fallback 0")
-    del A, B, Cs, a, b
-    if device == "cuda":
-        torch.cuda.empty_cache()
-    wall = time.perf_counter() - t_phase
-    log(f"PTG phase wall time {wall:.1f} s")
+    log(f"PTG GEMM f32 N={N} TS={TS} ({T ** 3} tasks) mode (a), one DAG: "
+        f"{secs:.3f} s; {peak:.0f} MiB allocated above the matrices at the "
+        f"peak; PTDEV_STATS delta {dd}; region_stats {rs}; fusion declined "
+        f"by the cost model {fd['fusion_declined']}; max err / max|ref| "
+        f"against torch.matmul = "
+        f"{rel:.3e} ({smi})")
+    if not (dd["pools_engaged"] == 1 and dd["pools_fallback"] == 0
+            and dev.executed_tasks - e0 == T ** 3
+            and rs["weighted_total"] == T ** 3 and rel < 1e-5):
+        raise AssertionError(f"PTG GEMM N={N} mode (a): {dd}, {rs}, {rel}")
 
 
 def main() -> int:
@@ -2139,7 +2520,7 @@ def main() -> int:
     names = ("gemm_chain", "flash_attention", "stencil1d")
     # the host lanes (C++, no device code): the DTD engine, the PTG lane,
     # the scheduler plane and the native core (the dependency table)
-    lanes = ("ptdtd", "ptexec", "ptsched", "ptcore")
+    lanes = ("ptdtd", "ptexec", "ptsched", "ptdev", "ptcore")
     py_h = os.path.join(sysconfig.get_paths()["include"], "Python.h")
     log(f"Python headers for the host lanes: {py_h} "
         f"{'present' if os.path.exists(py_h) else 'MISSING'}")

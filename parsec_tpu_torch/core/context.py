@@ -201,6 +201,16 @@ class Context:
         #: enqueued: (taskpool, lane dict) pairs every stream drains
         self._ptexec_q: List = []
         self._ptexec_lock = threading.Lock()
+        #: the native DEVICE lane (device/native.py): one per context,
+        #: created lazily the first time a CUDA-bodied pool prepares for the
+        #: execution lane (None = not yet tried, False = tried and
+        #: unavailable). Its manager thread feeds completions back into the
+        #: graphs GIL-free; fini tears it down BEFORE the device modules
+        self._ptdev: Any = None
+        #: count of DEVICE-BOUND lane graphs in flight: while one lives,
+        #: starvation backoff stays short — the next ready task comes from
+        #: the lane's manager thread, not from this process's walk
+        self._ptexec_dev_live = 0
         # per-thread stream binding
         self._tls = threading.local()
         self._tls.stream = self.streams[0]
@@ -352,6 +362,12 @@ class Context:
         self._work_event.set()
         for t in self._workers:
             t.join(timeout=5.0)
+        if self._ptdev:
+            # device lane down BEFORE the device modules (and before
+            # torch's CUDA teardown): its manager thread dispatches through
+            # them under the GIL
+            self._ptdev.fini()
+            self._ptdev = False
         self.devices.fini()
         # the per-context engine and plane outlive pools: release them
         # with the context (a live pool keeps its own engine reference)
@@ -359,6 +375,10 @@ class Context:
         self._dtd_ntasks = {}
         self.sched_plane = None
         self._ptexec_q = []
+        # persist the online cost model (--mca costmodel_persist): a
+        # restarted process loads it back at its first placement decision
+        from .costmodel import model as _cost_model
+        _cost_model.maybe_save()
         self._release_gc_hold()  # error paths can finalize w/ pools active
 
     # ------------------------------------------------------------------ scheduling
@@ -439,6 +459,37 @@ class Context:
             self.schedule(rtasks, stream)
         return nexec > 0 or bool(surfaced)
 
+    # ------------------------------------------------------------ device lane
+    def _ptdev_lane(self):
+        """The context's native device lane (device/native.py), created
+        lazily on the first CUDA-bodied lane pool, or None when it cannot
+        engage (no CUDA device, ``--mca device_native 0``, native modules
+        off). The verdict is memoized."""
+        if self._ptdev is not None:
+            return self._ptdev or None
+        from ..device.native import NativeDeviceLane
+        lane = NativeDeviceLane.maybe_create(self)
+        self._ptdev = lane if lane is not None else False
+        return lane
+
+    # ----------------------------------------------------- online cost model
+    def _cost_fold(self, lane: Dict[str, Any]) -> None:
+        """Fold a finishing lane's cost observations into the online cost
+        model (core/costmodel.py). Idempotent the way the abandon path
+        needs: every exiting stream of an errored graph attempts this, and
+        the pop()s make only the first one fold."""
+        meta = lane.pop("cost_meta", None)
+        obs = lane.pop("cost_dev", None)
+        if meta is None and not obs:
+            return
+        from .costmodel import fold_cost_rows, model
+        if meta is not None:
+            fold_cost_rows(meta, lane["graph"].cost_snapshot())
+        if obs:
+            # the device lane's dispatch/poll observations (manager-thread
+            # local dict: (cls, bucket, dev) -> [count, sum_ns])
+            model.fold_pairs((k, v[0], v[1]) for k, v in obs.items())
+
     # ------------------------------------------------------------ PTG lane
     def _ptexec_enqueue(self, tp: Taskpool, lane: Dict[str, Any]) -> None:
         """A PTG taskpool handed its whole FSM to the native execution
@@ -446,6 +497,8 @@ class Context:
         loop drains it."""
         with self._ptexec_lock:
             self._ptexec_q.append((tp, lane))
+            if lane.get("dev_pool") is not None:
+                self._ptexec_dev_live += 1
             # scheduler plane, LAZY arming (the one-pool fast path): a
             # lone lane graph keeps its private allocation-free ready
             # vector. The moment a SECOND pool runs concurrently (or a pool
@@ -535,7 +588,29 @@ class Context:
         if quantum is not None:
             budget = max(256, min(budget, quantum))
         try:
+            dv = lane.get("dev")
+            if dv is not None:
+                msg = dv.failed()
+                if msg is not None:
+                    # a device dispatch/poll callback raised on the lane's
+                    # manager thread (which has no caller to propagate
+                    # to): surface it here as the pool's error
+                    raise RuntimeError(
+                        f"native device lane callback failed: {msg}")
             mine = graph.run(lane["callback"], 256, budget, stream.th_id)
+            if mine == 0 and lane.get("dev_pool") is not None \
+                    and not graph.failed() and not graph.done():
+                # device-bound lane starved mid-graph: the next ready task
+                # arrives from the device manager thread, not from this
+                # process's walk — micro-poll briefly instead of paying a
+                # full hot-loop iteration per hop (bounded: about 1 ms,
+                # then the outer loop resumes its usual servicing)
+                for spin in range(224):
+                    time.sleep(0 if spin < 200 else 2e-5)
+                    mine = graph.run(lane["callback"], 256, budget,
+                                     stream.th_id)
+                    if mine or graph.failed() or graph.done():
+                        break
         except BaseException as e:  # noqa: BLE001 — a body raised
             with self._ptexec_lock:
                 self._ptexec_retire_locked(lane)
@@ -565,6 +640,7 @@ class Context:
                 self._ptexec_retire_locked(lane)
             if fin:
                 tp._ptexec_finalize(lane)
+                self._cost_fold(lane)
                 self._sched_pool_retire(lane)
             return True
         return mine > 0
@@ -575,6 +651,8 @@ class Context:
         for i, (_tp, l_) in enumerate(self._ptexec_q):
             if l_ is lane:
                 self._ptexec_q.pop(i)
+                if lane.get("dev_pool") is not None:
+                    self._ptexec_dev_live -= 1
                 return
 
     def _sched_pool_retire(self, lane: Dict[str, Any]) -> None:
@@ -602,7 +680,12 @@ class Context:
         would yank inputs out from under a peer still mid-callback;
         leaking instead would pin every produced payload for the
         taskpool's remaining lifetime."""
+        self._cost_fold(lane)                # idempotent (pop-guarded)
         self._sched_pool_retire(lane)        # free the plane pool slot
+        if lane.get("dev_pool") is not None:
+            # stop routing the poisoned pool's device completions (in-
+            # flight retires for it count late_retires, never land)
+            lane["dev"].unbind_pool(lane.pop("dev_pool"))
         slots = lane.get("slots")
         if not slots:
             return
@@ -780,8 +863,11 @@ class Context:
                 if deadline is not None and time.monotonic() > deadline:
                     return
                 # exponential backoff while starving (ref: scheduling.c:801-804)
-                cap = backoff_max
-                if self.sched_plane is not None \
+                # — capped short while a device-bound lane graph is in
+                # flight: its next ready task arrives from the device
+                # lane's manager thread, not from this process
+                cap = 2e-5 if self._ptexec_dev_live else backoff_max
+                if cap == backoff_max and self.sched_plane is not None \
                         and (self._ptexec_q or self._dtd_batch_pools) \
                         and self.sched_plane.queued_total() > 0:
                     # "no local work" is NOT global with multiple pools:

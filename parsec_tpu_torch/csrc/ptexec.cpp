@@ -1628,6 +1628,26 @@ PyObject *graph_slot_stats(PyObject *obj, PyObject *) {
                          (long long)self->nb_slots_retired);
 }
 
+// take_retired() -> the slot ids fully consumed since the last hand-over
+// (the list a data-mode dispatch callback receives). The device lane's
+// dispatch takes them here: a pool whose tasks all ride the device lane
+// runs no CPU dispatch, and would otherwise hold every slot's payload
+// until the pool ends
+PyObject *graph_take_retired(PyObject *obj, PyObject *) {
+    Graph *self = reinterpret_cast<Graph *>(obj);
+    std::vector<int32_t> ret;
+    {
+        std::lock_guard<std::mutex> lk(*self->mu);
+        ret.swap(*self->retired);
+    }
+    PyObject *rl = PyList_New((Py_ssize_t)ret.size());
+    if (!rl)
+        return nullptr;
+    for (size_t i = 0; i < ret.size(); i++)
+        PyList_SET_ITEM(rl, (Py_ssize_t)i, PyLong_FromLong(ret[i]));
+    return rl;
+}
+
 // ------------------------------------------------------- in-lane tracing
 
 PyObject *graph_trace_enable(PyObject *obj, PyObject *args) {
@@ -1717,6 +1737,8 @@ PyMethodDef graph_methods[] = {
      "(n_tasks, n_edges)"},
     {"slot_stats", graph_slot_stats, METH_NOARGS,
      "(n_slots, n_slots_retired) — the lane-side datarepo retire counters"},
+    {"take_retired", graph_take_retired, METH_NOARGS,
+     "take_retired() -> slot ids fully consumed since the last hand-over"},
     {"comm_bind", graph_comm_bind, METH_VARARGS,
      "comm_bind(send_capsule, pool_id, my_rank, owners) -> n_local: enter "
      "distributed mode (remote successors surface on the comm lane)"},

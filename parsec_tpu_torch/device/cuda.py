@@ -12,9 +12,13 @@ This module stands where parsec/mca/device/cuda + the generic GPU runtime
   device_gpu.c:3438-3515; the TPU runtime this port follows has no such
   split, and neither has the port). A ``torch.cuda.Event``
   recorded after each submit plays the completion event, polled with
-  ``query()`` (ref: parsec_device_progress_stream, device_gpu.c:2593). Keeping
-  every allocation and use on one stream is also what lets PyTorch's caching
-  allocator recycle a freed tile without ``record_stream``.
+  ``query()`` (ref: parsec_device_progress_stream, device_gpu.c:2593). The
+  native device lane (:mod:`.native`) launches on a stream of its own but
+  issues its stage-ins on this one, so every transfer into the card is on
+  this stream; a tile the lane computed reaches this module only after the
+  lane's event for it completed, and the lane marks such a tile used on
+  this stream (``record_stream``) so its block is not recycled under a
+  reader queued here.
 * Stage-in re-creates parsec_device_data_stage_in (device_gpu.c:1800):
   version-checked transfer from the newest copy (host tensor or another
   device's tensor) via ``Tensor.to(device, non_blocking=True)``.
@@ -22,7 +26,15 @@ This module stands where parsec/mca/device/cuda + the generic GPU runtime
   parsec_device_data_reserve_space (device_gpu.c:1210): resident copies are
   tracked in an LRU; exceeding the byte budget evicts the least recently used
   unpinned copy, writing back owned ones first (the w2r task role,
-  transfer_gpu.c).
+  transfer_gpu.c). With the native device lane's module on (``--mca
+  device_native``, the default), the C coherency table (``CohTable``,
+  csrc/ptdev.cpp) is the residency authority: it decides whether a
+  stage-in needs a transfer (the version check), keeps the LRU order and
+  the budget and picks the eviction victims; this module performs the
+  transfers and write-backs, and its ``_lru`` becomes the mirror the tests
+  inspect. Every resident tile also holds a segment of a zone ledger
+  (:mod:`..utils.zone_malloc`, the reference's zone_malloc heap) so
+  occupancy and fragmentation are first-class stats (:meth:`zone_stats`).
 * Task batching (parsec_gpu_task_collect_batch, device_gpu.c:2229):
   compatible queued tasks are handed to a batch hook in one dispatch when the
   task class opts in.
@@ -126,6 +138,7 @@ class CUDADevice(DeviceModule):
         # LRU tile heap bookkeeping (ref: gpu_mem_lru / gpu_mem_owned_lru)
         self._lru: "collections.OrderedDict[Any, DataCopy]" = collections.OrderedDict()
         self._lru_sizes: Dict[Any, int] = {}   # accounted bytes per key
+        self._lru_segs: Dict[Any, Any] = {}    # key -> zone ledger segment
         self._resident_bytes = 0
         self.evictions = 0          # copies evicted (budget pressure stat)
         self.pinned_skips = 0       # eviction walks that skipped a pinned copy
@@ -134,6 +147,17 @@ class CUDADevice(DeviceModule):
             free, _total = torch.cuda.mem_get_info(torch_device)
             budget = int(free * 0.75)
         self._budget = budget or (12 << 30)
+        # the heap ledger: every resident tile owns a zone segment (offset
+        # + size); the caching allocator owns the physical bytes. 64 KiB
+        # units keep the ledger close to the byte-exact accounting even
+        # for small tiles
+        from ..utils.zone_malloc import ZoneMalloc
+        self._zone = ZoneMalloc(self._budget, unit=65536)
+        # the native coherency/residency table: C owns the POLICY (LRU
+        # order, budget, the stage-in version check, victim selection),
+        # Python the payloads and the write-back mechanism
+        from .native import make_coh_table
+        self._ncoh = make_coh_table(self._budget)
         #: bytes that captured programs of this card hold (their static
         #: buffers, stacked stores and graph pools), counted against the
         #: budget beside the resident tiles (dsl/capture.py charges them)
@@ -141,10 +165,10 @@ class CUDADevice(DeviceModule):
         #: called at :meth:`fini` (graph capture releases this card's
         #: programs there)
         self.fini_hooks: List[Callable[[], None]] = []
-        # serializes the residency bookkeeping (_lru/_lru_sizes/
+        # serializes the residency mirror (_lru/_lru_sizes/_lru_segs/_zone/
         # _resident_bytes and the reader pins): worker threads mutate it
-        # from stage-ins and epilogs, and the compound updates are not
-        # GIL-atomic
+        # from stage-ins and epilogs and the device lane's manager thread
+        # from its stage-ins, and the compound updates are not GIL-atomic
         self._heap_lock = threading.RLock()
 
     @staticmethod
@@ -154,6 +178,81 @@ class CUDADevice(DeviceModule):
         object's identity is the key: a resident entry's DataCopy pins its
         Data, so the id cannot be reused while the entry lives."""
         return id(data)
+
+    def _coh_pin(self, data: Optional[Data]) -> None:
+        if self._ncoh is not None and data is not None:
+            self._ncoh.pin(self.res_key(data))
+
+    def _coh_unpin(self, data: Optional[Data]) -> None:
+        if self._ncoh is not None and data is not None:
+            self._ncoh.unpin(self.res_key(data))
+
+    def _coh_mark_owned(self, data: Data, copy: DataCopy) -> None:
+        """Writer completed on this device: the table's entry becomes the
+        OWNER at the new version (the epilog bump); growth past the budget
+        returns eviction victims to apply."""
+        if self._ncoh is None:
+            return
+        victims = self._ncoh.mark_owned(self.res_key(data),
+                                        data.version & 0xFFFFFFFF,
+                                        _nbytes(copy.payload))
+        if victims:
+            self._apply_victims(victims)
+
+    def _apply_victims(self, victims) -> None:
+        """Commit the C table's eviction decisions: write back + invalidate
+        each victim ATOMICALLY with its version check (Data.evict_copy),
+        then update the mirror (sizes, zone ledger, counters). Policy came
+        from C; this is pure mechanism."""
+        with self._heap_lock:
+            self._apply_victims_locked(victims)
+
+    def _apply_victims_locked(self, victims) -> None:
+        for key, _owned in victims:
+            copy = self._lru.get(key)
+            if copy is None:
+                continue
+            if copy.readers > 0:
+                # a Python-side pin the table could not see: veto the
+                # eviction — the table already dropped its entry, so the
+                # next stage-in simply re-reserves, and the reader keeps
+                # its payload
+                self.pinned_skips += 1
+                continue
+            self._lru.pop(key)
+            self._evict_key_locked(key, copy, drop_table=False)
+
+    def _evict_key_locked(self, key: Any, copy: DataCopy,
+                          drop_table: bool) -> None:
+        """The ONE eviction mechanism (heap lock held, ``key`` already out
+        of ``_lru``): mirror bookkeeping, the atomic write-back +
+        invalidate (Data.evict_copy), and the counters. ``drop_table``
+        removes the C entry too (the Python LRU decided the victim itself;
+        C-decided victims already left the table)."""
+        freed = self._lru_sizes.pop(key, 0)
+        self._resident_bytes -= freed
+        seg = self._lru_segs.pop(key, None)
+        if seg is not None:
+            seg.free()
+        data = copy.original
+        wrote = False
+        if data is not None:
+            _evicted, wrote = data.evict_copy(self.device_index)
+        else:
+            copy.coherency_state = COHERENCY_INVALID
+            copy.payload = None
+        if wrote:
+            self.transfer_out_bytes += freed
+            if self._ncoh is not None:
+                self._ncoh.count_writeback(freed)
+        if drop_table and self._ncoh is not None:
+            self._ncoh.drop(key)
+        self.evictions += 1
+
+    def coh_stats(self) -> Optional[Dict[str, int]]:
+        """The native coherency/residency counters, or None when the table
+        is off (the Python LRU is the policy then)."""
+        return None if self._ncoh is None else self._ncoh.stats()
 
     def _on_stream(self):
         """Context in which this module's copies and kernels are issued."""
@@ -249,12 +348,39 @@ class CUDADevice(DeviceModule):
     def _stage_in_copy(self, data: Data, access: int,
                        pin: bool = False) -> DataCopy:
         """Version-checked stage-in (ref: parsec_device_data_stage_in
-        device_gpu.c:1800). Returns the device-resident copy; ``pin=True``
-        also takes an eviction pin on it (release with :meth:`unpin_copy`)."""
+        device_gpu.c:1800). Returns the device-resident copy.
+
+        With the native table up, the residency decision — is a copy of
+        exactly this version resident, and which victims must leave to
+        make room — is C's (``CohTable.stage_in`` does the early reserve of
+        the push stage); this method stays the transfer MECHANISM.
+        ``pin=True`` takes the eviction pin INSIDE the table's reserve
+        critical section (a concurrent stage-in on another thread could
+        otherwise evict this entry between the reserve and the caller's
+        pin) and bumps the Python reader count to match — release with
+        :meth:`unpin_copy`."""
         dev_idx = self.device_index
         copy = data.get_copy(dev_idx)
         newest = data.newest_copy()
-        if copy is not None and newest is not None and \
+        if self._ncoh is not None and newest is not None:
+            need, victims = self._ncoh.stage_in(
+                self.res_key(data), _nbytes(newest.payload),
+                newest.version & 0xFFFFFFFF, 0, 1 if pin else 0)
+            if victims:
+                self._apply_victims(victims)
+            if self.program_bytes:
+                self._fit_programs()
+            if not need and copy is not None and \
+                    copy.version == newest.version and \
+                    copy.coherency_state != COHERENCY_INVALID:
+                self._lru_touch(self.res_key(data), copy)
+                if pin:
+                    with self._heap_lock:
+                        copy.readers += 1     # table half pinned above
+                return copy
+            # the table said transfer (or the mirror lost the payload: the
+            # stale table entry was already replaced by stage_in)
+        elif copy is not None and newest is not None and \
                 copy.version == newest.version and \
                 copy.coherency_state != COHERENCY_INVALID:
             self._lru_touch(self.res_key(data), copy)
@@ -266,7 +392,8 @@ class CUDADevice(DeviceModule):
             raise RuntimeError(f"no valid copy to stage in for {data!r}")
         payload = torch.as_tensor(src.payload)
         nbytes = _nbytes(payload)
-        self._reserve(nbytes)       # make room before allocating
+        if self._ncoh is None:
+            self._reserve(nbytes)   # native mode: stage_in reserved above
         arr = payload.to(self.torch_device, non_blocking=True)  # async H2D
         if copy is None:
             copy = data.create_copy(dev_idx, arr, COHERENCY_SHARED)
@@ -277,8 +404,23 @@ class CUDADevice(DeviceModule):
         self.transfer_in_bytes += nbytes
         self._lru_touch(self.res_key(data), copy)
         if pin:
-            self.pin_copy(copy)
+            if self._ncoh is not None:
+                with self._heap_lock:
+                    copy.readers += 1     # table half pinned in stage_in
+            else:
+                self.pin_copy(copy)
         return copy
+
+    def lane_stage_in(self, data: Data, pin: bool = False) -> DataCopy:
+        """Stage-in entry of the native device lane's dispatch (the push
+        phase of ptdev): version-checked through the C table, asynchronous,
+        returns the device copy — pinned atomically with the reserve when
+        ``pin``. The transfer is issued on this module's stream, the card's
+        one push stream: the module's own readers of the copy are behind it
+        in stream order, and the lane orders its stream after this one
+        before its launches read the copy."""
+        with self._on_stream():
+            return self._stage_in_copy(data, 0, pin=pin)
 
     def _submit_one(self, gt: CUDATask) -> None:
         with self._on_stream():
@@ -399,6 +541,7 @@ class CUDADevice(DeviceModule):
             data.bump_version(self.device_index)
             slot.data_out = copy
             self._lru_touch(self.res_key(data), copy)
+            self._coh_mark_owned(data, copy)
         self._unpin(gt)     # inputs consumed: copies evictable again
         self.executed_tasks += 1
         self.load_sub(gt.load)
@@ -417,13 +560,24 @@ class CUDADevice(DeviceModule):
             self._resident_bytes += new_size - old_size
             self._lru_sizes[key] = new_size
             self._lru[key] = copy
+            if new_size != old_size or key not in self._lru_segs:
+                # re-register on a size change AND whenever the key has no
+                # live segment (an allocate() miss under pressure must not
+                # drop the tile from the ledger for good)
+                seg = self._lru_segs.pop(key, None)
+                if seg is not None:
+                    seg.free()
+                seg = self._zone.allocate(new_size)
+                if seg is not None:
+                    self._lru_segs[key] = seg
 
     def _evict_one(self) -> bool:
         """Evict the least-recently-used unpinned copy; an OWNED copy
         writes back AND downgrades atomically with the version check
         (Data.evict_copy — one critical section, so a reader racing the
         eviction can never see the newest version without a valid
-        payload)."""
+        payload). The Python LRU's path; with the native table up, victim
+        selection comes from C (:meth:`_apply_victims`)."""
         with self._heap_lock:
             for key in list(self._lru):
                 copy = self._lru[key]
@@ -431,25 +585,20 @@ class CUDADevice(DeviceModule):
                     self.pinned_skips += 1
                     continue
                 self._lru.pop(key)
-                freed = self._lru_sizes.pop(key, 0)
-                self._resident_bytes -= freed
-                data = copy.original
-                wrote = False
-                if data is not None:
-                    _evicted, wrote = data.evict_copy(self.device_index)
-                else:
-                    copy.coherency_state = COHERENCY_INVALID
-                    copy.payload = None
-                if wrote:
-                    self.transfer_out_bytes += freed
-                self.evictions += 1
+                self._evict_key_locked(key, copy, drop_table=True)
                 return True
         return False
 
     def evict_bytes(self, nbytes: int) -> int:
         """Force eviction of about ``nbytes`` of resident clean/dirty copies
-        (the explicit half of the OOM retry path). Returns bytes freed."""
+        (the explicit half of the OOM retry path). Returns bytes freed. With
+        the native table up, the victim set is C's decision."""
         freed0 = self._resident_bytes
+        if self._ncoh is not None:
+            victims, skips = self._ncoh.evict(nbytes)
+            self._apply_victims(victims)
+            self.pinned_skips += skips
+            return freed0 - self._resident_bytes
         target = max(0, self._resident_bytes - nbytes)
         while self._resident_bytes > target and self._lru:
             if not self._evict_one():
@@ -458,14 +607,18 @@ class CUDADevice(DeviceModule):
 
     def pin_copy(self, copy: DataCopy) -> None:
         """Pin a device copy against eviction (the inflight-task reader
-        guard). The reader count mutates from several worker threads — the
+        guard): bumps the Python reader count AND the native table's pin, so
+        C's victim selection honors it. The reader count mutates from
+        worker threads and the device lane's manager thread — the
         non-atomic ``+=`` goes under the heap lock so no update is lost."""
         with self._heap_lock:
             copy.readers += 1
+        self._coh_pin(copy.original)
 
     def unpin_copy(self, copy: DataCopy) -> None:
         with self._heap_lock:
             copy.readers -= 1
+        self._coh_unpin(copy.original)
 
     def _reserve(self, nbytes: int) -> None:
         """Evict LRU copies until ``nbytes`` fits the budget
@@ -475,10 +628,36 @@ class CUDADevice(DeviceModule):
             if not self._evict_one():
                 break  # everything pinned; rely on the caching allocator
 
-    def set_budget(self, nbytes: int) -> None:
-        """Resize the device tile budget (tests / MCA reconfiguration)."""
+    def _fit_programs(self) -> None:
+        """Native mode: the table budgets the tiles alone; when captured
+        programs push tiles and programs over the budget, evict the excess
+        of tiles through the table (the Python path's ``_reserve`` counts
+        ``program_bytes`` itself)."""
+        over = self._resident_bytes + self.program_bytes - self._budget
+        if over > 0:
+            self.evict_bytes(over)
+
+    def zone_stats(self) -> Dict[str, int]:
+        """Device-heap ledger stats (occupancy, fragmentation, high-water
+        mark) — the zonemalloc_benchmark surface of the reference."""
+        return self._zone.stats()
+
+    def set_budget(self, nbytes: int, unit: Optional[int] = None) -> None:
+        """Resize the device tile budget (tests / MCA reconfiguration): the
+        table applies it first (its victims leave both views), then the
+        zone ledger is rebuilt with ``unit``-byte units and the residents
+        re-registered."""
+        from ..utils.zone_malloc import ZoneMalloc
         with self._heap_lock:
             self._budget = nbytes
+            if self._ncoh is not None:
+                self._apply_victims_locked(self._ncoh.set_budget(nbytes))
+            self._zone = ZoneMalloc(nbytes, unit)
+            self._lru_segs = {}
+            for key, sz in self._lru_sizes.items():
+                seg = self._zone.allocate(sz)
+                if seg is not None:
+                    self._lru_segs[key] = seg
 
     def fini(self) -> None:
         if self.stream is not None:
@@ -488,6 +667,9 @@ class CUDADevice(DeviceModule):
         self.fini_hooks.clear()
         self._lru.clear()
         self._lru_sizes.clear()
+        for seg in self._lru_segs.values():
+            seg.free()
+        self._lru_segs.clear()
         self._resident_bytes = 0
         self._pending.clear()
 

@@ -119,6 +119,11 @@ class DeviceRegistry:
     def cpu(self) -> DeviceModule:
         return self.devices[0]
 
+    def by_type(self, dev_type: int) -> List[DeviceModule]:
+        """The registered devices of ``dev_type`` (ref: the device-type
+        filters of device.c)."""
+        return [d for d in self.devices if d.type & dev_type]
+
     def progress(self, stream) -> int:
         # only devices that OVERRIDE progress get polled: the base is a
         # no-op, and this poll sits in every hot-loop iteration

@@ -20,15 +20,17 @@ directly:
 * memory out-deps → write-back to the data collection at completion
 
 Eligible pools hand their whole FSM to the native execution lane
-(``csrc/ptexec.cpp``, :meth:`PTGTaskpool._ptexec_prepare`). Region fusion,
-the cost model and the native device lane of the reference are not ported
-yet for PTG pools: ``--mca device_native`` defaults to off, and
-``--mca region_fusion`` (on by default for the DTD capture window,
-``dsl/fusion.py``) leaves PTG pools per-task unless the caller sets it;
-either, asked for where it would take effect, raises
-``NotImplementedError``. A device-bodied pool on a context with a CUDA
-device runs the interpreted FSM on the device module (counted in
-``PTEXEC_STATS["pools_device_declined"]``).
+(``csrc/ptexec.cpp``, :meth:`PTGTaskpool._ptexec_prepare`). On a context
+with a CUDA device the tasks of device-bodied classes surface onto the
+native device lane (``csrc/ptdev.cpp``, ``device/native.py``), whose
+manager thread launches them on the card and retires them from CUDA
+events; the online cost model (``core/costmodel.py``) places each such
+class on the card or on its CPU twin, and the fusion pass
+(``dsl/fusion.py``, ``--mca region_fusion``) collapses capturable
+subgraphs of data pools into fused super-tasks — CPU regions in the
+batched callback, device regions as one dispatch on the device lane.
+``--mca device_native 0`` keeps device pools on the interpreted FSM and
+the device module.
 
 Python expressions are compiled once at class-build time and evaluated
 against task locals + user globals.
@@ -38,11 +40,13 @@ from __future__ import annotations
 
 import textwrap
 import threading
+import time
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ...core import costmodel as _cm
 from ...core.context import Context
 from ...core.datarepo import DataRepo
 from ...core.futures import DataCopyFuture
@@ -53,9 +57,12 @@ from ...core.task import (
 from ...data.data import COHERENCY_OWNED, DataCopy
 from ...data.reshape import NamedDatatype, default_datatype
 from ...device.cuda import make_cuda_hook
+from ...device.native import PTDEV_STATS
 from ...utils import mca, output
 from ...utils.counters import LaneStats
-from .. import fusion  # noqa: F401 — registers --mca region_fusion
+from ..fusion import (
+    ExecCache, adaptive_fusion_limits, device_fingerprint, partition_regions,
+)
 from . import parser as P
 
 mca.register("ptg_agglomerate", True,
@@ -69,31 +76,23 @@ mca.register("ptg_native_exec", True,
              "dependency FSM — dep decrement, ready heap, data-slot "
              "retire — runs batched in C with the GIL dropped. "
              "Ineligible pools (named datatypes/reshapes, PINS paranoid, "
-             "multi-chore classes, device bodies on a CUDA context) run "
-             "the Python FSM", type=bool)
-mca.register("device_native", False,
-             "Run device-bodied PTG classes on the native device lane "
-             "(ptdev). Not ported yet (ROADMAP queue 1, item 3): 1 raises "
-             "NotImplementedError on a device pool of a CUDA context",
-             type=bool)
-
-#: where the parts of the reference's PTG lane that are not ported yet
-#: stand in ROADMAP.md
-_ROADMAP_ITEM = ("ROADMAP.md queue 1, item 3: the ptdev lane, the cost "
-                 "model and region fusion on the PTG lane")
+             "multi-chore classes) run the Python FSM", type=bool)
 
 #: lane-engagement accounting (the LaneStats snapshot()/delta() helpers,
 #: not raw key pokes). ``pools_fallback`` counts pools whose classes were
 #: ALL eligible yet the lane still declined (flatten refusal) — the silent
 #: perf regression no throughput number reliably catches on a noisy host.
 #: ``pools_ineligible`` counts pools declined by DESIGN (ineligible class
-#: features or pool-level gates: pins-paranoid/debug-paranoid/mca-off).
-#: ``pools_device_declined`` counts device-bodied pools on a context with a
-#: CUDA device: they run the interpreted FSM on the device module until
-#: the native device lane is ported
+#: features or pool-level gates: pins-paranoid/debug-paranoid/mca-off,
+#: ``--mca device_native 0`` under device classes). ``pools_device`` /
+#: ``tasks_device`` count pools bound to the device lane and their device
+#: tasks; ``fused_regions`` / ``fused_tasks`` / ``seam_tasks`` split a
+#: fused pool's tasks into those collapsed into regions and those the lane
+#: still handles per task
 PTEXEC_STATS = LaneStats(pools_engaged=0, tasks_engaged=0,
                          pools_fallback=0, pools_ineligible=0,
-                         pools_device_declined=0)
+                         pools_device=0, tasks_device=0,
+                         fused_regions=0, fused_tasks=0, seam_tasks=0)
 
 _ACCESS_MAP = {
     P.FLOW_READ: FLOW_ACCESS_READ,
@@ -154,6 +153,91 @@ def _index_expr(src: str):
     return _Expr(src)
 
 
+def _timed_region_program(fn, n_members: int):
+    """Wrap a region program so its FIRST call feeds the cost model's
+    ``__region_trace__`` pseudo-class (per-member cost by region-size
+    band). The wrapper, not the bare program, is what the program cache
+    stores: a warm cache hit reuses it with the first call already burned,
+    so only first calls are ever observed. Steady-state calls pay one
+    boolean check."""
+    state = [True]
+
+    def call(ev):
+        if state[0]:
+            state[0] = False
+            t0 = time.perf_counter_ns()
+            out = fn(ev)
+            _cm.model.note_region_trace("cpu", n_members,
+                                    time.perf_counter_ns() - t0)
+            return out
+        return fn(ev)
+    return call
+
+
+def _mk_region_program(rp: Dict[str, Any], fns, written_by_class):
+    """The fused super-task's body: ONE program replaying the region's
+    members in serialization order (topo order of the member subgraph — a
+    valid serialization, the DTD-capture soundness argument applied to a
+    PTG region). Internal dataflow rides a slot env; member memory WRITES
+    feed later members' memory READS of the same (collection, index)
+    through a mem env, matching the per-task path's release-edge ordering.
+    Returns (externally-consumed slot values, member write-back values in
+    emission order). Pure w.r.t. its inputs — safe to reuse across pool
+    instantiations."""
+    steps, out_slots = rp["steps"], rp["out_slots"]
+
+    def region_program(ext_vals):
+        env: Dict[int, Any] = {}
+        menv: Dict[Tuple, Any] = {}
+        wb_vals: List[Any] = []
+        for ci, key, srcs, base, nd, wbs in steps:
+            vals: List[Any] = []
+            for kk, v in srcs:
+                if kk == "int":
+                    vals.append(env[v])
+                elif kk == "ext":
+                    vals.append(ext_vals[v])
+                elif kk == "intm":
+                    vals.append(menv[v])
+                else:                      # "none": NEW/no input
+                    vals.append(None)
+            fn = fns[ci]
+            if fn is not None:
+                outs = fn(*key, *vals)
+                for oj, dj in enumerate(written_by_class[ci]):
+                    vals[dj] = outs[oj]
+            for dj in range(nd):
+                env[base + dj] = vals[dj]
+            for dj, mk in wbs:
+                menv[mk] = vals[dj]
+                wb_vals.append(vals[dj])
+        return (tuple(env[s] for s in out_slots), tuple(wb_vals))
+    return region_program
+
+
+def _on_host(fn):
+    """The CPU flavour of a device class on a card context: the body runs on
+    host copies of its tensor inputs, as the reference's CPU twin does. A
+    torch body runs where its inputs live, so without the copies it would
+    launch on the card from a worker thread, with no event and no stream
+    discipline."""
+    def host_fn(*args):
+        return fn(*[a.cpu() if isinstance(a, torch.Tensor) else a
+                    for a in args])
+    return host_fn
+
+
+def _write_back(data, v) -> None:
+    """A memory out-dep: ``v`` becomes the home copy's payload, one version
+    bump."""
+    host = data.get_copy(0)
+    if host is None:
+        data.create_copy(0, v, COHERENCY_OWNED)
+    else:
+        host.payload = v
+    data.bump_version(0)
+
+
 class PTGTaskpool(Taskpool):
     """A taskpool instantiated from a PTG program."""
 
@@ -207,8 +291,7 @@ class PTGTaskpool(Taskpool):
         if missing:
             output.fatal(f"PTG taskpool {self.name}: missing globals {missing}")
         #: native execution lane state (set by _startup when eligible) and
-        #: the decline reason ("ineligible" | "device" | "fallback" | None
-        #: = engaged)
+        #: the decline reason ("ineligible" | "fallback" | None = engaged)
         self._ptexec_state: Optional[Dict[str, Any]] = None
         self._ptexec_refusal: Optional[str] = None
         self._build()
@@ -1068,15 +1151,163 @@ class PTGTaskpool(Taskpool):
             }
         return flat
 
+    def _ptexec_pool_bucket(self) -> int:
+        """The pool's shape bucket: the log4 byte-size bucket of its
+        largest tile (TiledMatrix mb*nb*itemsize over the bound
+        collections). Pools whose tiles sit within 4x of each other — one
+        cost regime — share cost-model keys; collection-less pools key at
+        bucket 0."""
+        nbytes = 0
+        for dc in self.collections.values():
+            mb = getattr(dc, "mb", None)
+            nb = getattr(dc, "nb", None)
+            if not mb or not nb:
+                continue
+            dt = getattr(dc, "dtype", torch.float32)
+            item = dt.itemsize if isinstance(dt, torch.dtype) \
+                else np.dtype(dt).itemsize
+            nbytes = max(nbytes, int(mb) * int(nb) * item)
+        return _cm.shape_bucket(nbytes)
+
+    def _ptexec_seed_prior(self, tc: TaskClass, name: str,
+                           bucket: int) -> None:
+        """Fold a user ``time_estimate`` hook into the cost model as the
+        class's cold-start prior: call the hook once per device flavour with
+        a representative task (``make_task`` is side-effect free) and the
+        real device modules — the calling convention of the interpreted
+        best-device path — and install the answers (in seconds, like the
+        reference's ETA vtable) as priors. Measured costs override the
+        prior as soon as the key warms up."""
+        est = tc.time_estimate
+        if est is None:
+            return
+        try:
+            loc = next(iter(self._enum_class(tc)))
+        except StopIteration:
+            return
+        task = self.ctx.make_task(self, tc, loc)
+        cudas = self.ctx.devices.by_type(DEV_CUDA)
+        for dev_obj, key in ((self.ctx.devices.cpu, "cpu"),
+                             (cudas[0] if cudas else None, "cuda")):
+            if dev_obj is None:
+                continue
+            try:
+                eta = float(est(task, dev_obj))
+            except Exception:  # noqa: BLE001 — a hook error never ejects
+                continue       # the pool from the lane
+            _cm.model.seed_prior(name, bucket, key, eta * 1e9)
+
+    def _ptexec_place_classes(self, classes: List[TaskClass],
+                              dev_classes: List[bool],
+                              names: Tuple[str, ...],
+                              bucket: int) -> List[bool]:
+        """Consumer (a) of the online cost model: per-instantiation
+        best-device selection for the pool's CUDA-bodied classes (each has
+        a CPU twin of the same function — the placement is free to move
+        the whole class either way).
+
+        Decision ladder per class, most-informed first: both flavours
+        MEASURED → cheaper wins, with the device side carrying its measured
+        stage-in cost pro-rated by the observed stage-in/task ratio; one
+        flavour measured → explore the cold twin ONCE (the model cannot
+        compare costs it never collected); neither measured → compare the
+        user-hook priors when both were seeded, else the static
+        has-a-device-body heuristic. Runs at the instantiation boundary
+        only — its wall time lands in ``COSTMODEL_STATS["decision_ns"]``."""
+        if not (_cm.enabled() and mca.get("costmodel_placement", True)):
+            return list(dev_classes)
+        m = _cm.model
+        m.maybe_load()
+        t0 = time.perf_counter_ns()
+        stats = _cm.COSTMODEL_STATS
+        out: List[bool] = []
+        for ci, tc in enumerate(classes):
+            if not dev_classes[ci]:
+                out.append(False)
+                continue
+            name = names[ci]
+            self._ptexec_seed_prior(tc, name, bucket)
+            cpu_known = m.measured(name, bucket, "cpu")
+            dev_known = m.measured(name, bucket, "cuda")
+            if cpu_known and dev_known:
+                dev_ns = m.cost(name, bucket, "cuda")
+                st = m.cost(_cm.STAGE_IN, bucket, "cuda")
+                if st is not None:
+                    n_st = m.count(_cm.STAGE_IN, bucket, "cuda")
+                    n_dev = max(1, m.count(name, bucket, "cuda"))
+                    dev_ns += st * min(1.0, n_st / n_dev)
+                choice = dev_ns <= m.cost(name, bucket, "cpu")
+            elif dev_known:
+                choice = not m.begin_explore(name, bucket, "cpu")
+            elif cpu_known:
+                choice = m.begin_explore(name, bucket, "cuda")
+            else:
+                pc = m.cost(name, bucket, "cpu")
+                pd = m.cost(name, bucket, "cuda")
+                choice = (pd <= pc) if (pc is not None and pd is not None) \
+                    else True
+            out.append(choice)
+            stats["placements_adaptive"] += 1
+            if choice != dev_classes[ci]:
+                stats["placements_diverged"] += 1
+        stats["decisions"] += 1
+        stats["decision_ns"] += time.perf_counter_ns() - t0
+        return out
+
+    def _ptexec_cost_bind(self, lane: Dict[str, Any], graph, flat,
+                          names: Tuple[str, ...], bucket: int,
+                          plan=None, cold_regions=None) -> None:
+        """Attach the C-side cost rows: one row per (class, flavour),
+        node-mapped so run()'s batch-amortized exec bump lands each task's
+        share in the right accumulator. Unfused tasks row at their class
+        index ('cpu'); fused region nodes row at n_classes + first-member
+        class ('cpu_fused' — a multi-class region is attributed to its lead
+        class). Device-placed nodes never pass the C bump site (they
+        retire through the device lane, observed there): their rows stay
+        zero and the fold skips them. The row → key metadata rides the lane
+        dict to the fold (Context._cost_fold)."""
+        if not _cm.enabled():
+            return
+        ncls = len(names)
+        meta = [(names[ci], bucket, "cpu") for ci in range(ncls)] + \
+               [(names[ci], bucket, "cpu_fused") for ci in range(ncls)]
+        if plan is None:
+            cls_of = flat["data"]["cls_of"] if flat["data"] is not None \
+                else None
+            if cls_of is None:
+                rows = []
+                for ci, insts in enumerate(flat["params"]):
+                    rows.extend([ci] * len(insts))
+            else:
+                rows = list(cls_of)
+        else:
+            cls_of = flat["data"]["cls_of"]
+            rows = []
+            for nd in plan["node"]:
+                if nd[0] == "t":
+                    rows.append(cls_of[nd[1]])
+                elif cold_regions and nd[1] in cold_regions:
+                    # a COLD region (program-cache miss): its first
+                    # dispatch pays the program's first call, and the C
+                    # bump cannot split that one batch out — so the run
+                    # stays unobserved (-1). Only warm instantiations feed
+                    # the <cls>_fused EWMA; the first call itself is
+                    # measured by _timed_region_program
+                    rows.append(-1)
+                else:
+                    members = plan["regions"][nd[1]]["members"]
+                    rows.append(ncls + cls_of[members[0]])
+        graph.cost_bind(rows)
+        lane["cost_meta"] = meta
+
     def _ptexec_prepare(self, agg) -> Optional[Dict[str, Any]]:
         """Build (or fetch from the program cache) the native-lane state
         for this pool, or None → the Python FSM runs as before. The fall
         back is per-pool: one ineligible class keeps cross-class release
         edges in Python, so the whole pool stays there.
         ``self._ptexec_refusal`` records WHY a pool declined —
-        "ineligible" (by design: class features or pool-level gates),
-        "device" (device bodies on a context with a CUDA device) or
-        "fallback" (every class eligible, but the flatten refused) —
+        "ineligible" (by design: class features or pool-level gates) or
+        "fallback" (every class eligible, but the lane build refused) —
         feeding the PTEXEC_STATS split."""
         ctx = self.ctx
         self._ptexec_refusal = "ineligible"
@@ -1094,49 +1325,75 @@ class PTGTaskpool(Taskpool):
         for tc in classes:
             if not self._ptexec_class_eligible(tc):
                 return None
-        on_card = any(d.type & DEV_CUDA for d in ctx.devices.devices)
-        if any(self._ptexec_class_device(tc) for tc in classes) and on_card:
-            # device-bodied classes with a CUDA device registered: the
-            # reference surfaces them onto its native device lane; until
-            # that lane is ported they run the interpreted FSM on the
-            # device module, so the bodies still run on the card
-            if mca.get("device_native", False):
-                raise NotImplementedError(
-                    f"PTG taskpool {self.name}: --mca device_native 1 "
-                    f"(the native device lane) is not ported yet "
-                    f"({_ROADMAP_ITEM})")
-            self._ptexec_refusal = "device"
-            return None
-        # without a CUDA device the CPU twin of a device class runs through
-        # the ordinary lane dispatch — the chore the interpreted FSM's
-        # device selection would pick on that context
-        # region fusion of PTG data pools: only an explicit setting asks
-        # for it (the parameter's default serves the DTD capture window)
-        if not mca.is_default("region_fusion") \
-                and mca.get("region_fusion", True) and any(
-                    not (f.access & FLOW_ACCESS_CTL)
-                    for tc in classes for f in tc.flows):
-            raise NotImplementedError(
-                f"PTG taskpool {self.name}: --mca region_fusion 1 is not "
-                f"ported yet ({_ROADMAP_ITEM})")
+        dev_classes = [self._ptexec_class_device(tc) for tc in classes]
+        use_dev = False
+        if any(dev_classes) and ctx.devices.by_type(DEV_CUDA):
+            # device-bodied classes with a CUDA device registered: their
+            # tasks surface onto the native DEVICE lane (ptdev). Without
+            # one, the CPU twin of the same function runs through the
+            # ordinary lane dispatch — the chore the interpreted FSM's
+            # device selection would pick on that context
+            if not mca.get("device_native", True):
+                # --mca device_native 0 keeps the interpreted device
+                # module: ineligible by design
+                PTDEV_STATS["pools_ineligible"] += 1
+                return None
+            use_dev = True
         self._ptexec_refusal = "fallback"
         from ... import native as native_mod
         mod = native_mod.load_ptexec()
+        # consumer (a) of the online cost model: per-instantiation
+        # best-device selection. The static heuristic ("has a device body")
+        # is the cold-start answer; once both flavours are measured the
+        # cheaper one wins, and a pool whose device classes ALL measure
+        # cheaper on their CPU twins skips the device lane entirely.
+        # Cost-model keys are qualified by the PROGRAM name: two programs
+        # may both name a class "A" with unrelated bodies
+        bucket = self._ptexec_pool_bucket()
         names = tuple(f"{self.program.spec.name}.{tc._ptg_spec.name}"
                       for tc in classes)
-        # the placement fingerprint: the context's device and whether a
-        # CUDA device module is registered. The flattened tables do not
-        # depend on it today, but a card context's entry must never be
-        # replayed on a CPU one once device placement joins the plan
-        key = self._ptexec_cache_key(names, (str(ctx.device), on_card))
+        place_dev = list(dev_classes)
+        if use_dev:
+            place_dev = self._ptexec_place_classes(classes, dev_classes,
+                                                   names, bucket)
+            if not any(place_dev):
+                use_dev = False
+        devlane = None
+        if use_dev:
+            devlane = ctx._ptdev_lane()
+            if devlane is None:
+                # eligible, a CUDA device present, but no lane: the
+                # silent-regression signal
+                PTDEV_STATS["pools_fallback"] += 1
+                return None
+        # consumer (b): measured fusion limits (dsl/fusion.py). The decline
+        # set and the break-even cap shape the fusion plan, so they join
+        # the flatten cache key with the placement — a plan made for one
+        # context, placement or cost regime is never replayed under another
+        fus_declined, fus_min, fus_max = adaptive_fusion_limits(
+            [(names[ci], bucket,
+              "cuda" if (use_dev and place_dev[ci]) else "cpu")
+             for ci in range(len(classes))])
+        place = (str(ctx.device), bool(ctx.devices.by_type(DEV_CUDA)),
+                 use_dev, device_fingerprint(),
+                 bool(mca.get("region_fusion", True)), fus_min, fus_max,
+                 tuple(place_dev), tuple(sorted(fus_declined)))
+        key = self._ptexec_cache_key(names, place)
         cache = self.program.__dict__.setdefault("_ptexec_cache", {})
-        flat = cache.get(key) if key is not None else None
-        if flat is None:
+        ent = cache.get(key) if key is not None else None
+        if ent is None:
             flat = self._ptexec_flatten(classes)
             if flat is None:
                 return None
+            plan = None
+            if flat["n"] and flat["data"] is not None:
+                plan = self._ptexec_fuse_plan(
+                    flat, classes, place_dev, use_dev,
+                    (fus_declined, fus_min, fus_max))
+            ent = {"flat": flat, "fusion": plan}
             if key is not None:
-                cache[key] = flat
+                cache[key] = ent
+        flat = ent["flat"]
         self._ptexec_refusal = None
         if flat["n"] == 0:
             return {"n": 0}
@@ -1156,8 +1413,19 @@ class PTGTaskpool(Taskpool):
             if any(b is not None for b in bodies):
                 callback = self._mk_ptexec_callback(flat["bases"], bodies,
                                                     flat["params"])
-            return {"graph": graph, "callback": callback,
+            lane = {"graph": graph, "callback": callback,
                     "n": flat["n"], "finalized": False}
+            self._ptexec_cost_bind(lane, graph, flat, names, bucket)
+            return lane
+        # data-flow pool with a FUSION PLAN: capturable subgraphs collapse
+        # into fused super-tasks — one region program each, dispatched
+        # through the normal callback (CPU regions) or the device lane
+        # (device regions) — and the graph carries only regions + seams,
+        # weighted back to original tasks
+        if ent.get("fusion") is not None:
+            return self._ptexec_lane_fused(flat, ent["fusion"], classes,
+                                           mod, key, devlane, place_dev,
+                                           names, bucket)
         # data-flow pool: the graph additionally owns slot LIFETIMES (the
         # usagelmt/usagecnt retire protocol); Python owns slot VALUES —
         # one flat list the batched callback reads inputs from and lands
@@ -1168,36 +1436,306 @@ class PTGTaskpool(Taskpool):
                           flat["prio"], data["in_off"], data["in_slots"],
                           data["slot_uses"])
         slots: List[Any] = [None] * data["n_slots"]
-        mem_datas = []
-        for dc_name, idx in data["mem_reads"]:
-            dc = self.collections.get(dc_name)
-            if dc is None:
-                output.fatal(f"PTG taskpool {self.name}: unknown "
-                             f"collection {dc_name!r}")
-            mem_datas.append(dc.data_of(*idx))
-        writebacks: Dict[int, List] = {}
-        for tid, dj, dc_name, idx in data["writebacks"]:
-            dc = self.collections.get(dc_name)
-            if dc is None:
-                output.fatal(f"PTG taskpool {self.name}: unknown "
-                             f"collection {dc_name!r}")
-            writebacks.setdefault(tid, []).append((dj, dc.data_of(*idx)))
+        mem_datas = self._ptexec_mem_datas(data["mem_reads"])
+        writebacks = self._ptexec_writebacks(data["writebacks"])
         lane = {"graph": graph, "slots": slots,
                 "n": flat["n"], "finalized": False}
+        self._ptexec_cost_bind(lane, graph, flat, names, bucket)
         lane["callback"] = self._mk_ptexec_data_callback(
             flat, classes, slots, mem_datas, writebacks)
+        if use_dev:
+            # bind LAST: dev_bind surfaces zero-dep device seeds onto the
+            # lane at once, and the manager may dispatch them before this
+            # function returns — every closure it touches (slots,
+            # mem_datas, writebacks) exists by now
+            self._ptexec_bind_dev(lane, devlane, flat, classes, place_dev,
+                                  slots, mem_datas, writebacks, bucket)
         return lane
 
+    def _ptexec_mem_datas(self, mem_reads) -> List[Any]:
+        """The Data of each flattened (collection name, index) pair,
+        resolved against THIS instantiation's collections."""
+        out = []
+        for dc_name, idx in mem_reads:
+            dc = self.collections.get(dc_name)
+            if dc is None:
+                output.fatal(f"PTG taskpool {self.name}: unknown "
+                             f"collection {dc_name!r}")
+            out.append(dc.data_of(*idx))
+        return out
 
-    def _ptexec_class_fns(self, classes: List[TaskClass], data):
+    def _ptexec_writebacks(self, wbs) -> Dict[int, List]:
+        """task id -> [(data-flow position, Data)] of the flattened memory
+        write-backs, resolved against THIS instantiation's collections."""
+        datas = self._ptexec_mem_datas([(dcn, idx) for _t, _d, dcn, idx
+                                        in wbs])
+        out: Dict[int, List] = {}
+        for (tid, dj, _dcn, _idx), d in zip(wbs, datas):
+            out.setdefault(tid, []).append((dj, d))
+        return out
+
+    # ------------------------------------------------------- region fusion
+    def _ptexec_fuse_plan(self, flat, classes: List[TaskClass],
+                          dev_classes: List[bool],
+                          use_dev: bool,
+                          limits=None) -> Optional[Dict[str, Any]]:
+        """The fusion pass over the flattened CSR: identify capturable
+        subgraphs — same-device bodies that are plain functions of their
+        inputs (the class's single ``_ptg_body_fn``, or an empty forwarding
+        body) — and collapse each into ONE fused super-task node. Returns
+        the fused COMPACT graph (regions + seams; a fused node inherits the
+        union of its region's external in/out edges and in-slot lists, so
+        the C release walk and the slot-retire protocol cross the seam
+        correctly) plus per-region replay plans, or None when nothing is
+        worth fusing. Pure structure — no per-instantiation objects — so
+        the whole plan rides the flatten cache."""
+        if not mca.get("region_fusion", True):
+            return None
+        # measured fusion limits (dsl/fusion.py): the decline set un-fuses
+        # classes whose fused per-task cost measurably beats nothing; the
+        # cap is the measured break-even region size. Cold model → exactly
+        # the static knobs
+        if limits is None:
+            limits = (set(), int(mca.get("region_fusion_min", 2)),
+                      int(mca.get("region_fusion_max", 128)))
+        fus_declined, fus_min, fus_max = limits
+        data = flat["data"]
+        n = flat["n"]
+        cls_of = data["cls_of"]
+        ndflows = data["ndflows"]
+        # per-class capturability kind: None = seam (un-fusable)
+        kind_by_class: List[Optional[str]] = []
+        for ci, tc in enumerate(classes):
+            if ndflows[ci] == 0 or ci in fus_declined:
+                # CTL/flowless classes run raw Python bodies — seams;
+                # model-declined classes stay per-task by measurement
+                kind_by_class.append(None)
+                continue
+            empty = tc._ptg_spec.bodies[0].source.strip() in ("", "pass")
+            if not empty and getattr(tc, "_ptg_body_fn", None) is None:
+                kind_by_class.append(None)
+                continue
+            kind_by_class.append("dev" if (use_dev and dev_classes[ci])
+                                 else "cpu")
+        if not any(k is not None for k in kind_by_class):
+            return None
+        empty_body = [tc._ptg_spec.bodies[0].source.strip() in ("", "pass")
+                      for tc in classes]
+        slot_base, in_refs = data["slot_base"], data["in_refs"]
+        kind: List[Optional[str]] = []
+        for t in range(n):
+            ci = cls_of[t]
+            k = kind_by_class[ci]
+            if k is not None and empty_body[ci]:
+                # an empty (forwarding) body with a NEW/NULL or memory
+                # input can forward None — the per-task path's "A NULL is
+                # forwarded" source guard must keep firing at the producer,
+                # so such tasks stay seams (a fused region would swallow
+                # the None into its slot env)
+                b = slot_base[t]
+                for dj in range(ndflows[ci]):
+                    if in_refs[b + dj] < 0:
+                        k = None
+                        break
+            kind.append(k)
+        regions = partition_regions(
+            n, flat["off"], flat["succs"], kind, fus_min, fus_max)
+        if not regions:
+            return None
+        off, succs = flat["off"], flat["succs"]
+        in_off, in_slots = data["in_off"], data["in_slots"]
+        mem_reads = data["mem_reads"]
+        reg_of = [-1] * n
+        for ri, members in enumerate(regions):
+            for m in members:
+                reg_of[m] = ri
+        member_sets = [set(m) for m in regions]
+        task_of_slot = [0] * data["n_slots"]
+        for t in range(n):
+            b = slot_base[t]
+            for dj in range(ndflows[cls_of[t]]):
+                task_of_slot[b + dj] = t
+        # compact node list: seams/unfused keep their own node; each region
+        # becomes ONE node at its topo-first member's id position
+        rep_of = [m[0] for m in regions]
+        node: List[Tuple] = []
+        cid_of = [0] * n
+        rcid = [-1] * len(regions)
+        for i in range(n):
+            ri = reg_of[i]
+            if ri < 0:
+                cid_of[i] = len(node)
+                node.append(("t", i))
+            elif i == rep_of[ri]:
+                rcid[ri] = len(node)
+                node.append(("r", ri))
+        for i in range(n):
+            if reg_of[i] >= 0:
+                cid_of[i] = rcid[reg_of[i]]
+        nc = len(node)
+        # edges: internal (both ends one region) drop; the rest remap — a
+        # fused node thereby inherits the union of its region's external
+        # out-edges, and goals recount to external in-edges
+        edges2: List[List[int]] = [[] for _ in range(nc)]
+        for i in range(n):
+            src = cid_of[i]
+            ri = reg_of[i]
+            for k in range(off[i], off[i + 1]):
+                t = succs[k]
+                if ri >= 0 and reg_of[t] == ri:
+                    continue
+                edges2[src].append(cid_of[t])
+        goals2 = [0] * nc
+        for es in edges2:
+            for d in es:
+                goals2[d] += 1
+        off2 = [0] * (nc + 1)
+        succs2: List[int] = []
+        for i2, es in enumerate(edges2):
+            off2[i2 + 1] = off2[i2] + len(es)
+            succs2.extend(es)
+        prio = flat["prio"]
+        prio2 = None
+        if prio is not None:
+            prio2 = [prio[nd[1]] if nd[0] == "t"
+                     else max(prio[m] for m in regions[nd[1]])
+                     for nd in node]
+        # in-slot lists (the retire protocol): a fused node consumes the
+        # multiset of its members' EXTERNAL input slots — decrementing k
+        # uses at region retire matches the k per-member decrements the
+        # unfused walk would have done; internal consumption vanishes (the
+        # region reads those values from its own slot env)
+        in2: List[List[int]] = [[] for _ in range(nc)]
+        for i2, nd in enumerate(node):
+            if nd[0] == "t":
+                i = nd[1]
+                in2[i2] = list(in_slots[in_off[i]:in_off[i + 1]])
+            else:
+                mem = member_sets[nd[1]]
+                in2[i2] = [ref for m in regions[nd[1]]
+                           for ref in in_slots[in_off[m]:in_off[m + 1]]
+                           if task_of_slot[ref] not in mem]
+        in_off2 = [0] * (nc + 1)
+        in_slots2: List[int] = []
+        for i2, lst in enumerate(in2):
+            in_off2[i2 + 1] = in_off2[i2] + len(lst)
+            in_slots2.extend(lst)
+        slot_uses2 = [0] * data["n_slots"]
+        for ref in in_slots2:
+            slot_uses2[ref] += 1
+        # per-region replay plans: members in topo order (a valid
+        # serialization — topo order respects every internal edge), each
+        # flow input resolved statically to an internal value, an external
+        # slot, a memory read, or an earlier member's memory WRITE (the
+        # region-internal mem env — per-task dispatch would also order
+        # those through the release edges)
+        wb_by_task: Dict[int, List[Tuple]] = {}
+        for tid, dj, dcn, idx in data["writebacks"]:
+            wb_by_task.setdefault(tid, []).append((dj, dcn, idx))
+        bases = flat["bases"]
+        params_by_class = flat["params"]
+        rplans: List[Dict[str, Any]] = []
+        for ri, members in enumerate(regions):
+            ext: List[Tuple] = []
+            ext_ix: Dict[Tuple, int] = {}
+
+            def eix(e):
+                j = ext_ix.get(e)
+                if j is None:
+                    j = ext_ix[e] = len(ext)
+                    ext.append(e)
+                return j
+
+            steps: List[Tuple] = []
+            produced: set = set()
+            memw: set = set()
+            wb_keys: List[Tuple] = []
+            for m in members:
+                ci = cls_of[m]
+                b = slot_base[m]
+                nd_ = ndflows[ci]
+                srcs: List[Tuple] = []
+                for dj in range(nd_):
+                    r = in_refs[b + dj]
+                    if r == -1:
+                        srcs.append(("none", 0))
+                    elif r >= 0:
+                        srcs.append(("int", r) if r in produced
+                                    else ("ext", eix(("slot", r))))
+                    else:
+                        mi = -2 - r
+                        mk = mem_reads[mi]
+                        srcs.append(("intm", mk) if mk in memw
+                                    else ("ext", eix(("mem", mi))))
+                wbs = tuple((dj, (dcn, idx))
+                            for dj, dcn, idx in wb_by_task.get(m, ()))
+                steps.append((ci, tuple(params_by_class[ci][m - bases[ci]]),
+                              tuple(srcs), b, nd_, wbs))
+                for dj in range(nd_):
+                    produced.add(b + dj)
+                for dj, mk in wbs:
+                    memw.add(mk)
+                    wb_keys.append(mk)
+            outs = [slot_base[m] + dj for m in members
+                    for dj in range(ndflows[cls_of[m]])
+                    if slot_uses2[slot_base[m] + dj] > 0]
+            rplans.append({"members": list(members),
+                           "kind": kind[members[0]],
+                           "ext": ext,
+                           "ext_mems": [v for k2, v in ext if k2 == "mem"],
+                           "steps": steps, "wb_keys": wb_keys,
+                           "out_slots": outs})
+        dev_mask2 = None
+        ndev_tasks = 0
+        if use_dev:
+            dev_mask2 = []
+            for nd in node:
+                if nd[0] == "t":
+                    i = nd[1]
+                    d = 1 if (dev_classes[cls_of[i]]
+                              and ndflows[cls_of[i]] > 0) else 0
+                    dev_mask2.append(d)
+                    ndev_tasks += d
+                else:
+                    d = 1 if rplans[nd[1]]["kind"] == "dev" else 0
+                    dev_mask2.append(d)
+                    if d:
+                        ndev_tasks += len(regions[nd[1]])
+            if ndev_tasks == 0:
+                dev_mask2 = None
+        n_fused = sum(len(m) for m in regions)
+        return {"node": node, "goals": goals2, "off": off2,
+                "succs": succs2, "prio": prio2, "in_off": in_off2,
+                "in_slots": in_slots2, "slot_uses": slot_uses2,
+                "weights": [1 if nd[0] == "t" else len(regions[nd[1]])
+                            for nd in node],
+                "orig_of": [nd[1] if nd[0] == "t" else rep_of[nd[1]]
+                            for nd in node],
+                "rcid": rcid, "regions": rplans,
+                "writebacks": [w for w in data["writebacks"]
+                               if reg_of[w[0]] < 0],
+                "dev_mask": dev_mask2, "ndev_tasks": ndev_tasks,
+                "n_seam": n - n_fused, "n_fused": n_fused}
+
+    def _ptexec_class_fns(self, classes: List[TaskClass], data,
+                          host: bool = True):
         """Per-class (dispatch fn, written flow positions): the body
         function for data classes, the raw body for CTL classes, None for
-        empty bodies."""
+        empty bodies. One home — the batched data callback, the device
+        dispatch and the region programs must agree.
+
+        ``host`` (the CPU dispatch): on a card context the CPU flavour of a
+        device class runs on host copies of its inputs (:func:`_on_host`)."""
+        host_twin = host and self.ctx.device.type == "cuda"
         fns, written = [], []
         for ci, tc in enumerate(classes):
             empty = tc._ptg_spec.bodies[0].source.strip() in ("", "pass")
             if data["ndflows"][ci]:
-                fns.append(None if empty else tc._ptg_body_fn)
+                fn = None if empty else tc._ptg_body_fn
+                if fn is not None and host_twin \
+                        and self._ptexec_class_device(tc):
+                    fn = _on_host(fn)
+                fns.append(fn)
                 written.append(tuple(
                     dj for dj, fi in enumerate(data["dflow_idx"][ci])
                     if tc.flows[fi].access & FLOW_ACCESS_WRITE))
@@ -1206,6 +1744,442 @@ class PTGTaskpool(Taskpool):
                            else getattr(tc, "_ptg_raw_body", None))
                 written.append(())
         return fns, written
+
+    def _mk_region_runner(self, rp: Dict[str, Any], program,
+                          slots: List[Any], mem_datas, wb_datas):
+        """The fused super-task's dispatch wrapper (CPU regions, called
+        from the batched data callback): resolve the region's external
+        inputs (producer slots + memory reads at dispatch time — the same
+        prepare-at-ready timing as per-task dispatch), run the ONE region
+        program, land externally-consumed outputs back into their original
+        slot ids, and perform the members' memory write-backs in
+        serialization order (one version bump per member write, like the
+        per-task path)."""
+        ext, out_slots = rp["ext"], rp["out_slots"]
+
+        def run_region():
+            ev: List[Any] = []
+            for kk, v in ext:
+                if kk == "slot":
+                    ev.append(slots[v])
+                else:
+                    copy = mem_datas[v].newest_copy()
+                    ev.append(None if copy is None else copy.payload)
+            outs, wbs = program(tuple(ev))
+            for s, v in zip(out_slots, outs):
+                if v is None:
+                    raise RuntimeError(
+                        f"A NULL is forwarded from a fused region "
+                        f"(slot {s}, native lane)")
+                slots[s] = v
+            for dref, v in zip(wb_datas, wbs):
+                _write_back(dref, v)
+        return run_region
+
+    def _ptexec_lane_fused(self, flat, plan, classes: List[TaskClass],
+                           mod, ckey, devlane, place_dev: List[bool],
+                           names: Tuple[str, ...],
+                           bucket: int) -> Dict[str, Any]:
+        """Build the native-lane state for a pool with a fusion plan: the
+        compact graph (regions + seams) with original-task weights, per-
+        region programs out of the PERSISTENT program cache (program-
+        scoped, keyed by the placement-aware flatten key + region index — a
+        second instantiation of the same DAG shape reuses them), and the
+        region-aware dispatch callbacks.
+
+        A region program runs its members in serialization order, eagerly:
+        on the CPU in the batched callback, on the card on the device lane's
+        stream, one dispatch for the whole region."""
+        data = flat["data"]
+        graph = mod.Graph(plan["goals"], plan["off"], plan["succs"],
+                          plan["prio"], plan["in_off"], plan["in_slots"],
+                          plan["slot_uses"])
+        graph.region_bind(plan["weights"])
+        slots: List[Any] = [None] * data["n_slots"]
+        mem_datas = self._ptexec_mem_datas(data["mem_reads"])
+        writebacks = self._ptexec_writebacks(plan["writebacks"])
+        fns, written_by_class = self._ptexec_class_fns(classes, data)
+        dev_fns = self._ptexec_class_fns(classes, data, host=False)[0] \
+            if devlane is not None else None
+        cache = self.program.__dict__.setdefault(
+            "_region_prog_cache", ExecCache(128))
+        # every region of a pool stays cached: an LRU smaller than the
+        # regions one DAG dispatches would miss on every region of every
+        # DAG, and a missed region is cold, so its cost is never observed
+        cache.cap = max(cache.cap, len(plan["regions"]))
+
+        def build(rp, is_dev):
+            program = _mk_region_program(rp, dev_fns if is_dev else fns,
+                                         written_by_class)
+            return _timed_region_program(program, len(rp["members"]))
+        runners: Dict[int, Any] = {}
+        dev_regions: Dict[int, Dict[str, Any]] = {}
+        cold_regions: set = set()
+        for ri, rp in enumerate(plan["regions"]):
+            is_dev = rp["kind"] == "dev"
+            # the cached object is the TIMED wrapper: its first call feeds
+            # the __region_trace__ pseudo-class fusion sizing reads back; a
+            # cache HIT reuses the wrapper with the first call already
+            # burned, so warm replays never observe a phantom first call
+            program, hit = cache.get_or_build(
+                None if ckey is None else (ckey, ri),
+                lambda rp=rp, is_dev=is_dev: build(rp, is_dev))
+            if not hit:
+                cold_regions.add(ri)
+            wb_datas = self._ptexec_mem_datas(rp["wb_keys"])
+            cid = plan["rcid"][ri]
+            if is_dev:
+                dev_regions[cid] = {
+                    "ext": rp["ext"], "ext_mems": rp["ext_mems"],
+                    "out_slots": rp["out_slots"], "program": program,
+                    "wb_pairs": list(enumerate(wb_datas)),
+                    "ntasks": len(rp["members"]),
+                    "cls": data["cls_of"][rp["members"][0]],
+                    "cold": not hit}
+            else:
+                runners[cid] = self._mk_region_runner(
+                    rp, program, slots, mem_datas, wb_datas)
+        lane = {"graph": graph, "slots": slots, "n": flat["n"],
+                "finalized": False}
+        self._ptexec_cost_bind(lane, graph, flat, names, bucket, plan=plan,
+                               cold_regions=cold_regions)
+        lane["callback"] = self._mk_ptexec_data_callback(
+            flat, classes, slots, mem_datas, writebacks,
+            fusion={"orig_of": plan["orig_of"], "regions": runners},
+            class_fns=(fns, written_by_class))
+        PTEXEC_STATS["fused_regions"] += len(plan["regions"])
+        PTEXEC_STATS["fused_tasks"] += plan["n_fused"]
+        PTEXEC_STATS["seam_tasks"] += plan["n_seam"]
+        if devlane is not None and plan["dev_mask"] is not None:
+            self._ptexec_bind_dev_fused(lane, devlane, flat, plan,
+                                        classes, slots, mem_datas,
+                                        writebacks, dev_regions,
+                                        place_dev, bucket)
+        return lane
+
+    # ---------------------------------------------------------- device lane
+    def _ptexec_bind_dev_fused(self, lane: Dict[str, Any], devlane, flat,
+                               plan, classes: List[TaskClass],
+                               slots: List[Any], mem_datas,
+                               writebacks: Dict[int, List],
+                               dev_regions: Dict[int, Dict],
+                               place_dev: List[bool],
+                               bucket: int = 0) -> None:
+        """Device binding for a fused pool: same contract as
+        :meth:`_ptexec_bind_dev`, but the mask covers compact nodes and
+        device REGIONS dispatch as one region-sized program on the lane
+        (the retire capsule walks the fused node exactly like any device
+        task, weighted back to original tasks). ``place_dev`` is the cost
+        model's EFFECTIVE placement — the fusion plan's dev_mask was built
+        from the same list, and the two must agree."""
+        data = flat["data"]
+        dev_of_class = [place_dev[ci] and data["ndflows"][ci] > 0
+                        for ci in range(len(classes))]
+        graph = lane["graph"]
+        hooks = self._mk_ptexec_dev_dispatch(
+            flat, classes, dev_of_class, slots, mem_datas, writebacks,
+            devlane, graph, fusion={"orig_of": plan["orig_of"],
+                             "dev_regions": dev_regions},
+            cost_obs=self._ptexec_cost_obs(lane), bucket=bucket)
+        self._ptexec_dev_engage(lane, devlane, graph, hooks,
+                                plan["dev_mask"], plan["ndev_tasks"])
+
+    def _ptexec_cost_obs(self, lane: Dict[str, Any]):
+        """The device lane's observation dict: (class name, bucket, dev) ->
+        [count, sum_ns], written only by the lane's manager thread
+        (dispatch/poll run there — no lock needed) and folded into the cost
+        model when the lane graph finishes."""
+        if not _cm.enabled():
+            return None
+        return lane.setdefault("cost_dev", {})
+
+    def _ptexec_bind_dev(self, lane: Dict[str, Any], devlane, flat,
+                         classes: List[TaskClass], dev_classes: List[bool],
+                         slots: List[Any], mem_datas,
+                         writebacks: Dict[int, List],
+                         bucket: int = 0) -> None:
+        """Bind a flattened data graph to the native device lane: build the
+        per-pool dispatch/poll closures, register them with the lane (the
+        retire capsule routes completions back into the graph's GIL-free
+        release walk), and hand the graph the submit vtable + per-task
+        device mask — from then on a device-bodied task becoming ready
+        surfaces onto the lane's MPSC pending queue instead of the ready
+        structure."""
+        data = flat["data"]
+        # only data-carrying CUDA classes ride the device plane; a CTL-only
+        # [type=CUDA] class has no tensors to place and runs its raw body
+        # through the ordinary CPU dispatch
+        dev_of_class = [d and nd > 0
+                        for d, nd in zip(dev_classes, data["ndflows"])]
+        if not any(dev_of_class):
+            return
+        dev_mask: List[int] = []
+        for ci, insts in enumerate(flat["params"]):
+            dev_mask.extend([1 if dev_of_class[ci] else 0] * len(insts))
+        hooks = self._mk_ptexec_dev_dispatch(
+            flat, classes, dev_of_class, slots, mem_datas, writebacks,
+            devlane, lane["graph"], cost_obs=self._ptexec_cost_obs(lane),
+            bucket=bucket)
+        self._ptexec_dev_engage(lane, devlane, lane["graph"], hooks,
+                                dev_mask, sum(dev_mask))
+
+    def _ptexec_dev_engage(self, lane, devlane, graph, hooks,
+                           dev_mask, ndev: int) -> None:
+        """Register the pool's closures (dispatch, poll, observe) with the
+        lane and surface its device tasks there (``dev_bind``), counted in
+        the stats."""
+        pid = devlane.bind_pool(graph, *hooks)
+        lane["dev"] = devlane
+        lane["dev_pool"] = pid
+        PTDEV_STATS["pools_engaged"] += 1
+        PTDEV_STATS["tasks_engaged"] += ndev
+        PTEXEC_STATS["pools_device"] += 1
+        PTEXEC_STATS["tasks_device"] += ndev
+        graph.dev_bind(devlane.submit_capsule(), pid, dev_mask)
+        devlane.clane.notify()
+
+    def _mk_ptexec_dev_dispatch(self, flat, classes: List[TaskClass],
+                                dev_of_class: List[bool], slots: List[Any],
+                                mem_datas, writebacks: Dict[int, List],
+                                devlane, graph, fusion=None, cost_obs=None,
+                                bucket=0):
+        """The device lane's per-pool dispatch/poll pair, both run on the
+        lane's manager thread with the GIL held, on the lane's device and
+        stream (``NativeDeviceLane._dispatch``):
+
+        * ``dispatch(ids)`` — the push+exec phases of the reference's
+          stream pipeline (device_gpu.c:3438): FIRST every memory-endpoint
+          input of the whole batch stages in (version-checked through the
+          C coherency table, ``Tensor.to(non_blocking=True)`` on the device
+          module's stream, which the lane stream then waits for), THEN each
+          task's body launches (async) and its outputs land in the lane's
+          slot array at once — safe because no consumer can run before
+          this task RETIRES, which only happens after its batch's event
+          completed. A slot value a CPU-placed producer left on the host
+          is moved to the card first. ONE event is recorded on the lane
+          stream after the batch; each entry keeps its inputs referenced
+          until it retires, so no tensor a launch of the batch reads can
+          return to the caching allocator before that launch has run;
+        * ``poll()`` — the event queue: the batches retire in order (one
+          stream), each once its event's ``query()`` is True (the
+          cudaEventQuery of device_gpu.c:2593). Completed tasks perform
+          their memory write-backs + version bumps (each written tensor
+          handed off to the tiles' reader streams,
+          ``NativeDeviceLane.hand_off``), drop their stage-in
+          pins, and return their ids — the C side then calls the graph's
+          GIL-free ``dev_retire`` — with their (cost key, task weight)
+          pairs;
+        * ``observe(retired, per)`` (None with the cost model off) — the
+          lane's share of a retire sweep's window, ``per`` ns a task.
+        """
+        import collections as _collections
+        dev = devlane.device
+        on_card = devlane.on_card
+        tdev = dev.torch_device
+        bases = flat["bases"]
+        params_by_class = flat["params"]
+        data = flat["data"]
+        slot_base = data["slot_base"]
+        in_refs = data["in_refs"]
+        ndflows = data["ndflows"]
+        cls_of = data["cls_of"]
+        fns, written_by_class = [], []
+        for ci, tc in enumerate(classes):
+            empty = tc._ptg_spec.bodies[0].source.strip() in ("", "pass")
+            fns.append(None if empty or not dev_of_class[ci]
+                       else tc._ptg_body_fn)
+            written_by_class.append(tuple(
+                dj for dj, fi in enumerate(data["dflow_idx"][ci])
+                if tc.flows[fi].access & FLOW_ACCESS_WRITE))
+        #: dispatched batches in issue order: (event, [entry, ...])
+        inflight: "_collections.deque" = _collections.deque()
+        # device-side cost observation: the lane's retire sweeps split the
+        # wall window since the last sweep across the task weight they
+        # retire, over every pool of the lane
+        # (``NativeDeviceLane._poll``), i.e. the throughput a task actually
+        # gets on this path — what placement compares against the CPU
+        # lane's batch-amortized cost. Stage-ins time separately into the
+        # __stage_in__ pseudo-class. All writes happen on the manager
+        # thread; the fold reads after the graph is done
+        _pc = time.perf_counter_ns
+        if cost_obs is not None:
+            cnames = [f"{self.program.spec.name}.{tc._ptg_spec.name}"
+                      for tc in classes]
+            # the first pool on this lane that dispatches a class's tasks one
+            # by one is COLD for that class: its run pays the lane's one-off
+            # costs (the lane stream's allocator pool growing to the class's
+            # footprint, the manager thread's first library calls), which
+            # the fold would bill to the class as the card's cost — and
+            # placement, once it moves a class to its CPU twin, keeps it
+            # there. Its tasks stay unobserved, as a cold region's do.
+            # Decided at the class's first per-task dispatch in the pool
+            # (False: not yet)
+            dkeys: List[Any] = [False] * len(classes)
+
+            def _dkey(k):
+                key = (cnames[k], bucket, "cuda")
+                dkeys[k] = key if key in devlane.warm_keys else None
+                devlane.warm_keys.add(key)
+                return dkeys[k]
+
+            def _obs(key, w, ns):
+                e = cost_obs.get(key)
+                if e is None:
+                    cost_obs[key] = [w, ns]
+                else:
+                    e[0] += w
+                    e[1] += ns
+
+            def _stage(mi):
+                t0 = _pc()
+                copy = dev.lane_stage_in(mem_datas[mi], pin=True)
+                nb = getattr(getattr(copy, "payload", None), "nbytes", 0)
+                _obs((_cm.STAGE_IN, _cm.shape_bucket(nb), "cuda"), 1,
+                     _pc() - t0)
+                return copy
+        else:
+            _obs = None
+
+            def _stage(mi):
+                return dev.lane_stage_in(mem_datas[mi], pin=True)
+        if fusion is not None:
+            # fused pool: a device REGION dispatches as one region-sized
+            # program; its inflight/retire id is the COMPACT node id (what
+            # the C release walk expects), while slot/param arrays index by
+            # original id via orig_of
+            _forig = fusion["orig_of"]
+            _dregs = fusion["dev_regions"]
+        else:
+            _forig = _dregs = None
+
+        def _card(v):
+            # a slot value a CPU-placed producer left on the host
+            if on_card and v is not None and not getattr(v, "is_cuda", True):
+                return v.to(tdev, non_blocking=True)
+            return v
+
+        take_retired = graph.take_retired
+
+        def dispatch(ids):
+            # slots whose every consumer has retired: drop their payloads
+            # (the batched CPU callback is handed them the same way)
+            for j in take_retired():
+                slots[j] = None
+            # PUSH phase: every memory-endpoint stage-in of the whole batch
+            # before any launch. Each staged copy is pinned THE MOMENT it
+            # stages: under a tight budget, staging tile k+1 of this very
+            # batch could otherwise evict tile k before the exec phase
+            # reads it. Batch pins release after the exec phase has taken
+            # its per-task pins
+            staged: Dict[int, Any] = {}
+            batch_pins: List[Any] = []
+            for i in ids:
+                if _dregs is not None:
+                    r = _dregs.get(i)
+                    if r is not None:
+                        for mi in r["ext_mems"]:
+                            if mi not in staged:
+                                copy = _stage(mi)
+                                batch_pins.append(copy)
+                                staged[mi] = copy
+                        continue
+                    i = _forig[i]
+                base = slot_base[i]
+                for dj in range(ndflows[cls_of[i]]):
+                    r = in_refs[base + dj]
+                    if r < -1 and (-2 - r) not in staged:
+                        copy = _stage(-2 - r)
+                        batch_pins.append(copy)
+                        staged[-2 - r] = copy
+            if staged:
+                devlane.after_push()
+            # EXEC phase: launch each ready device task asynchronously
+            ents: List[Tuple] = []
+            for i in ids:
+                oi = i
+                if _dregs is not None:
+                    r = _dregs.get(i)
+                    if r is not None:
+                        # region-sized dispatch: ONE program for the whole
+                        # fused region; the retire id stays the compact id
+                        pins: List[Any] = []
+                        ev: List[Any] = []
+                        for kk, v in r["ext"]:
+                            if kk == "slot":
+                                ev.append(_card(slots[v]))
+                            else:
+                                copy = staged[v]
+                                dev.pin_copy(copy)
+                                pins.append(copy)
+                                ev.append(copy.payload)
+                        outs, wbs_v = r["program"](tuple(ev))
+                        for s, v in zip(r["out_slots"], outs):
+                            slots[s] = v
+                        ents.append((
+                            i, r["wb_pairs"], list(wbs_v), pins,
+                            r["ntasks"],
+                            None if (_obs is None or r["cold"]) else
+                            (cnames[r["cls"]], bucket, "cuda_fused"), ev))
+                        continue
+                    oi = _forig[i]
+                k = cls_of[oi]
+                base = slot_base[oi]
+                nd = ndflows[k]
+                vals: List[Any] = []
+                pins = []
+                for dj in range(nd):
+                    r = in_refs[base + dj]
+                    if r >= 0:
+                        vals.append(_card(slots[r]))
+                    elif r == -1:
+                        vals.append(None)
+                    else:
+                        copy = staged[-2 - r]
+                        dev.pin_copy(copy)     # readers guard while inflight
+                        pins.append(copy)
+                        vals.append(copy.payload)
+                ins = tuple(vals)
+                fn = fns[k]
+                if fn is not None:
+                    outs = fn(*params_by_class[k][oi - bases[k]], *vals)
+                    for oj, dj in enumerate(written_by_class[k]):
+                        vals[dj] = outs[oj]
+                for dj in range(nd):
+                    slots[base + dj] = vals[dj]
+                ents.append((i, writebacks.get(oi), vals, pins, 1,
+                             None if _obs is None else
+                             _dkey(k) if dkeys[k] is False else dkeys[k],
+                             ins))
+            inflight.append((devlane.batch_event(), ents))
+            for copy in batch_pins:         # per-task pins hold from here
+                dev.unpin_copy(copy)
+            return len(ids)
+
+        def poll():
+            done: List[int] = []
+            retired: List[Tuple] = []
+            while inflight and inflight[0][0].query():
+                for i, wbs, vals, pins, w, ckey2, _ins in \
+                        inflight.popleft()[1]:
+                    if wbs:
+                        for dj, dref in wbs:
+                            devlane.hand_off(vals[dj])
+                            _write_back(dref, vals[dj])
+                    for copy in pins:
+                        dev.unpin_copy(copy)
+                    dev.executed_tasks += w
+                    retired.append((ckey2, w))
+                    done.append(i)
+            return done, retired
+
+        def observe(retired, per):
+            # the task weights of one retire sweep, ``per`` ns each; keyless
+            # entries (cold regions and classes) stay unobserved
+            for ckey2, w in retired:
+                if ckey2 is not None:
+                    _obs(ckey2, w, per * w)
+
+        return dispatch, poll, (None if _obs is None else observe)
 
     def _mk_ptexec_callback(self, bases: List[int], bodies,
                             params_by_class):
@@ -1223,7 +2197,8 @@ class PTGTaskpool(Taskpool):
 
     def _mk_ptexec_data_callback(self, flat, classes: List[TaskClass],
                                  slots: List[Any], mem_datas,
-                                 writebacks: Dict[int, List]):
+                                 writebacks: Dict[int, List], fusion=None,
+                                 class_fns=None):
         """Batched dispatch for data-flow pools — the lane's replacement
         for generic_prepare_input + the body hook + complete_execution +
         the repo side of generic_release_deps, amortized over one Python
@@ -1245,7 +2220,11 @@ class PTGTaskpool(Taskpool):
 
         Payloads stay what the bodies made them: a tensor on the card is
         held in its slot and handed to the next body as it is, never moved
-        through numpy.
+        through numpy (the CPU flavour of a device class on a card context
+        runs on host copies, :func:`_on_host`).
+
+        With ``fusion`` set, region nodes dispatch through their runners
+        and every other compact id maps back to its original task id.
         """
         bases = flat["bases"]
         params_by_class = flat["params"]
@@ -1255,7 +2234,14 @@ class PTGTaskpool(Taskpool):
         slot_uses = data["slot_uses"]
         ndflows = data["ndflows"]
         cls_of = data["cls_of"]
-        fns, written_by_class = self._ptexec_class_fns(classes, data)
+        # fused pools pass the SAME (fns, written) pair their region
+        # programs were built against — one object, not two derivations
+        fns, written_by_class = class_fns if class_fns is not None \
+            else self._ptexec_class_fns(classes, data)
+        if fusion is not None:
+            _forig, _fregions = fusion["orig_of"], fusion["regions"]
+        else:
+            _forig = _fregions = None
         # single-data-flow classes whose flow is WRITTEN are the hot shape
         # (RW chains); the dispatch loop specializes them. A READ-only
         # single flow must take the general path: its body returns an
@@ -1275,6 +2261,12 @@ class PTGTaskpool(Taskpool):
             for j in retired:
                 _slots[j] = None          # the entry-retire moment
             for i in ids:
+                if _forig is not None:
+                    rr = _fregions.get(i)
+                    if rr is not None:
+                        rr()              # ONE fused super-task dispatch
+                        continue
+                    i = _forig[i]
                 k = _cls[i]
                 fn = fns[k]
                 nd = ndflows[k]
@@ -1326,13 +2318,7 @@ class PTGTaskpool(Taskpool):
                     if wbs is None:
                         continue
                 for dj, dref in wbs:
-                    v = vals[dj]
-                    host = dref.get_copy(0)
-                    if host is None:
-                        dref.create_copy(0, v, COHERENCY_OWNED)
-                    else:
-                        host.payload = v
-                    dref.bump_version(0)
+                    _write_back(dref, vals[dj])
         return run_batch
 
     def _ptexec_finalize(self, lane: Dict[str, Any]) -> None:
@@ -1345,6 +2331,10 @@ class PTGTaskpool(Taskpool):
         output.debug_verbose(2, "ptg",
                              f"{self.name}: native lane retired "
                              f"{lane['n']} tasks")
+        if lane.get("dev_pool") is not None:
+            # every device task retired (the graph is done), so the lane
+            # owes this pool nothing; drop the routing + the engine pin
+            lane["dev"].unbind_pool(lane["dev_pool"])
         slots = lane.get("slots")
         if slots:
             slots.clear()
@@ -1375,9 +2365,8 @@ class PTGTaskpool(Taskpool):
                                  f"native execution lane")
             return []
         if nonagg and mca.get("ptg_native_exec", True):
-            PTEXEC_STATS[{"fallback": "pools_fallback",
-                          "device": "pools_device_declined"}.get(
-                              self._ptexec_refusal, "pools_ineligible")] += 1
+            PTEXEC_STATS["pools_fallback" if self._ptexec_refusal ==
+                         "fallback" else "pools_ineligible"] += 1
         for tcs in self.program.spec.task_classes:
             if tcs.name in agg:
                 continue        # executed above, never scheduled/counted

@@ -1,6 +1,7 @@
-"""The native host lanes: the DTD engine, the PTG execution lane and the
-scheduler plane as CPython extensions built from the package's own C++
-(``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``, ``csrc/ptsched.cpp``), and the
+"""The native host lanes: the DTD engine, the PTG execution lane, the
+scheduler plane and the device lane as CPython extensions built from the
+package's own C++ (``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``,
+``csrc/ptsched.cpp``, ``csrc/ptdev.cpp``), and the
 native core (``csrc/ptcore.cpp``: the dependency table) as a plain C library
 bound with ctypes.
 
@@ -175,6 +176,15 @@ def load_ptexec():
     successor table, with the GIL dropped across the walk; None when
     ``--mca native_enabled 0``."""
     return _load("ptexec")
+
+
+def load_ptdev():
+    """The device lane (``csrc/ptdev.cpp``): the per-device ``Lane`` (a
+    lock-free pending queue fed by the engines, one manager thread that
+    dispatches and polls through Python callbacks under the GIL, and the
+    GIL-free retire into the engines) and the ``CohTable`` (the coherency
+    and residency table); None when ``--mca native_enabled 0``."""
+    return _load("ptdev")
 
 
 _core = None

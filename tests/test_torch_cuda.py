@@ -33,6 +33,17 @@ from parsec_tpu_torch.utils import mca
 pytestmark = pytest.mark.cuda
 
 
+@pytest.fixture(autouse=True)
+def _fresh_cost_model():
+    """The port's online cost model is process-global by design; every test
+    here starts from a cold one, so no test's measurements steer another's
+    placement or fusion."""
+    from parsec_tpu_torch.core import costmodel
+    costmodel.model.reset()
+    yield
+    costmodel.model.reset()
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
@@ -1200,16 +1211,19 @@ def _ptg_gemm(ctx, a, b, c, ts):
 def test_ptg_cuda_gemm_matches_the_cpu_context(gctx):
     """The PTG GEMM with a ``[type=CUDA]`` body on the card equals the same
     program on a CPU context (3 x 3 x 3 tiles of 64^2, f32, TF32 off):
-    max err / max|ref| < 1e-5, every task on the CUDA device module, the
-    pool's lane decline counted."""
+    max err / max|ref| < 1e-5, every task on the card through the native
+    device lane (its k-chains fused into device regions)."""
+    from parsec_tpu_torch.device.native import PTDEV_STATS
     from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS
     assert not torch.backends.cuda.matmul.allow_tf32
     rng = np.random.default_rng(11)
     a, b, c = (rng.standard_normal((192, 192)).astype(np.float32)
                for _ in range(3))
-    s0 = PTEXEC_STATS.snapshot()
+    s0, d0 = PTEXEC_STATS.snapshot(), PTDEV_STATS.snapshot()
     got = _ptg_gemm(gctx, a, b, c, 64)
-    assert PTEXEC_STATS.delta(s0)["pools_device_declined"] == 1
+    d, dd = PTEXEC_STATS.delta(s0), PTDEV_STATS.delta(d0)
+    assert d["pools_device"] == 1 and d["fused_regions"] == 9
+    assert dd["pools_engaged"] == 1 and dd["tasks_engaged"] == 27
     assert _dev(gctx).executed_tasks == 27
     cctx = Context(nb_cores=1, device="cpu")
     try:
@@ -1239,10 +1253,10 @@ def test_ptg_ctl_chain_engages_the_lane_on_the_card(gctx):
     assert tp._ptexec_state["graph"].done()
 
 
-def test_ptg_device_pool_counts_its_decline_on_the_card(gctx):
-    """A device-bodied data pool on a card context declines the lane under
-    its own reason, runs its bodies on the card, and its result is the
-    plain chain's."""
+def test_ptg_device_pool_runs_on_the_lane_on_the_card(gctx):
+    """A device-bodied data pool on a card context no longer declines: it
+    runs on the native device lane (counted in ``pools_device``), its bodies
+    on the card, and its result is the plain chain's."""
     from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
     src = ("%global NT\n%global descA\n"
            "T(k)\n  k = 0 .. NT-1\n"
@@ -1257,7 +1271,294 @@ def test_ptg_device_pool_counts_its_decline_on_the_card(gctx):
     gctx.add_taskpool(tp)
     gctx.wait(timeout=60)
     d = PTEXEC_STATS.delta(s0)
-    assert d["pools_device_declined"] == 1 and d["pools_engaged"] == 0
+    assert d["pools_device"] == 1 and d["pools_engaged"] == 1
     assert _dev(gctx).executed_tasks == 6
     out = A.data_of(0, 0).newest_copy().payload
     assert out.is_cuda and torch.equal(out.cpu(), torch.full((4, 4), 64.0))
+
+
+# ---------------------------------------------- the native device lane
+
+_SLOW_DEV_SRC = """
+%global NT
+%global CYCLES
+%global descA
+
+T(i)
+  i = 0 .. NT-1
+  : descA(0, i)
+  RW X <- descA(0, i)
+       -> descA(0, i)
+BODY [type=CUDA]
+  torch.cuda._sleep(CYCLES)
+  X = X * 2.0 + 1.0
+END
+"""
+
+
+def _slow_pool(ctx, A, nt, cycles=200_000_000):
+    """A ``[type=CUDA]`` pool whose bodies each spin the card for
+    ``cycles`` clock cycles (about 0.1 s) before they write X * 2 + 1."""
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    tp = compile_ptg(_SLOW_DEV_SRC, "slow-dev").instantiate(
+        ctx, globals={"NT": nt, "CYCLES": cycles}, collections={"descA": A})
+    ctx.add_taskpool(tp)
+    return tp
+
+
+def test_ptg_cuda_pool_engages_ptdev_on_the_card(gctx):
+    """A ``[type=CUDA]`` PTG pool on a card context engages the native
+    device lane: ``PTDEV_STATS`` counts it engaged (nothing ineligible or
+    fallen back), the graph's ``dev_stats()["dev_done"]`` equals the task
+    count, the lane's callbacks raised nothing, and the chain's tile is
+    exact (powers of two)."""
+    from parsec_tpu_torch.device.native import PTDEV_STATS
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    src = ("%global NT\n%global descA\n"
+           "T(k)\n  k = 0 .. NT-1\n"
+           "  RW X <- (k == 0) ? descA(0, 0) : X T(k-1)\n"
+           "       -> (k < NT-1) ? X T(k+1) : descA(0, 0)\n"
+           "BODY [type=CUDA]\n  X = X * 2.0\nEND\n")
+    for fusion in (True, False):
+        mca.set("region_fusion", fusion)
+        try:
+            A = TiledMatrix("A", 64, 64, 64, 64, device="cuda")
+            A.fill(lambda m, n: np.ones((64, 64), np.float32))
+            d0 = PTDEV_STATS.snapshot()
+            tp = compile_ptg(src, "engage").instantiate(
+                gctx, globals={"NT": 12}, collections={"descA": A})
+            gctx.add_taskpool(tp)
+            gctx.wait(timeout=60)
+        finally:
+            mca.params.unset("region_fusion")
+        dd = PTDEV_STATS.delta(d0)
+        assert dd["pools_engaged"] == 1 and dd["tasks_engaged"] == 12
+        assert dd["pools_fallback"] == 0 and dd["pools_ineligible"] == 0
+        gs = tp._ptexec_state["graph"].dev_stats()
+        assert gs["dev_done"] == 12 and gs["dev_bad"] == 0, gs
+        assert gctx._ptdev.clane.stats()["cb_errors"] == 0
+        out = A.data_of(0, 0).newest_copy().payload
+        assert out.is_cuda and torch.equal(
+            out.cpu(), torch.full((64, 64), 4096.0))
+
+
+def test_ptdev_device_regions_run_the_fused_gemm(gctx):
+    """Device regions run their members eagerly on the lane: the first pool
+    of a program builds one region program a region (program-cache misses),
+    the second pool of the same shape reuses them (hits), and neither holds
+    card memory between calls (``program_bytes`` stays put). Both pools' C
+    equal the per-task lane's bit for bit (the same cuBLAS calls in the same
+    order), and C is within 1e-5 of ``torch.matmul`` relative to max|ref|
+    (f32, TF32 off). The cost model places every pool on the card: a
+    class's first per-task pool on the lane is cold and stays unobserved."""
+    from parsec_tpu_torch.dsl.fusion import CAPTURE_CACHE_STATS
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    assert not torch.backends.cuda.matmul.allow_tf32
+    n, ts = 256, 64
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    a = torch.randn(n, n, device="cuda", generator=gen)
+    b = torch.randn(n, n, device="cuda", generator=gen)
+    prog = compile_ptg(_PTG_GEMM_SRC, "region-gemm")
+    dev = _dev(gctx)
+
+    def run(fusion):
+        mca.set("region_fusion", fusion)
+        try:
+            mats = {}
+            for name, dense in (("descA", a), ("descB", b),
+                                ("descC", torch.zeros_like(a))):
+                M = TiledMatrix(name, n, n, ts, ts, device="cuda")
+                M.fill(lambda m, k, d=dense: d[m*ts:(m+1)*ts, k*ts:(k+1)*ts])
+                mats[name] = M
+            s0 = CAPTURE_CACHE_STATS.snapshot()
+            p0 = PTEXEC_STATS.snapshot()
+            e0 = dev.executed_tasks
+            tp = prog.instantiate(gctx, globals={"MT": 4, "NT": 4, "KT": 4},
+                                  collections=mats)
+            gctx.add_taskpool(tp)
+            gctx.wait(timeout=120)
+        finally:
+            mca.params.unset("region_fusion")
+        assert dev.executed_tasks - e0 == 64     # every task on the card
+        C = mats["descC"]
+        got = torch.cat([torch.cat([C.data_of(m, k).newest_copy().payload
+                                    for k in range(4)], 1) for m in range(4)])
+        return (got, CAPTURE_CACHE_STATS.delta(s0),
+                PTEXEC_STATS.delta(p0)["fused_regions"])
+
+    per_task, _c, regions = run(False)
+    assert regions == 0
+    held0 = dev.program_bytes
+    first, c1, r1 = run(True)
+    second, c2, r2 = run(True)
+    assert r1 == r2 == 16
+    assert c1["cache_misses"] == 16 and c2["cache_hits"] == 16
+    assert dev.program_bytes == held0
+    ref = torch.matmul(a, b)
+    for got in (first, second):
+        assert torch.equal(got, per_task)
+        assert (got - ref).abs().max() / ref.abs().max() < 1e-5
+
+
+def _dtd_reads_at_once(ctx, nt, seed):
+    """A slow ptdev pool writes ``nt`` card tiles (X * 2 + 1 after about
+    0.1 s of spinning on the card a task); the moment it is done, a DTD
+    pool on the interpreted device module (its own stream) adds 1 to each.
+    Returns (the tiles, the expected values)."""
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((nt, 256, 256)).astype(np.float32)
+    A = TiledMatrix("A", 256, 256 * nt, 256, 256, device="cuda")
+    A.fill(lambda m, n: x0[n])
+    _slow_pool(ctx, A, nt)
+    ctx.wait(timeout=120)
+    tp = DTDTaskpool(ctx, "reader")
+    for i in range(nt):
+        tp.insert_task(lambda x: x + 1.0, (tp.tile_of(A, 0, i), RW))
+    _drain(ctx, tp)
+    got = np.stack([A.data_of(0, i).newest_copy().payload.cpu().numpy()
+                    for i in range(nt)])
+    return got, x0 * 2.0 + 1.0 + 1.0
+
+
+def test_dtd_pool_reads_ptdev_written_tiles_at_once(gctx, monkeypatch):
+    """A DTD pool on the interpreted device module reads, at once, tiles a
+    ptdev pool wrote, and gets the right values (exact: one rounding each
+    side of the same f32 ops): a ptdev task retires only once its batch's
+    event on the lane stream has completed. With that ordering taken out
+    (the batch event replaced by one that reports completion at once), the
+    DTD tasks read the tiles before the lane's kernels wrote them, and the
+    same check fails."""
+    from parsec_tpu_torch.device import native as DN
+    got, want = _dtd_reads_at_once(gctx, 4, seed=1)
+    np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(DN.NativeDeviceLane, "batch_event",
+                        lambda self: DN._DONE)
+    got, want = _dtd_reads_at_once(gctx, 4, seed=2)
+    assert not np.array_equal(got, want), \
+        "without the retire's event the reader still saw finished tiles"
+
+
+def test_ptdev_lane_orders_after_the_default_stream(gctx):
+    """A tile a user wrote on the default stream (behind about 0.1 s of
+    spinning) and handed to a ptdev pool at once is read finished: the
+    pool's first dispatch waits on an event recorded, when the pool was
+    added, on the adding thread's current stream (the default one here)."""
+    A = TiledMatrix("A", 256, 256, 256, 256, device="cuda")
+    A.fill(lambda m, n: np.zeros((256, 256), np.float32))
+    tile = A.data_of(0, 0).newest_copy().payload
+    torch.cuda._sleep(200_000_000)
+    tile.fill_(3.0)                       # queued behind the spin
+    _slow_pool(gctx, A, 1, cycles=1)
+    gctx.wait(timeout=60)
+    out = A.data_of(0, 0).newest_copy().payload
+    assert torch.equal(out.cpu(), torch.full((256, 256), 7.0))
+
+
+def _freed_under_a_reader(ctx, seed):
+    """A ptdev pool writes W into a tile (2048^2 f32, 16 MiB: a block of its
+    own in the caching allocator, whose free cache is emptied first).
+    Readers of W are queued on the default stream and on the device
+    module's stream, each behind about 1 s of spinning, and W is freed at
+    once (the tile refilled). Then two tensors of W's size are allocated on
+    the lane's stream, as the lane's next launches would, and filled with
+    -1 there at once. Returns (what the two readers read, W's values,
+    whether one of the two took W's block)."""
+    import gc
+    import weakref
+    ts = 2048
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(seed)
+    x0 = rng.standard_normal((ts, ts)).astype(np.float32)
+    A = TiledMatrix("A", ts, ts, ts, ts, device="cuda")
+    A.fill(lambda m, n: x0)
+    z = torch.zeros(ts, ts, device="cuda")
+    _slow_pool(ctx, A, 1, cycles=1)
+    ctx.wait(timeout=60)
+    lane, dev = ctx._ptdev, _dev(ctx)
+    w = A.data_of(0, 0).newest_copy().payload
+    w_ptr = w.data_ptr()
+    torch.cuda.synchronize()
+    reads = []
+    for s in (torch.cuda.current_stream(), dev.stream):
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(2_000_000_000)   # the reader's stream busy
+            reads.append(w * 1.0)              # W's reader, queued behind
+    A.fill(lambda m, n: z)                     # W freed: no copy, no wait
+    gone = weakref.ref(w)
+    del w
+    gc.collect()
+    assert gone() is None, "the test needs W freed here"
+    with torch.cuda.stream(lane.stream):
+        fresh = [torch.full((ts, ts), -1.0, device="cuda") for _ in range(2)]
+    reused = w_ptr in {t.data_ptr() for t in fresh}
+    torch.cuda.synchronize()
+    return [r.cpu().numpy() for r in reads], x0 * 2.0 + 1.0, reused
+
+
+def test_ptdev_written_tile_freed_under_a_pending_reader(gctx, monkeypatch):
+    """A tile a ptdev pool wrote back, freed while readers of it are still
+    queued on the default stream and on the device module's stream, keeps
+    its block until they have run: the lane marked it used on both streams
+    when it wrote it back (``NativeDeviceLane.hand_off``). Allocations on
+    the lane's stream right after the free do not get its block, and both
+    readers get W's values exactly. With the hand-off taken out, one of
+    them takes the block, the -1 written into it lands before the readers
+    run, and both read it."""
+    from parsec_tpu_torch.device import native as DN
+    reads, want, reused = _freed_under_a_reader(gctx, seed=3)
+    assert not reused
+    for got in reads:
+        np.testing.assert_array_equal(got, want)
+    monkeypatch.setattr(DN.NativeDeviceLane, "hand_off",
+                        lambda self, t: None)
+    reads, want, reused = _freed_under_a_reader(gctx, seed=4)
+    assert reused, "without the hand-off the freed block was not reused"
+    for got in reads:
+        assert not np.array_equal(got, want)
+
+
+def test_ptdev_body_error_surfaces_as_the_pool_error(gctx):
+    """A body that raises on the lane's manager thread poisons the pool and
+    surfaces from ``wait()`` as the pool's error."""
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    src = ("%global NT\n%global descA\n"
+           "T(k)\n  k = 0 .. NT-1\n"
+           "  RW X <- (k == 0) ? descA(0, 0) : X T(k-1)\n"
+           "       -> (k < NT-1) ? X T(k+1) : descA(0, 0)\n"
+           "BODY [type=CUDA]\n  X = X * bad_name\nEND\n")
+    A = TiledMatrix("A", 8, 8, 8, 8, device="cuda")
+    A.fill(lambda m, n: np.ones((8, 8), np.float32))
+    tp = compile_ptg(src, "dev-err").instantiate(
+        gctx, globals={"NT": 4}, collections={"descA": A})
+    gctx.add_taskpool(tp)
+    with pytest.raises(RuntimeError,
+                       match="native device lane callback failed"):
+        gctx.wait(timeout=60)
+    assert "bad_name" in gctx._ptdev.failed()
+
+
+def test_fini_with_ptdev_work_in_flight_stops_the_manager():
+    """``ctx.fini()`` called while ptdev work is in flight (a short
+    ``wait`` returned before it finished) returns, and stops the lane's
+    manager thread: a submit after it is counted late, never dispatched.
+    The pool's tiles are finished."""
+    _need_card()
+    ctx = Context(nb_cores=1)
+    A = TiledMatrix("A", 64, 64 * 4, 64, 64, device="cuda")
+    A.fill(lambda m, n: np.full((64, 64), float(n), np.float32))
+    _slow_pool(ctx, A, 4)
+    ctx.wait(timeout=0.05)                 # returns with work in flight
+    lane = ctx._ptdev
+    assert lane.clane.stats()["submitted"] >= 1
+    ctx.fini()
+    assert ctx._ptdev is False and not lane._up
+    s0 = lane.clane.stats()
+    lane.clane.submit(1, 0)
+    s1 = lane.clane.stats()
+    assert s1["late_submits"] == s0["late_submits"] + 1
+    assert s1["dispatched"] == s0["dispatched"]
+    for n in range(4):
+        out = A.data_of(0, n).newest_copy().payload
+        assert torch.equal(out.cpu(), torch.full((64, 64), 2.0 * n + 1.0))
+

@@ -1,6 +1,7 @@
-"""The port's single-rank PTG examples (``examples_torch/``: ex02, ex04,
-ex05, ex06) run green on a CPU context, each in its own interpreter, and
-none of them imports JAX or the reference package."""
+"""The port's single-rank examples (``examples_torch/``: ex00 start/stop,
+ex01 hello world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF) and
+ex11 (graph capture)) run green on a CPU context, each in its own
+interpreter, and none of them imports JAX or the reference package."""
 
 import ast
 import os
@@ -11,7 +12,8 @@ import sys
 import pytest
 
 EX_DIR = pathlib.Path(__file__).resolve().parent.parent / "examples_torch"
-EXAMPLES = ["ex02", "ex04", "ex05", "ex06"]
+EXAMPLES = ["ex00", "ex01", "ex02", "ex04", "ex05", "ex06", "ex07",
+            "ex11"]
 
 
 def _script(ex: str) -> pathlib.Path:

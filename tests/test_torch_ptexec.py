@@ -321,6 +321,12 @@ def _run_data_dag(params, native: bool):
     try:
         if not native:
             mca.set("ptg_native_exec", False)
+        else:
+            # region fusion pinned OFF here, as in the reference: this
+            # harness asserts the PER-TASK slot-retire protocol, which
+            # fusion legitimately changes (internal consumption never hits
+            # the protocol); the fused variant is in test_torch_fusion.py
+            mca.set("region_fusion", False)
         X = TiledMatrix("descX", 1, params["N"], 1, 1)
         X.fill(lambda m, i: np.full((1, 1), float(i), np.float32))
         Y = TiledMatrix("descY", 1, params["N"], 1, 1)
@@ -347,8 +353,8 @@ def _run_data_dag(params, native: bool):
             tp.repos[tp._classes[n].task_class_id].retired)
             for n in ("SRC", "T")}
     finally:
-        if not native:
-            mca.params.unset("ptg_native_exec")
+        mca.params.unset("ptg_native_exec")
+        mca.params.unset("region_fusion")
         ctx.fini()
     return stats
 
@@ -474,6 +480,10 @@ def test_lane_data_flow_chain_engages():
            "BODY\n  X = X + 1.0\nEND\n")
     ctx = pt.Context(nb_cores=1)
     try:
+        # per-task protocol under test, as in the reference: region fusion
+        # (which folds the whole chain into one super-task and retires no
+        # interior slot) is exercised by test_torch_fusion.py instead
+        mca.set("region_fusion", False)
         A = TiledMatrix("laneA", 1, 4, 1, 1)
         A.fill(lambda m, k: np.zeros((1, 1), np.float32))
         prog = compile_ptg(src, "data")
@@ -492,6 +502,7 @@ def test_lane_data_flow_chain_engages():
         assert len(tp.repos[tc.task_class_id]) == 0
         assert tp.repos[tc.task_class_id].retired == 0
     finally:
+        mca.params.unset("region_fusion")
         ctx.fini()
 
 
@@ -657,8 +668,7 @@ def test_lane_admits_tpu_body_class():
         assert tp._ptexec_state is not None, \
             "TPU-bodied pool fell off the lane on a CPU-only host"
         delta = PTEXEC_STATS.delta(snap)
-        assert delta["pools_engaged"] == 1 \
-            and delta["pools_device_declined"] == 0
+        assert delta["pools_engaged"] == 1 and delta["pools_device"] == 0
         np.testing.assert_allclose(
             np.asarray(A.data_of(0, 3).newest_copy().payload), 4.0)
     finally:
@@ -751,11 +761,15 @@ _DEV_CHAIN_SRC = ("%global NT\n%global descA\n"
 
 
 def test_device_pool_on_a_cuda_context_declines_counted():
-    """A device-bodied pool on a context with a CUDA device module (the
-    test mode over CPU tensors) declines the lane under its own reason
-    and runs the interpreted FSM on the device module; the result is the
-    lane's."""
+    """No decline: a device-bodied pool on a CUDA context engages the native
+    device lane (the name dates from when such a pool declined the lane).
+    On a context with a CUDA device module (the test mode over CPU tensors)
+    its tasks surface onto the native device lane (``PTDEV_STATS`` engaged,
+    ``pools_device`` counted, nothing ineligible or fallen back), they run
+    on the device module's card (its ``executed_tasks``), and the result is
+    the interpreted FSM's."""
     from parsec_tpu_torch.device.cuda import CUDADevice
+    from parsec_tpu_torch.device.native import PTDEV_STATS
     mca.set("device_cuda_over_cpu", True)
     mca.set("device_load_balance_allow_cpu", False)
     try:
@@ -766,14 +780,19 @@ def test_device_pool_on_a_cuda_context_declines_counted():
             A = TiledMatrix("devA", 1, 4, 1, 1)
             A.fill(lambda m, k: np.zeros((1, 1), np.float32))
             snap = PTEXEC_STATS.snapshot()
+            dsnap = PTDEV_STATS.snapshot()
             tp = compile_ptg(_DEV_CHAIN_SRC, "dev-chain").instantiate(
                 ctx, globals={"NT": 4}, collections={"descA": A})
             ctx.add_taskpool(tp)
             ctx.wait(timeout=60)
             d = PTEXEC_STATS.delta(snap)
-            assert d["pools_device_declined"] == 1
-            assert d["pools_engaged"] == 0 and d["pools_ineligible"] == 0
-            assert tp._ptexec_state is None
+            dd = PTDEV_STATS.delta(dsnap)
+            assert d["pools_engaged"] == 1 and d["pools_device"] == 1
+            assert d["pools_ineligible"] == 0 and d["pools_fallback"] == 0
+            assert dd["pools_engaged"] == 1 and dd["tasks_engaged"] == 4
+            assert dd["pools_fallback"] == 0 and dd["pools_ineligible"] == 0
+            assert tp._ptexec_state is not None
+            assert tp._ptexec_state.get("dev_pool") is not None
             assert dev.executed_tasks == 4
             np.testing.assert_allclose(
                 np.asarray(A.data_of(0, 3).newest_copy().payload), 4.0)
@@ -785,32 +804,55 @@ def test_device_pool_on_a_cuda_context_declines_counted():
 
 
 def test_device_native_raises_on_a_cuda_context():
-    """``--mca device_native 1`` asks for the native device lane, which is
-    not ported: where it would take effect it raises, naming the roadmap
-    item, instead of quietly running the interpreted FSM."""
+    """Nothing raises: ``--mca device_native`` 1 engages the device lane and
+    0 is counted ineligible (the name dates from when 1 raised). On a
+    context with a CUDA device: 1 (the reference's default) binds the device pool to the native device lane
+    and raises nothing; 0 keeps it on the interpreted FSM and the device
+    module, counted ineligible by design (``PTDEV_STATS`` and
+    ``PTEXEC_STATS``), never as a fallback. Both give the same tile."""
+    from parsec_tpu_torch.device.native import PTDEV_STATS
     mca.set("device_cuda_over_cpu", True)
-    mca.set("device_native", True)
     try:
-        ctx = pt.Context(nb_cores=1)
-        try:
-            A = TiledMatrix("dnA", 1, 4, 1, 1)
-            A.fill(lambda m, k: np.zeros((1, 1), np.float32))
-            tp = compile_ptg(_DEV_CHAIN_SRC, "dev-native").instantiate(
-                ctx, globals={"NT": 4}, collections={"descA": A})
-            with pytest.raises(NotImplementedError, match="ROADMAP"):
+        for native in (True, False):
+            mca.set("device_native", native)
+            ctx = pt.Context(nb_cores=1)
+            try:
+                A = TiledMatrix("dnA", 1, 4, 1, 1)
+                A.fill(lambda m, k: np.zeros((1, 1), np.float32))
+                snap = PTEXEC_STATS.snapshot()
+                dsnap = PTDEV_STATS.snapshot()
+                tp = compile_ptg(_DEV_CHAIN_SRC, "dev-native").instantiate(
+                    ctx, globals={"NT": 4}, collections={"descA": A})
                 ctx.add_taskpool(tp)
-        finally:
-            ctx.fini(timeout=5)
+                ctx.wait(timeout=60)
+                d = PTEXEC_STATS.delta(snap)
+                dd = PTDEV_STATS.delta(dsnap)
+                if native:
+                    assert tp._ptexec_state.get("dev_pool") is not None
+                    assert dd["pools_engaged"] == 1
+                    assert dd["pools_ineligible"] == 0
+                else:
+                    assert tp._ptexec_state is None
+                    assert dd["pools_ineligible"] == 1
+                    assert d["pools_ineligible"] == 1
+                    assert dd["pools_engaged"] == 0
+                assert d["pools_fallback"] == 0 and dd["pools_fallback"] == 0
+                np.testing.assert_allclose(
+                    np.asarray(A.data_of(0, 3).newest_copy().payload), 4.0)
+            finally:
+                ctx.fini(timeout=5)
     finally:
         mca.params.unset("device_native")
         mca.params.unset("device_cuda_over_cpu")
 
 
 def test_region_fusion_raises_on_a_data_pool_only():
-    """An explicit ``--mca region_fusion 1`` raises on a data pool (where
-    fusion would take effect) and leaves a CTL pool on the lane; the
-    parameter's default (it serves the DTD capture window) leaves data
-    pools per-task on the lane."""
+    """Nothing raises: ``--mca region_fusion`` fuses a PTG data pool (the
+    name dates from when an explicit 1 raised there). Explicit 1 and the
+    default both fuse a data pool's chain into one region (no interior slot goes
+    through the retire protocol, ``fused_regions`` counted) and leave a CTL
+    pool per-task on the lane; 0 keeps the data pool per-task. Every
+    setting gives the same tile."""
     data_src = ("%global NT\n%global descA\n"
                 "T(k)\n  k = 0 .. NT-1\n"
                 "  RW X <- (k == 0) ? descA(0, k) : X T(k-1)\n"
@@ -820,38 +862,42 @@ def test_region_fusion_raises_on_a_data_pool_only():
                "T(i)\n  i = 0 .. NT-1\n"
                "  CTL S <- (i > 0) ? S T(i-1)\n"
                "        -> (i < NT-1) ? S T(i+1)\nBODY\n  pass\nEND\n")
-    mca.set("region_fusion", True)
-    try:
+    for setting in (True, None, False):
+        if setting is not None:
+            mca.set("region_fusion", setting)
         ctx = pt.Context(nb_cores=1)
         try:
+            snap = PTEXEC_STATS.snapshot()
             tp = compile_ptg(ctl_src, "fuse-ctl").instantiate(
                 ctx, globals={"NT": 8}, collections={})
             ctx.add_taskpool(tp)
             ctx.wait(timeout=30)
             assert tp._ptexec_state is not None
+            assert PTEXEC_STATS.delta(snap)["fused_regions"] == 0
             A = TiledMatrix("fuA", 1, 4, 1, 1)
             A.fill(lambda m, k: np.zeros((1, 1), np.float32))
             tp = compile_ptg(data_src, "fuse-data").instantiate(
                 ctx, globals={"NT": 4}, collections={"descA": A})
-            with pytest.raises(NotImplementedError, match="region_fusion"):
-                ctx.add_taskpool(tp)
+            ctx.add_taskpool(tp)
+            ctx.wait(timeout=30)
+            assert tp._ptexec_state is not None
+            g = tp._ptexec_state["graph"]
+            d = PTEXEC_STATS.delta(snap)
+            if setting is False:
+                assert g.slot_stats() == (4, 3)
+                assert d["fused_regions"] == 0
+            else:
+                # the chain's first task reads memory but has a body, so
+                # all four fuse: no slot is consumed outside the region
+                assert g.slot_stats() == (4, 0)
+                assert d["fused_regions"] == 1 and d["fused_tasks"] == 4
+                assert g.region_stats()["weighted_total"] == 4
+            np.testing.assert_allclose(
+                np.asarray(A.data_of(0, 3).newest_copy().payload), 4.0)
         finally:
+            mca.params.unset("region_fusion")
             ctx.fini(timeout=5)
-    finally:
-        mca.params.unset("region_fusion")
     assert mca.is_default("region_fusion") and mca.get("region_fusion")
-    ctx = pt.Context(nb_cores=1)
-    try:
-        A = TiledMatrix("fuB", 1, 4, 1, 1)
-        A.fill(lambda m, k: np.zeros((1, 1), np.float32))
-        tp = compile_ptg(data_src, "fuse-default").instantiate(
-            ctx, globals={"NT": 4}, collections={"descA": A})
-        ctx.add_taskpool(tp)
-        ctx.wait(timeout=30)
-        assert tp._ptexec_state is not None
-        assert tp._ptexec_state["graph"].slot_stats() == (4, 3)
-    finally:
-        ctx.fini()
 
 
 def test_flatten_cache_key_tells_card_from_cpu_contexts():
