@@ -63,18 +63,33 @@ port's main paths through the entry points a user calls:
   have engaged the lane; then the PTG GEMM with a ``[type=CUDA]`` body
   (f32, N = 8192 in 512 x 512 tiles, 4096 tasks, TF32 off) in three modes:
   (a) the native device lane (``csrc/ptdev.cpp``) with its k-chains fused
-  into device regions, each a CUDA graph replayed on the lane's stream,
-  (b) the device lane per task (``--mca region_fusion 0``), (c) the
-  interpreted FSM on the CUDA device module (``--mca device_native 0``):
-  each held to ``torch.matmul`` (max err / max|ref| < 1e-5; (a) on the DAG
-  that captures its graphs and on one that replays them), (b) and (c) and
-  (a) compared bit for bit, the cost model's one exploration of the CPU
-  twin spent in the warm-up and held to the device leg, then each mode's
-  slope in turns, and for one profiled DAG of each its device busy time,
-  idle share and the lanes', coherency table's, cost model's and regions'
-  counters; the placement of every pool, the cost of a completion poll,
-  and a device region's two forms (eager and the CUDA graph) timed on one
-  DAG's regions.
+  into device regions, each run eagerly on the lane's stream (one
+  dispatch of its members' launches), (b) the device lane per task
+  (``--mca region_fusion 0``), (c) the interpreted FSM on the CUDA device
+  module (``--mca device_native 0``): each held to ``torch.matmul`` (max
+  err / max|ref| < 1e-5; (a) on the DAG whose regions are cold and on one
+  that reuses them), (b) and (c) and (a) compared bit for bit, the cost
+  model's one exploration of the CPU twin spent in the warm-up and held to
+  the device leg, then each mode's slope in turns, and for one profiled
+  DAG of each its device busy time, idle share and the lanes', coherency
+  table's, cost model's and regions' counters; the placement of every
+  pool, the cost of a completion poll, and a device region's two forms
+  (eager, the lane's, and a CUDA graph, which the lane does not take)
+  timed on one DAG's regions;
+* the observability substrate on those paths, on a context made with
+  ``--mca profile_enabled 1`` (the tracer dumps its file at ``fini``,
+  which the phase reads back), ``hist_enabled`` and the stall watchdog:
+  the DTD GEMM traced on the native lane (C bit for bit the untraced
+  DAG's, one matched exec span a task on the device module's stream, the
+  engine ring's landed events plus its drops equal to what it recorded,
+  the last memory event equal to the module's residency), the PTG GEMM in
+  modes (a) and (b) with the lanes' rings (C bit for bit, the device
+  lane's ring equal to its counters), the histograms counting every task,
+  ``/metrics`` and ``/health`` served in process on port 0 and equal to
+  the lanes' stats, no watchdog trip; and the overheads, reported and not
+  gated: the reference benchmark's tracing and histogram legs on the PTG
+  chain shape, the DTD GEMM slope with the tracer on and off and mode
+  (a)'s with the rings on and off, each in turns.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -97,6 +112,7 @@ import gc
 import json
 import math
 import os
+import struct
 import subprocess
 import sys
 import sysconfig
@@ -965,28 +981,54 @@ def flash_on_route(K, torch, q, k, v, route: str):
     return out
 
 
+def profile_session(torch, run, n: int):
+    """The events of one torch.profiler session over ``n`` runs of
+    ``run()`` and a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    return prof.events()
+
+
 def profiled_kernels(torch, run, n: int = 5, tries: int = 3) -> dict:
     """Device ms of one launch by kernel name, from torch.profiler over
     ``n`` runs of ``run()``: each name's summed time over the launches the
     trace holds (the tracer may drop some). A trace that holds no device
     events is taken again, up to ``tries`` times ({} if none holds any)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(n):
-                run()
-            torch.cuda.synchronize()
+    for i in range(tries):
+        events = profile_session(torch, run, n)
         times = {}
-        for ev in prof.events():
+        for ev in events:
             if ev.device_type == DeviceType.CUDA:
                 t = times.setdefault(ev.name, [0.0, 0])
                 t[0] += (ev.time_range.end - ev.time_range.start) / 1e3
                 t[1] += 1
         if times:
             return {name: ms / k for name, (ms, k) in times.items()}
+        launch_calls = sum(1 for ev in events if "LaunchKernel" in ev.name)
+        log(f"torch.profiler: try {i + 1} of {tries} held no device events "
+            f"({len(events)} host events, {launch_calls} kernel-launch "
+            f"calls among them)")
     return {}
+
+
+def profiler_probe(torch, where: str, sessions: int = 3) -> None:
+    """Whether torch.profiler sees the card's kernels at this point of the
+    script: how many of ``sessions`` short sessions (two small matmuls, the
+    library's kernel) hold device events. In a fresh process every one
+    does; after the script's large traces most hold none (PERF.md)."""
+    from torch.autograd import DeviceType
+    x = torch.ones(256, 256, device="cuda")
+    seen = sum(
+        any(ev.device_type == DeviceType.CUDA
+            for ev in profile_session(torch, lambda: x @ x, 2))
+        for _ in range(sessions))
+    log(f"torch.profiler probe {where}: device events in {seen} of "
+        f"{sessions} sessions")
 
 
 def profiled_ms(torch, run, kernel: str):
@@ -1002,14 +1044,61 @@ def fmt_ms(ms) -> str:
     return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
-def flash_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
+def flash_device_times(K, torch) -> dict:
+    """torch.profiler's device times at the LM path's flash shape, (96,
+    1024, 64) causal, taken right after the kernel checks, before the
+    script's large traces: after those the tracer loses most short
+    sessions' device events (:func:`profiler_probe`). For bf16 and float32:
+    the kernel's device ms on its route and SDPA's kernel (its backend);
+    for bf16 also the mma route's device ms. These launches come before the
+    main path's counts are set to 0."""
+    import torch.nn.functional as F
+    bh, s, d = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ, 64
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    K.dot_precision()                      # no TF32 for the library either
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).replace("torch.", "")
+        q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
+                               ).to(dtype) for _ in range(3))
+        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
+                      for t in (q, k, v))
+        route = K.flash_route(dtype, d, True)
+        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_f32"
+        sdpa_kernels = profiled_kernels(
+            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True))
+        row = out[name] = {
+            "device_ms": profiled_ms(
+                torch, lambda: K.flash_attention(q, k, v, causal=True),
+                kernel),
+            "library_kernel": (max(sdpa_kernels, key=sdpa_kernels.get)[:120]
+                               if sdpa_kernels else "not measured")}
+        if dtype == torch.bfloat16:
+            row["mma_device_ms"] = profiled_ms(
+                torch, lambda: flash_on_route(K, torch, q, k, v, "mma"),
+                "flash_bf16<")
+        log(f"flash_attention {name} ({bh}, {s}, {d}) causal under "
+            f"torch.profiler after the kernel checks: {route} route device "
+            f"{fmt_ms(row['device_ms'])}"
+            + (f", mma route device {fmt_ms(row['mma_device_ms'])}"
+               if "mma_device_ms" in row else "")
+            + f"; scaled_dot_product_attention's kernel "
+            f"{row['library_kernel']}")
+        del q, k, v, q4, k4, v4
+    return out
+
+
+def flash_entry(K, torch, gen, launches: int, by_route: dict,
+                device_times: dict) -> dict:
     """The flash kernel at the LM path's shape, (96, 1024, 64) causal. In
     bf16 (the entry, wgmma route): error against plain, the kernel line's
-    time (CUDA events over back-to-back calls), the kernel's device time
-    (torch.profiler), the mma route's (the earlier kernel's) times on the
-    same inputs in turns with it, bound, and SDPA's time. In float32 (the
-    ``float32`` sub-entry, simt route) the same beside SDPA with TF32 off;
-    for both, SDPA's kernel (its backend) and its error against plain."""
+    time (CUDA events over back-to-back calls), the mma route's (the
+    earlier kernel's) times on the same inputs in turns with it, bound, and
+    SDPA's time. In float32 (the ``float32`` sub-entry, simt route) the
+    same beside SDPA with TF32 off; for both, SDPA's error against plain,
+    and from ``device_times`` (:func:`flash_device_times`) the device times
+    and SDPA's kernel (its backend)."""
     import torch.nn.functional as F
     bh, s, d = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ, 64
     rows = {}
@@ -1036,11 +1125,8 @@ def flash_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
         library_ms = cuda_time_ms(sdpa)
         sdpa_err = (sdpa().float().reshape(bh, s, d) - want
                     ).abs().max().item()
-        sdpa_kernels = profiled_kernels(torch, sdpa)
-        sdpa_kernel = (max(sdpa_kernels, key=sdpa_kernels.get)[:120]
-                       if sdpa_kernels else "not measured")
-        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_f32"
-        device_ms = profiled_ms(torch, run, kernel)
+        device_ms = device_times[name]["device_ms"]
+        sdpa_kernel = device_times[name]["library_kernel"]
         nbytes = 4 * bh * s * d * q.element_size()
         ops = 4.0 * d * bh * (s * (s + 1) / 2)   # q.k and p.v on the triangle
         e = rows[name] = kernel_entry(
@@ -1064,9 +1150,7 @@ def flash_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
             turns = [cuda_time_ms(fn) for fn in (
                 run, lambda: flash_on_route(K, torch, q, k, v, "mma"),
                 lambda: flash_on_route(K, torch, q, k, v, "mma"), run)]
-            mma_device_ms = profiled_ms(
-                torch, lambda: flash_on_route(K, torch, q, k, v, "mma"),
-                "flash_bf16<")
+            mma_device_ms = device_times[name]["mma_device_ms"]
             e.update(in_turns_with_mma_ms=turns, mma_device_ms=mma_device_ms,
                      mma_max_abs_err=mma_err)
             log(f"flash_attention bf16 in turns with the mma route on the "
@@ -1084,10 +1168,10 @@ def flash_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
     return entry
 
 
-def tiles_of(torch, M) -> "torch.Tensor":
-    """The newest copy of every tile of ``M``, assembled on the card."""
+def tiles_of(torch, M, device: str = "cuda") -> "torch.Tensor":
+    """The newest copy of every tile of ``M``, assembled on ``device``."""
     return torch.cat([torch.cat([M.data_of(m, n).newest_copy().payload.to(
-        "cuda") for n in range(M.nt)], dim=1) for m in range(M.mt)], dim=0)
+        device) for n in range(M.nt)], dim=1) for m in range(M.mt)], dim=0)
 
 
 def dtd_stencil(ptt, K, torch, ctx, dev) -> tuple:
@@ -2490,6 +2574,475 @@ def big_gemm(ptt, torch, ctx, dev, smi, device: str, gemm) -> None:
         raise AssertionError(f"PTG GEMM N={N} mode (a): {dd}, {rs}, {rel}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the observability substrate on the main paths
+# ---------------------------------------------------------------------------
+
+#: the stall watchdog's threshold over the phase (a lane holding work whose
+#: progress counter stays still this long trips it)
+OBS_WATCHDOG_MS = 5000
+#: the DTD GEMM's and the PTG GEMM's shapes under the tracer: phases 3 and 9
+OBS_GEMM_N, OBS_GEMM_TS = GEMM_N, GEMM_TS
+#: measured runs of each chain leg, in turns
+OBS_CHAIN_ROUNDS = 15
+
+
+def stream_events(trace, prefix: str) -> int:
+    return sum(len(s["events"]) for s in trace.streams
+               if s["name"].startswith(prefix))
+
+
+def keyword_events(trace, keyword: str) -> tuple:
+    """(matched intervals as (begin, end), the keyword's raw event count)
+    of ``keyword`` in ``trace``."""
+    from parsec_tpu_torch.tools.trace_reader import _intervals
+    key = next((d["key"] for d in trace.dictionary
+                if d["name"] == keyword), None)
+    spans = [(t_s, t_e) for _si, _sn, base, _e, _tp, t_s, t_e, _i
+             in _intervals(trace) if base == key]
+    raw = sum(1 for s in trace.streams for e in s["events"]
+              if e[0] >> 1 == key)
+    return spans, raw
+
+
+def points(trace, keyword: str) -> list:
+    """(event id, info) of every POINT event of ``keyword``, in order."""
+    from parsec_tpu_torch.utils.trace import EVENT_FLAG_POINT
+    key = next((d["key"] for d in trace.dictionary
+                if d["name"] == keyword), None)
+    return [(e[1], e[5]) for s in trace.streams for e in s["events"]
+            if e[0] >> 1 == key and e[4] & EVENT_FLAG_POINT]
+
+
+def hist_counts() -> dict:
+    from parsec_tpu_torch.utils.hist import histograms
+    return {k: v["count"] for k, v in histograms.snapshot().items()}
+
+
+def chain_overheads(ptt, smi, device: str) -> dict:
+    """The reference benchmark's tracing and histogram legs
+    (``bench.py:1017-1082``) on the PTG chain shape (INIT + 1024 CTL
+    chains of 8), each on a context of its own, in turns: plain, traced
+    (rings armed), traced then switched off, histograms armed. Medians of
+    ``OBS_CHAIN_ROUNDS`` runs each after a warm run (the reference takes
+    3; a run is about 1 ms, and its rate varies by a third between runs),
+    each run after a collection; the overheads against the plain rate."""
+    import statistics
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    from parsec_tpu_torch.utils.trace import Profiling
+
+    def new_ctx():
+        return ptt.Context(nb_cores=1, device=device)
+    chain = compile_ptg(PTG_CHAIN_SRC, "chain_ep")
+    n_chain = PTG_CHAIN_NT * PTG_CHAIN_DEPTH + 1
+    ctxs = {"plain": new_ctx(), "traced": new_ctx(), "off": new_ctx()}
+    with mca_set(ptt, {"hist_enabled": True}):
+        ctxs["hist"] = new_ctx()
+    ctxs["traced"].profiling = Profiling()
+    ctxs["off"].profiling = Profiling()
+
+    def run(leg: str) -> float:
+        c = ctxs[leg]
+        tp = chain.instantiate(c, globals={"NT": PTG_CHAIN_NT,
+                                           "DEPTH": PTG_CHAIN_DEPTH},
+                               collections={}, name=f"chain-{leg}")
+        # the traced leg's landed events stay alive in its tracer: collect
+        # before each run, so no leg pays a collection the previous one's
+        # allocations started
+        gc.collect()
+        t0 = time.perf_counter()
+        c.add_taskpool(tp)
+        c.wait(timeout=120)
+        secs = time.perf_counter() - t0
+        if tp._ptexec_state is None:
+            raise AssertionError(f"chain leg {leg}: the pool left the lane")
+        return n_chain / secs
+    h0 = hist_counts().get("ptexec.exec_ns", 0)
+    for leg in ctxs:
+        run(leg)                     # warm: the lane's one-time flatten
+    ctxs["off"].profiling = None     # traced once, then switched off
+    rates = {leg: [] for leg in ctxs}
+    for _ in range(OBS_CHAIN_ROUNDS):
+        for leg in ctxs:
+            rates[leg].append(run(leg))
+    nt = ctxs["traced"]._ntrace
+    landed, dropped = nt.events_landed, nt.dropped()
+    for c in ctxs.values():
+        c.fini()
+    hist_n = hist_counts().get("ptexec.exec_ns", 0) - h0
+    runs = OBS_CHAIN_ROUNDS + 1
+    med = {leg: statistics.median(r) for leg, r in rates.items()}
+    out = {
+        "tasks_per_sec_chain": round(med["plain"]),
+        "tasks_per_sec_chain_traced": round(med["traced"]),
+        "tasks_per_sec_chain_trace_off": round(med["off"]),
+        "tasks_per_sec_chain_hist": round(med["hist"]),
+        "trace_overhead_pct_native":
+            round(100.0 * (med["plain"] - med["traced"]) / med["plain"], 2),
+        "trace_off_overhead_pct_native":
+            round(100.0 * (med["plain"] - med["off"]) / med["plain"], 2),
+        "hist_overhead_pct_native":
+            round(100.0 * (med["plain"] - med["hist"]) / med["plain"], 2)}
+    log(f"observability: PTG chains {PTG_CHAIN_NT}x{PTG_CHAIN_DEPTH} + INIT "
+        f"in turns, {OBS_CHAIN_ROUNDS} runs a leg, tasks/s median (min, "
+        f"max): " + "; ".join(
+            f"{leg} {med[leg]:,.0f} ({min(r):,.0f}, {max(r):,.0f})"
+            for leg, r in rates.items()) + f" ({smi})")
+    log(f"observability: chain overheads {json.dumps(out)}; traced leg "
+        f"landed {landed} ring events, dropped {dropped}; ptexec.exec_ns "
+        f"counted {hist_n} tasks ({n_chain} a run, {runs} runs)")
+    if landed + dropped != 2 * n_chain * runs or hist_n != runs * n_chain:
+        raise AssertionError(
+            f"chain legs: {landed} + {dropped} ring events for "
+            f"{runs * n_chain} traced tasks, {hist_n} histogram samples")
+    return out
+
+
+def observability(ptt, K, torch, smi, device: str = "cuda") -> dict:
+    """Phase 10: the observability substrate on the main paths, on a
+    context made with ``--mca profile_enabled 1`` (its tracer dumps to
+    ``profile_filename`` at ``fini``), ``hist_enabled`` and the stall
+    watchdog armed:
+
+    1. the DTD GEMM (phase 3's shape, the native per-task lane) with the
+       tracer off, then on: C bit for bit the same, every task on the lane,
+       the CUDA device stream's exec spans one matched pair a task, the
+       engine ring's landed events plus its drops equal to what it
+       recorded (a link interval and a completion point a task), the last
+       memory POINT's resident bytes the module's; then the scheduled
+       slope with the tracer on and off, in turns;
+    2. the PTG GEMM (phase 9's) in modes (a) and (b) with the rings off,
+       then on: C bit for bit the same, the device lane's ring (dispatch
+       intervals, retire points) agreeing with its counters; then mode
+       (a)'s slope with the rings on and off, in turns;
+    3. the histograms (``ptdtd``, ``ptdev``: every task of the phase),
+       the metrics endpoint on port 0 (``/metrics`` and ``/health`` in
+       process, equal to the stats snapshots, shut down without a leaked
+       thread or socket) and the watchdog (no stall trip);
+    4. the reference benchmark's chain legs (:func:`chain_overheads`).
+
+    Returns the overheads and the chain kernel's launches in the phase."""
+    import threading
+    from parsec_tpu_torch.core.costmodel import COSTMODEL_STATS
+    from parsec_tpu_torch.core.watchdog import WATCHDOG_STATS
+    from parsec_tpu_torch.data.matrix import collection_from_numpy
+    from parsec_tpu_torch.device.cuda import CUDADevice
+    from parsec_tpu_torch.device.native import PTDEV_STATS
+    from parsec_tpu_torch.dsl.dtd import PTDTD_STATS
+    from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
+    from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
+    from parsec_tpu_torch.tools.metrics_server import MetricsServer, fetch
+    from parsec_tpu_torch.tools.trace_reader import read_pbp, read_trace
+    t_phase = time.perf_counter()
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    build = os.path.join(os.path.dirname(os.path.abspath(ptt.__file__)),
+                         "build")
+    os.makedirs(build, exist_ok=True)
+    auto_path = os.path.join(build, "chip_smoke_obs_fini.pbp")
+    if os.path.exists(auto_path):
+        os.unlink(auto_path)
+    wd0 = WATCHDOG_STATS.snapshot()
+    # the tracer dumps to the profile_filename set when fini runs
+    ptt.mca.set("profile_filename", auto_path)
+    with mca_set(ptt, {"profile_enabled": True, "hist_enabled": True,
+                       "watchdog_stall_ms": OBS_WATCHDOG_MS}):
+        ctx = ptt.Context(nb_cores=1, device=device)
+    prof = ctx.profiling
+    if prof is None or ctx.watchdog is None or not ctx._hist_on:
+        raise AssertionError("the context's tracer, watchdog or histograms "
+                             "did not arm from the MCA parameters")
+    ctx.profiling = None             # the untraced runs come first
+    dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
+    h_start = hist_counts()
+    lane_tasks = {"dtd": 0}
+
+    # -- 1. the DTD GEMM --
+    N, TS = OBS_GEMM_N, OBS_GEMM_TS
+    tiles = (N // TS) ** 2
+    gen = torch.Generator(device=device).manual_seed(42)
+
+    def host(shape):
+        return torch.randn(shape, device=device, generator=gen) \
+            .cpu().numpy()
+    A = collection_from_numpy("oA", host((N, N)), TS, TS,
+                              dtype=torch.bfloat16)
+    B = collection_from_numpy("oB", host((N, N)), TS, TS,
+                              dtype=torch.bfloat16)
+    C = collection_from_numpy("oC", np.zeros((N, N), np.float32), TS, TS,
+                              dtype=torch.bfloat16)
+    zero = torch.zeros(TS, TS, dtype=torch.bfloat16)
+    launches = {"traced": 0, "split": 0}
+
+    def run_dags(n_dags: int, traced: bool) -> float:
+        """``n_dags`` GEMM DAGs in one pool on the native per-task lane,
+        with the tracer on or off; every task checked to have taken it, and
+        on the card, a traced run's chain launches (one a task, every one
+        on the split route) added to the phase's count."""
+        ctx.profiling = prof if traced else None
+        before = PTDTD_STATS.snapshot()
+        l0 = K.gemm_chain.launches
+        s0 = K.gemm_chain.launches_by_route["split"]
+        sync()
+        t = time.perf_counter()
+        tp = ptt.DTDTaskpool(ctx, "gemm-obs")
+        n = 0
+        for _ in range(n_dags):
+            n += insert_gemm_tasks(tp, A, B, C, batch_k=True)
+        tp.wait()
+        tp.close()
+        ctx.wait()
+        sync()
+        secs = time.perf_counter() - t
+        check_lane(tp, ctx, before, n, True, "DTD GEMM (observability)")
+        lane_tasks["dtd"] += n
+        if traced:
+            n_l = K.gemm_chain.launches - l0
+            n_s = K.gemm_chain.launches_by_route["split"] - s0
+            if on_card and not n_s == n_l == tiles * n_dags:
+                raise AssertionError(
+                    f"traced DTD GEMM: {n_l} chain launches, {n_s} on the "
+                    f"split route, for {tiles * n_dags} tasks")
+            launches["traced"] += n_l
+            launches["split"] += n_s
+        return secs
+
+    # the traced DAG first: it stages the tiles in, so the module's
+    # residency moves under the tracer (a resident tile's rewrite keeps its
+    # size and records no memory event)
+    run_dags(1, True)
+    resident = dev._resident_bytes
+    c_traced = tiles_of(torch, C, device)
+    eng = ctx._dtd_neng
+    dropped = eng.trace_dropped()
+    h_dtd = hist_counts().get("ptdtd.pt_ready_to_done_ns", 0)
+    trace = read_pbp(prof.dump(os.path.join(build,
+                                            "chip_smoke_obs_dtd.pbp")))
+    C.fill(lambda m, n: zero)
+    run_dags(1, False)
+    same = torch.equal(c_traced, tiles_of(torch, C, device))
+    spans, n_exec = keyword_events(trace, f"{dev.name}::exec")
+    landed = stream_events(trace, "ptdtd-w")
+    mem = points(trace, f"{dev.name}::mem")
+    # a memory POINT's info blob is resident{q};delta{q}
+    last_resident = struct.unpack("<qq", mem[-1][1])[0] if mem else None
+    log(f"observability: DTD GEMM bf16 N={N} TS={TS} traced on the native "
+        f"lane: C {'bit-identical' if same else 'DIFFERS'} to the untraced "
+        f"DAG's; {dev.name} exec spans: {len(spans)} matched of {n_exec} "
+        f"events, {sum(1 for a, b in spans if b < a)} ending before they "
+        f"begin; engine ring: {landed} landed + {dropped} dropped of "
+        f"{3 * tiles} recorded (a link interval and a completion point a "
+        f"task); {len(mem)} {dev.name}::mem POINTs, the last one's resident "
+        f"{last_resident} B, the module's {resident} B; "
+        f"ptdtd.pt_ready_to_done_ns "
+        f"counted {h_dtd} tasks; gemm_chain launches {launches['traced']} "
+        f"({smi})")
+    if not (same and len(spans) == tiles and n_exec == 2 * tiles
+            and all(b >= a for a, b in spans)
+            and landed + dropped == 3 * tiles
+            and last_resident == resident and h_dtd == tiles):
+        raise AssertionError("the traced DTD GEMM failed its checks")
+    del c_traced, trace
+    dtd_slopes = slopes_in_turns(run_dags)
+    for traced, (s_, lo_, hi_) in dtd_slopes.items():
+        log(f"observability: DTD GEMM tracer {'on' if traced else 'off'}: "
+            f"T1 {lo_:.3f} s, T3 {hi_:.3f} s, slope {s_ * 1e3:.1f} ms/DAG "
+            f"({smi})")
+    del A, B, C
+
+    # -- 2. the PTG GEMM in modes (a) and (b) on the device lane --
+    gemm = compile_ptg(PTG_GEMM_SRC, "gemm")
+    T, PTS = PTG_GEMM_T, PTG_GEMM_TS
+    NP = T * PTS
+    gen = torch.Generator(device=device).manual_seed(8)
+    a = torch.randn(NP, NP, device=device, generator=gen)
+    b = torch.randn(NP, NP, device=device, generator=gen)
+
+    def tiled(name, dense):
+        M = ptt.TiledMatrix(name, NP, NP, PTS, PTS, device=device)
+        M.fill(lambda m, n: dense[m * PTS:(m + 1) * PTS,
+                                  n * PTS:(n + 1) * PTS])
+        return M
+    PA, PB = tiled("oPA", a), tiled("oPB", b)
+    Cs = [tiled(f"oPC{j}", torch.zeros(NP, NP, device=device))
+          for j in range(3)]
+    ntask = T ** 3
+
+    def run_gemm(n_dags: int, mode: str, traced: bool) -> float:
+        """``n_dags`` GEMM pools (each its own C) in ``mode``, rings on or
+        off; every pool must have run on the device lane."""
+        ctx.profiling = prof if traced else None
+        for C_ in Cs[:n_dags]:
+            C_.fill(lambda m, n: torch.zeros(PTS, PTS, device=device))
+        s0, d0 = PTEXEC_STATS.snapshot(), PTDEV_STATS.snapshot()
+        sync()
+        t0 = time.perf_counter()
+        with mca_set(ptt, GEMM_MODES[mode][1]):
+            tps = [gemm.instantiate(
+                ctx, globals={"MT": T, "NT": T, "KT": T},
+                collections={"descA": PA, "descB": PB, "descC": Cs[j]},
+                name=f"gemm-obs{j}") for j in range(n_dags)]
+            for tp in tps:
+                ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        sync()
+        secs = time.perf_counter() - t0
+        d, dd = PTEXEC_STATS.delta(s0), PTDEV_STATS.delta(d0)
+        if not (d["pools_engaged"] == n_dags == dd["pools_engaged"]
+                and dd["pools_fallback"] == 0
+                and all(tp._ptexec_state.get("dev_pool") is not None
+                        for tp in tps)):
+            raise AssertionError(f"PTG GEMM ({mode}) under observation: "
+                                 f"PTEXEC {d}, PTDEV {dd}")
+        return secs
+
+    for mode in ("a", "b"):
+        run_gemm(1, mode, False)                    # warm
+        run_gemm(1, mode, False)
+        plain = tiles_of(torch, Cs[0], device)
+        mark = {s.name: len(s.events) for s in prof._streams}
+        lane = ctx._ptdev
+        l0 = lane.clane.stats()
+        run_gemm(1, mode, True)
+        l1 = lane.clane.stats()
+        ld = {k: l1[k] - l0[k] for k in ("dispatched", "dispatch_batches",
+                                        "retired")}
+        same = torch.equal(plain, tiles_of(torch, Cs[0], device))
+        trace = read_pbp(prof.dump(os.path.join(
+            build, f"chip_smoke_obs_ptg_{mode}.pbp")))
+        # this DAG's events: the ptdev streams' tail past the mark
+        disp, retire = ptdev_events(trace, mark)
+        log(f"observability: PTG GEMM f32 N={NP} mode ({mode}) "
+            f"{GEMM_MODES[mode][0]}, rings on: C "
+            f"{'bit-identical' if same else 'DIFFERS'} to the untraced "
+            f"DAG's; ptdev ring {len(disp)} dispatch intervals of "
+            f"{sum(disp)} ids, {retire} retire points; the lane's counters "
+            f"{ld} ({smi})")
+        if not (same and len(disp) == ld["dispatch_batches"]
+                and sum(disp) == ld["dispatched"]
+                and retire == ld["retired"]):
+            raise AssertionError(f"PTG GEMM mode ({mode}) under the tracer "
+                                 f"failed its checks")
+        del plain, trace
+    ptg_slopes = slopes_in_turns(lambda n, on: run_gemm(n, "a", on))
+    for traced, (s_, lo_, hi_) in ptg_slopes.items():
+        log(f"observability: PTG GEMM mode (a) rings "
+            f"{'on' if traced else 'off'}: T1 {lo_:.3f} s, T3 {hi_:.3f} s, "
+            f"slope {s_ * 1e3:.1f} ms/DAG -> host "
+            f"{s_ / ntask * 1e6:.1f} us a task ({smi})")
+    del PA, PB, Cs, a, b
+
+    # -- 3. histograms, metrics endpoint, watchdog --
+    hists = {k: v - h_start.get(k, 0) for k, v in hist_counts().items()}
+    lane_retired = ctx._ptdev.clane.stats()["retired"]
+    from parsec_tpu_torch.utils.hist import histograms
+    summ = histograms.summaries(ttl=0.0)
+    log("observability: histograms over the phase " + "; ".join(
+        f"{k}: {n} samples, p50 {summ[k]['p50_us']:.1f} us, p99 "
+        f"{summ[k]['p99_us']:.1f} us" for k, n in sorted(hists.items())
+        if n) + f" (DTD tasks {lane_tasks['dtd']}, device lane retires "
+        f"{lane_retired})")
+    if not (hists.get("ptdtd.pt_ready_to_done_ns") == lane_tasks["dtd"]
+            and hists.get("ptdev.retire_ns") == lane_retired):
+        raise AssertionError(f"the histograms miss the phase's tasks: "
+                             f"{hists}")
+    threads0 = {t.name for t in threading.enumerate()}
+    # the device lane's C-side samplers serve a snapshot up to 50 ms old
+    # (one stats() call a sweep): let any snapshot taken while the last
+    # DAG ran expire before the scrape
+    time.sleep(0.1)
+    srv = MetricsServer(port=0).start()
+    try:
+        met = fetch(srv.endpoint, "/metrics")
+        health = fetch(srv.endpoint, "/health")
+    finally:
+        srv.stop()
+    c = met["counters"]
+    want = {}
+    for stats, prefix in ((PTDTD_STATS, "ptdtd"), (PTEXEC_STATS, "ptexec"),
+                          (PTDEV_STATS, "ptdev"),
+                          (COSTMODEL_STATS, "costmodel")):
+        want.update({f"{prefix}.{k}": v for k, v in stats.snapshot().items()})
+    # the C-side samplers sum the live lanes: this context's alone (a
+    # lane leaves the sum at its context's fini)
+    from parsec_tpu_torch.device.native import _lanes
+    if list(_lanes) != [ctx._ptdev]:
+        raise AssertionError(f"live device lanes: {len(_lanes)}")
+    ls = ctx._ptdev.clane.stats()
+    want.update({f"ptdev.{k}": ls[k] for k in ("submitted", "dispatched",
+                                               "retired", "inflight")})
+    bad = {k: (c.get(k), v) for k, v in want.items() if c.get(k) != v}
+    leaked = [t.name for t in threading.enumerate()
+              if t.name.startswith("parsec-metrics") and
+              t.name not in threads0]
+    try:
+        fetch(srv.endpoint, "/health", timeout=0.5)
+        closed = False
+    except (OSError, RuntimeError):
+        closed = True
+    log(f"observability: /metrics served {len(c)} counters; {len(want)} of "
+        f"ptdtd.*, ptexec.*, ptdev.*, costmodel.* checked against the stats "
+        f"({len(bad)} differ); /health {health}; after stop: socket "
+        f"{'closed' if closed else 'STILL ANSWERING'}, leaked threads "
+        f"{leaked}")
+    if bad or not health["ok"] or not closed or leaked:
+        raise AssertionError(f"metrics endpoint: {bad}, {health}, "
+                             f"closed {closed}, leaked {leaked}")
+    ctx.profiling = prof             # the fini dump holds the traced runs
+    ctx.fini()
+    ptt.mca.params.unset("profile_filename")
+    wd = WATCHDOG_STATS.delta(wd0)
+    trips = wd["pool_stalls"] + wd["device_stalls"] + wd["comm_stalls"]
+    log(f"observability: watchdog ({OBS_WATCHDOG_MS} ms) over the phase: "
+        f"{wd['ticks']} ticks, {trips} stall trips, p99 breaches "
+        f"{wd['p99_breaches']}, flight dumps {wd['flight_dumps']}")
+    if trips or not wd["ticks"]:
+        raise AssertionError(f"watchdog over the phase: {wd}")
+    # the tracer's dump at fini (the reference only warns when it fails)
+    if not os.path.exists(auto_path):
+        raise AssertionError(f"the fini trace dump {auto_path} is missing")
+    fin = read_trace(auto_path)
+    names = {s["name"].split("-w")[0] for s in fin.streams}
+    log(f"observability: fini dump {auto_path}: "
+        f"{os.path.getsize(auto_path)} B, {len(fin.dictionary)} keywords, "
+        f"{sum(len(s['events']) for s in fin.streams)} events in streams "
+        f"{sorted(names)}")
+    if not {"ptdtd", "ptexec", "ptdev", dev.name} <= names:
+        raise AssertionError(f"the fini dump lacks streams: {names}")
+
+    # -- 4. the reference benchmark's chain legs --
+    chain = chain_overheads(ptt, smi, device)
+    out = dict(chain)
+    out.update({
+        "dtd_gemm_slope_ms_traced": round(dtd_slopes[True][0] * 1e3, 1),
+        "dtd_gemm_slope_ms_untraced": round(dtd_slopes[False][0] * 1e3, 1),
+        "ptg_gemm_a_slope_ms_rings_on": round(ptg_slopes[True][0] * 1e3, 1),
+        "ptg_gemm_a_slope_ms_rings_off":
+            round(ptg_slopes[False][0] * 1e3, 1)})
+    log(f"observability overheads (not gated): {json.dumps(out)} ({smi})")
+    log(f"observability phase wall time {time.perf_counter() - t_phase:.1f} s")
+    return {"overheads": out, "launches": launches["traced"],
+            "split": launches["split"]}
+
+
+def ptdev_events(trace, mark: dict) -> tuple:
+    """The device lane's dispatch intervals (their ids: batch sizes) and
+    retire points past ``mark`` (events per stream name before the run)."""
+    from parsec_tpu_torch.utils.trace import EVENT_FLAG_END, EVENT_FLAG_POINT
+    names = {d["key"]: d["name"] for d in trace.dictionary}
+    disp, retire = [], 0
+    for s in trace.streams:
+        if not s["name"].startswith("ptdev-w"):
+            continue
+        for e in s["events"][mark.get(s["name"], 0):]:
+            name = names[e[0] >> 1]
+            if name == "ptdev::retire" and e[4] & EVENT_FLAG_POINT:
+                retire += 1
+            elif name == "ptdev::dispatch" and e[4] & EVENT_FLAG_END:
+                disp.append(e[1] & ((1 << 40) - 1))
+    return disp, retire
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2563,6 +3116,8 @@ def main() -> int:
     check_stencil1d(K, torch, gen)
     check_matmul(K, torch, gen)
     check_mixed_chain(K, torch, gen)
+    profiler_probe(torch, "after the kernel checks")
+    flash_device = flash_device_times(K, torch)
     # the device module sizes its tile budget from the memory free when the
     # context starts: hand the checks' cached blocks back first
     torch.cuda.empty_cache()
@@ -2846,9 +3401,18 @@ def main() -> int:
     ptg_lane(ptt, torch, ctx, smi)
     ctx.fini()
 
-    # ---- 10. kernel line at the main paths' shapes ----------------------
+    # ---- 10. the observability substrate on the main paths -------------
+    profiler_probe(torch, "before phase 10")
+    obs = observability(ptt, K, torch, smi)
+    profiler_probe(torch, "after phase 10")
+    launches += obs["launches"]
+    lane_launches["native_traced"] = obs["launches"]
+    gemm_by_route["split"] += obs["split"]
+
+    # ---- 11. kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
-               flash_entry(K, torch, gen, flash_launches, flash_by_route),
+               flash_entry(K, torch, gen, flash_launches, flash_by_route,
+                           flash_device),
                stencil_entry(K, torch, gen, stencil_launches),
                matmul]
     kernels[0]["launches_by_lane"] = lane_launches

@@ -172,6 +172,17 @@ class Context:
         #: no native flavor (counted fallback)
         from .sched_plane import SchedPlane
         self.sched_plane = SchedPlane.maybe_create(self)
+        #: process tracer (the :attr:`profiling` property): attach one
+        #: directly (``ctx.profiling = Profiling()``) or let ``--mca
+        #: profile_enabled 1`` create it — mca-created tracers dump to
+        #: ``--mca profile_filename`` at fini (the reference's parsec_fini
+        #: dbp write)
+        self._profiling = None
+        self._prof_auto = False
+        if mca.get("profile_enabled", False):
+            from ..utils.trace import Profiling
+            self._profiling = Profiling()
+            self._prof_auto = True
         self._taskpools: Dict[int, Taskpool] = {}
         self._active = 0
         self._cv = threading.Condition()
@@ -225,9 +236,118 @@ class Context:
         # single-core runs skip the Event syscall
         self._need_wake = self.nb_cores > 1
         self._gc_held = False
+        #: bridge landing the native lanes' in-lane ring events into
+        #: self.profiling (utils/native_trace.py); created lazily when a
+        #: lane arms while profiling is attached — zero cost otherwise
+        self._ntrace = None
+        #: metrics endpoint (tools/metrics_server.py): the counter registry
+        #: and latency percentiles over HTTP/UDS JSON, up for the
+        #: context's whole life (--mca metrics_port / metrics_uds)
+        from ..tools.metrics_server import MetricsServer
+        self.metrics = MetricsServer.maybe_start(rank=0, nb_ranks=1)
+        #: native latency histograms (utils/hist.py): armed on every lane
+        #: the context enqueues when requested explicitly or implied by a
+        #: live metrics endpoint (/metrics serves live percentiles); off =
+        #: one null branch per lane event site
+        self._hist_on = bool(mca.get("hist_enabled", False)) or \
+            self.metrics is not None
+        #: lane stall watchdog (core/watchdog.py): armed by --mca
+        #: watchdog_stall_ms; reads existing counters only (no new
+        #: hot-path instrumentation), degrades /health on a latched stall
+        #: and triggers the flight recorder
+        self.watchdog = None
+        wd_ms = mca.get("watchdog_stall_ms", 0)
+        if wd_ms > 0:
+            from .watchdog import StallWatchdog
+            self.watchdog = StallWatchdog(self, stall_ms=wd_ms).start()
+        if self.sched_plane is not None:
+            # sched.queue_ns (push->pop wait) joins the lane histograms
+            self._hist_attach("sched", self.sched_plane.plane)
         output.debug_verbose(2, "runtime",
                              f"context up: {self.nb_cores} streams, "
                              f"sched={self.sched.name}, device={self.device}")
+
+    # ------------------------------------------------------- in-lane tracing
+    def _native_trace(self):
+        """The native-lane trace bridge, or None when neither profiling
+        (``ctx.profiling``, set by tests/users or --mca profile_enabled)
+        nor PINS instrumentation is active. With PINS but no tracer the
+        bridge runs marker-only (coarse NativeDrainMarker events, nothing
+        landed) so instrumented pools can stay on the native lanes
+        without PINS consumers seeing a silent, idle machine. Lazily
+        constructed and registered as a drain hook so starving progress
+        loops land pending ring events."""
+        prof = self.profiling
+        if prof is not None and not getattr(prof, "enabled", True):
+            prof = None
+        if prof is None and not self.pins.enabled:
+            return None
+        if self._ntrace is None:
+            from ..utils.native_trace import NativeTraceBridge
+            self._ntrace = NativeTraceBridge(prof, self.pins)
+            self.register_drain_hook(self._ntrace.drain_all)
+        return self._ntrace
+
+    @property
+    def profiling(self):
+        """The tracer (``utils/trace.Profiling``) or None."""
+        return self._profiling
+
+    @profiling.setter
+    def profiling(self, prof) -> None:
+        """Attach ``prof``, or switch tracing off with None. The lanes'
+        events recorded so far land in the tracer they were recorded
+        under, and the device modules bind their streams to the new one at
+        their next event. The lanes that outlive pools (the DTD engine, the
+        device lane) re-arm their rings for a new tracer; with tracing off
+        and no PINS consumer they stop recording, as the reference
+        benchmark's off leg does. Pools enqueued from now on arm their own
+        rings by the same rule; a pool already on a lane keeps its rings
+        to its end."""
+        if prof is self._profiling:
+            return
+        nt = self._ntrace
+        self._profiling = prof
+        live = prof is not None and getattr(prof, "enabled", True)
+        if nt is not None:
+            nt.rebind(prof if live else None)
+        lanes = []
+        if self._dtd_neng is not None:
+            lanes.append(("ptdtd", self._dtd_neng))
+        if self._ptdev:
+            lanes.append(("ptdev", self._ptdev.clane))
+        if live:
+            for kind, obj in lanes:
+                self._ntrace_attach(kind, obj)
+        elif not self.pins.enabled:
+            for _kind, obj in lanes:
+                self._ntrace_detach(obj)
+                obj.trace_disable()
+
+    def _ntrace_attach(self, kind: str, obj, tpid: int = 0) -> None:
+        nt = self._native_trace()
+        if nt is not None:
+            nt.attach(kind, obj, tpid)
+
+    def _ntrace_detach(self, obj) -> None:
+        if self._ntrace is not None:
+            self._ntrace.detach(obj)
+
+    # --------------------------------------------------- latency histograms
+    def _hist_attach(self, kind: str, obj) -> None:
+        """Arm ``obj``'s native latency histograms (pthist.h) when the
+        context wants them; called from the same lifecycle points as
+        :meth:`_ntrace_attach`."""
+        if self._hist_on:
+            from ..utils.hist import histograms
+            histograms.attach(kind, obj)
+
+    def _hist_detach(self, obj) -> None:
+        """Fold a finishing lane object's buckets into the process
+        accumulator so /metrics keeps reporting completed pools."""
+        if self._hist_on:
+            from ..utils.hist import histograms
+            histograms.detach(obj)
 
     # ------------------------------------------------------------ drain hooks
     def register_drain_hook(self, bound_method) -> None:
@@ -350,6 +470,14 @@ class Context:
         if self._error is None:
             self.wait(timeout=timeout)
         self._finalized = True
+        if self._ntrace is not None:
+            # fini: land straggler ring events (blocking final drain)
+            self._ntrace.drain_all(wait=True)
+        if self._prof_auto and self.profiling is not None:
+            try:
+                self.profiling.dump()
+            except OSError as e:
+                output.warning(f"fini: trace dump failed: {e}")
         for s in self.streams:
             if s.nb_executed:
                 output.debug_verbose(1, "stats",
@@ -369,6 +497,14 @@ class Context:
             self._ptdev.fini()
             self._ptdev = False
         self.devices.fini()
+        if self._dtd_neng is not None:
+            # the per-context DTD engine never hits a per-pool detach
+            # point: fold its buckets here so the process-wide registry
+            # does not pin one engine per finished context
+            self._hist_detach(self._dtd_neng)
+        if self.sched_plane is not None:
+            # same lifecycle for the plane's queue-wait histogram
+            self._hist_detach(self.sched_plane.plane)
         # the per-context engine and plane outlive pools: release them
         # with the context (a live pool keeps its own engine reference)
         self._dtd_neng = None
@@ -379,6 +515,15 @@ class Context:
         # restarted process loads it back at its first placement decision
         from .costmodel import model as _cost_model
         _cost_model.maybe_save()
+        if self.watchdog is not None:
+            # watchdog before the endpoint: a dying context must not be
+            # reported as a stall, and /health must answer to the end
+            self.watchdog.stop()
+            self.watchdog = None
+        if self.metrics is not None:
+            # endpoint down LAST: dashboards may scrape through the drain
+            self.metrics.stop()
+            self.metrics = None
         self._release_gc_hold()  # error paths can finalize w/ pools active
 
     # ------------------------------------------------------------------ scheduling
@@ -495,6 +640,15 @@ class Context:
         """A PTG taskpool handed its whole FSM to the native execution
         lane (dsl/ptg/compiler.py ``_ptexec_prepare``); every stream's hot
         loop drains it."""
+        # ring lifecycle (enable): arm in-lane tracing before the first
+        # burst so no lane event predates its rings
+        self._ntrace_attach("ptexec", lane["graph"], tp.taskpool_id)
+        self._hist_attach("ptexec", lane["graph"])
+        if lane.get("dev_pool") is not None:
+            # the device lane outlives pools; re-attach per enqueue
+            # (idempotent) so a tracer attached AFTER the lane's creation
+            # still lands this pool's EV_DEV_* events
+            self._ntrace_attach("ptdev", lane["dev"].clane)
         with self._ptexec_lock:
             self._ptexec_q.append((tp, lane))
             if lane.get("dev_pool") is not None:
@@ -640,6 +794,15 @@ class Context:
                 self._ptexec_retire_locked(lane)
             if fin:
                 tp._ptexec_finalize(lane)
+                # ring lifecycle (quiescence): land the finished graph's
+                # events and stop pinning it; the device lane outlives
+                # pools, so its events of this pool land now too (it
+                # records a retire before the graph sees it)
+                self._ntrace_detach(lane["graph"])
+                if lane.get("dev_pool") is not None and \
+                        self._ntrace is not None:
+                    self._ntrace.drain_all(wait=True)
+                self._hist_detach(lane["graph"])
                 self._cost_fold(lane)
                 self._sched_pool_retire(lane)
             return True
@@ -680,6 +843,8 @@ class Context:
         would yank inputs out from under a peer still mid-callback;
         leaking instead would pin every produced payload for the
         taskpool's remaining lifetime."""
+        self._ntrace_detach(lane["graph"])   # final drain of an errored lane
+        self._hist_detach(lane["graph"])
         self._cost_fold(lane)                # idempotent (pop-guarded)
         self._sched_pool_retire(lane)        # free the plane pool slot
         if lane.get("dev_pool") is not None:

@@ -19,12 +19,16 @@ plane per :class:`~parsec_tpu_torch.core.context.Context`:
   when a second lane pool runs beside the first, and served by weighted
   DRR through :meth:`next_ptexec`);
 * **admission** — :meth:`over_window` / :meth:`count_stall` back the DTD
-  insert path's backpressure (``insert_task(..., nowait=)``).
+  insert path's backpressure (``insert_task(..., nowait=)``);
+* **counters** — the live planes' C-side stats as ``sched.*`` samplers of
+  the counter registry (:func:`plane_counter_sampler`).
 """
 
 from __future__ import annotations
 
 import threading
+import time
+import weakref
 import zlib
 from typing import Dict, Optional
 
@@ -64,6 +68,35 @@ SCHED_STATS = Counters(pools_engaged=0, pools_retired=0,
                        card_context=0, admission_stalls=0,
                        admission_rejects=0)
 
+#: the plane's C-side counters exported into the counter registry
+#: (``sched.<key>``, summed across live planes). ``admission_stalls`` is
+#: not here: SCHED_STATS exports it under the same name with process
+#: lifetime (count_stall bumps both), and a live-planes sampler would
+#: shadow it — a finished context's stalls would read 0 once its plane is
+#: collected.
+PLANE_COUNTER_KEYS = ("steals", "steal_visits", "spills", "served",
+                      "queued", "pools_live")
+
+_live_planes: "weakref.WeakSet" = weakref.WeakSet()
+_live_lock = threading.Lock()
+
+
+def plane_counter_sampler(key: str):
+    """A registry sampler summing one plane stat over live planes (the
+    short-TTL snapshot means one registry sweep costs one stats() call per
+    plane, not one per counter key)."""
+    def sample():
+        total = 0
+        with _live_lock:
+            planes = list(_live_planes)
+        for sp in planes:
+            try:
+                total += sp.stats_cached().get(key, 0)
+            except Exception:  # noqa: BLE001 — a torn-down plane
+                pass
+        return total
+    return sample
+
 
 class SchedPlane:
     """One native scheduler plane bound to one Context."""
@@ -81,6 +114,9 @@ class SchedPlane:
         self.KIND_PTDTD = mod.KIND_PTDTD
         self._pools: Dict[int, str] = {}       # handle -> pool name
         self._lock = threading.Lock()
+        self._stats_cache: tuple = (0.0, None)  # (stamp, snapshot)
+        with _live_lock:
+            _live_planes.add(self)
 
     # ------------------------------------------------------------- creation
     @classmethod
@@ -174,3 +210,22 @@ class SchedPlane:
     def count_stall(self, h: int) -> None:
         self.plane.stall(h)
         SCHED_STATS["admission_stalls"] += 1
+
+    # ------------------------------------------------------------- stats
+    def stats(self) -> Dict[str, int]:
+        return self.plane.stats()
+
+    def stats_cached(self, ttl: float = 0.02) -> Dict[str, int]:
+        """:meth:`stats` behind a short TTL — one registry sweep (six
+        ``sched.*`` sampler keys) pays one native stats() call, not six."""
+        now = time.monotonic()
+        stamp, snap = self._stats_cache
+        if snap is None or now - stamp > ttl:
+            snap = self.plane.stats()
+            self._stats_cache = (now, snap)
+        return snap
+
+    def pool_stats(self, h: int) -> Dict[str, int]:
+        """One pool's live/queued/inflight/served counts (the watchdog's
+        pool rule reads them)."""
+        return self.plane.pool_stats(h)

@@ -38,6 +38,7 @@ import itertools
 import random
 import sys
 import threading
+import weakref
 from collections import deque
 from typing import Dict, Iterable, List, Optional, Tuple
 
@@ -63,6 +64,36 @@ class SchedulerModule:
 
     def install(self, context) -> None:
         self.context = context
+        self._register_py_counters()
+
+    def stats_global(self) -> Dict[str, int]:
+        """Module-WIDE queue depths (not per-stream): the ``sched.py.*``
+        registry export, so interpreted and native runs publish the same
+        shape of scheduler observability (``sched.queued`` vs
+        ``sched.py.queued``)."""
+        return {}
+
+    def _register_py_counters(self) -> None:
+        """Route this module through the counter registry as
+        ``sched.py.*`` (weakly bound: a finished context's module must not
+        be pinned by the process-wide registry; the latest installed
+        module wins the name, matching the one-live-context norm)."""
+        from ..utils.counters import counters
+        ref = weakref.ref(self)
+
+        def _mk(key):
+            def sample():
+                m = ref()
+                if m is None:
+                    return 0
+                try:
+                    return m.stats_global().get(key, 0)
+                except Exception:  # noqa: BLE001 — sampling never breaks
+                    return 0
+            return sample
+
+        for key in ("queued", "local_len", "system_len"):
+            counters.register(f"sched.py.{key}", sampler=_mk(key))
 
     def flow_init(self, stream) -> None:
         """Per-execution-stream initialization (ref: flow_init + barrier)."""
@@ -350,6 +381,12 @@ class _LocalQueuesBase(SchedulerModule):
     def stats(self, stream):
         return {"local_len": len(self._local(stream)),
                 "system_len": len(self._system)}
+
+    def stats_global(self):
+        local = sum(len(q) for q in self._queues.values())
+        system = len(self._system)
+        return {"queued": local + system, "local_len": local,
+                "system_len": system}
 
     def has_local_work(self, stream) -> bool:
         return bool(len(self._local(stream)) or len(self._system))
@@ -710,6 +747,9 @@ class _GlobalBase(SchedulerModule):
     def flow_init(self, stream) -> None:
         pass
 
+    def stats_global(self):
+        return {"queued": len(self._q)}
+
     def has_local_work(self, stream) -> bool:
         return len(self._q) > 0
 
@@ -767,6 +807,9 @@ class _GlobalHeapBase(SchedulerModule):
 
     def flow_init(self, stream) -> None:
         pass
+
+    def stats_global(self):
+        return {"queued": len(self._heap)}
 
     def has_local_work(self, stream) -> bool:
         return len(self._heap) > 0

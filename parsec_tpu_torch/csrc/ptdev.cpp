@@ -59,6 +59,7 @@
 #include <vector>
 
 #include "ptdev_iface.h"
+#include "pthist.h"
 #include "ptrace_ring.h"
 
 namespace {
@@ -66,6 +67,11 @@ namespace {
 // in-lane trace event keys (for the native trace bridge, under "ptdev")
 constexpr uint32_t EV_DEV_DISPATCH = 1;  // interval per dispatch batch
 constexpr uint32_t EV_DEV_RETIRE = 2;    // point per retired task
+
+// latency histogram (pthist.h; name mirrored by the histogram reader):
+// per task, its dispatch call -> its retire into the engine — the stay on
+// the card's stream plus the poll that saw its batch's event complete
+const char *const HIST_NAMES[1] = {"retire_ns"};
 
 // ---------------------------------------------------------------------------
 // CohTable — C-side coherency + residency table (one per device)
@@ -475,6 +481,7 @@ struct Lane {
     bool failed;                    // a callback raised (mu)
     char errmsg[512];               // formatted exception text (mu)
     std::atomic<ptrace_ring::State *> trace;
+    std::atomic<pthist::State<1> *> hist;   // "retire_ns" (null: off)
 };
 
 // The GIL-free engine entry (PtDevSubmitVtbl). Wait-free push; the
@@ -541,6 +548,12 @@ void lane_record_error(Lane *self) {
 void lane_mgr_main(Lane *self) {
     std::vector<std::pair<uint32_t, int32_t>> batch, done;
     std::vector<PtDevRetireVtbl> rets;
+    // dispatch stamps of the tasks in flight, (pool << 32 | tid) -> ns,
+    // kept while the histogram is armed (this thread alone touches it)
+    std::unordered_map<uint64_t, int64_t> stamps;
+    auto skey = [](uint32_t pool, int32_t tid) {
+        return ((uint64_t)pool << 32) | (uint32_t)tid;
+    };
     while (self->running.load(std::memory_order_acquire)) {
         // ---- drain the pending MPSC (Treiber pop-all, reverse for FIFO)
         batch.clear();
@@ -583,6 +596,11 @@ void lane_mgr_main(Lane *self) {
                     if (self->inflight.load(std::memory_order_relaxed) > 0)
                         self->overlap_hits.fetch_add(
                             1, std::memory_order_relaxed);
+                    if (self->hist.load(std::memory_order_acquire)) {
+                        const int64_t now = ptrace_ring::now_ns();
+                        for (size_t k = i; k < j; k++)
+                            stamps[skey(pool, batch[k].second)] = now;
+                    }
                     PyObject *r = PyObject_CallFunction(
                         self->dispatch_cb, "IO", (unsigned int)pool, ids);
                     Py_DECREF(ids);
@@ -676,19 +694,32 @@ void lane_mgr_main(Lane *self) {
             if (!done.empty()) {
                 ptrace_ring::Writer tw;
                 tw.open(self->trace.load(std::memory_order_acquire));
+                pthist::State<1> *hs =
+                    self->hist.load(std::memory_order_acquire);
+                const int64_t h_now = hs ? ptrace_ring::now_ns() : 0;
                 for (size_t k = 0; k < done.size(); k++) {
+                    if (hs) {
+                        auto it = stamps.find(skey(done[k].first,
+                                                   done[k].second));
+                        if (it != stamps.end()) {
+                            hs->h[0].add(h_now - it->second);
+                            stamps.erase(it);
+                        }
+                    }
                     self->inflight.fetch_sub(1, std::memory_order_relaxed);
                     if (!rets[k].retire) {
                         self->late_retires.fetch_add(
                             1, std::memory_order_relaxed);
                         continue;
                     }
-                    // the GIL-free landing into the engine's release walk
-                    rets[k].retire(rets[k].obj, done[k].second);
-                    self->retired.fetch_add(1, std::memory_order_relaxed);
+                    // the point first: once the engine has seen a pool's
+                    // last retire, the pool's events are all in the ring
                     if (tw.st)
                         tw.rec(EV_DEV_RETIRE, done[k].second,
                                ptrace_ring::FLAG_POINT);
+                    // the GIL-free landing into the engine's release walk
+                    rets[k].retire(rets[k].obj, done[k].second);
+                    self->retired.fetch_add(1, std::memory_order_relaxed);
                 }
                 did = true;
             }
@@ -732,6 +763,7 @@ PyObject *lane_new(PyTypeObject *type, PyObject *, PyObject *) {
     self->failed = false;
     self->errmsg[0] = '\0';
     new (&self->trace) std::atomic<ptrace_ring::State *>(nullptr);
+    new (&self->hist) std::atomic<pthist::State<1> *>(nullptr);
     if (!self->mu || !self->cv || !self->pools) {
         Py_DECREF(self);
         PyErr_NoMemory();
@@ -774,6 +806,7 @@ void lane_dealloc(PyObject *obj) {
     delete self->mu;
     delete self->cv;
     delete self->trace.load(std::memory_order_acquire);
+    delete self->hist.load(std::memory_order_acquire);
     Py_TYPE(obj)->tp_free(obj);
 }
 
@@ -940,6 +973,16 @@ PyObject *lane_trace_disable(PyObject *obj, PyObject *) {
         reinterpret_cast<Lane *>(obj)->trace.load(std::memory_order_acquire));
 }
 
+PyObject *lane_hist_enable(PyObject *obj, PyObject *) {
+    return pthist::py_hist_enable<1>(reinterpret_cast<Lane *>(obj)->hist);
+}
+
+PyObject *lane_hist_snapshot(PyObject *obj, PyObject *) {
+    return pthist::py_hist_snapshot<1>(
+        reinterpret_cast<Lane *>(obj)->hist.load(std::memory_order_acquire),
+        HIST_NAMES);
+}
+
 PyObject *lane_trace_drain(PyObject *obj, PyObject *) {
     return ptrace_ring::py_trace_drain(
         reinterpret_cast<Lane *>(obj)->trace.load(std::memory_order_acquire));
@@ -977,6 +1020,10 @@ PyMethodDef lane_methods[] = {
     {"trace_enable", lane_trace_enable, METH_VARARGS,
      "arm the in-lane event rings (EV_DEV_DISPATCH/EV_DEV_RETIRE)"},
     {"trace_disable", lane_trace_disable, METH_NOARGS, "stop recording"},
+    {"hist_enable", lane_hist_enable, METH_NOARGS,
+     "arm the retire_ns histogram (dispatch -> retire, per task)"},
+    {"hist_snapshot", lane_hist_snapshot, METH_NOARGS,
+     "hist_snapshot() -> {name: (count, sum_ns, buckets_bytes)}"},
     {"trace_drain", lane_trace_drain, METH_NOARGS,
      "trace_drain() -> [(ring_id, packed_events_bytes)]"},
     {"trace_dropped", lane_trace_dropped, METH_NOARGS,
@@ -1026,6 +1073,7 @@ PyMODINIT_FUNC PyInit__ptdev(void) {
     }
     if (PyModule_AddIntConstant(m, "EV_DEV_DISPATCH", EV_DEV_DISPATCH) < 0 ||
         PyModule_AddIntConstant(m, "EV_DEV_RETIRE", EV_DEV_RETIRE) < 0 ||
+        PyModule_AddIntConstant(m, "HIST_BUCKETS", pthist::NBUCKETS) < 0 ||
         PyModule_AddIntConstant(m, "COH_INVALID", COH_INVALID) < 0 ||
         PyModule_AddIntConstant(m, "COH_OWNED", COH_OWNED) < 0 ||
         PyModule_AddIntConstant(m, "COH_SHARED", COH_SHARED) < 0 ||

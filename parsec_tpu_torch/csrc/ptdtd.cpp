@@ -74,15 +74,26 @@ constexpr int32_t ACC_WRITE = 0x2;   // mirrors dsl/dtd.py WRITE
 
 // in-lane trace event keys (registered in the PBP dictionary by
 // the native trace bridge; ring contract in ptrace_ring.h)
-constexpr uint32_t EV_LINK = 1;   // one interval per insert_many link batch
-constexpr uint32_t EV_EXEC = 2;   // one interval per (class, batch) dispatch
-constexpr uint32_t EV_TASK = 3;   // one point per batch-lane task completion
+// ids: EV_LINK — the batch size linked; EV_TASK/EV_PT_DONE — the task id;
+// EV_PT_LINK — 1 (one task linked). The per-task lane's events carry keys
+// of their own: its tasks also fire the Python PINS events, which the
+// trace bridge's coarse drain markers must not count a second time.
+constexpr uint32_t EV_LINK = 1;     // one interval per insert_many link batch
+constexpr uint32_t EV_EXEC = 2;     // one interval per (class, batch) dispatch
+constexpr uint32_t EV_TASK = 3;     // one point per batch-lane task completion
+constexpr uint32_t EV_PT_LINK = 4;  // one interval per per-task insert
+constexpr uint32_t EV_PT_DONE = 5;  // one point per per-task completion
 
 // latency histogram slots (pthist.h; names mirrored by the histogram reader)
 constexpr int H_EXEC = 0;     // per-task (class,batch) latency, amortized
 constexpr int H_READY = 1;    // batch-lane ready-push -> drain-pop wait
-constexpr int N_HISTS = 2;
-const char *const HIST_NAMES[N_HISTS] = {"exec_ns", "ready_wait_ns"};
+// per-task lane: ready (activate() or a predecessor's complete()) ->
+// complete(), the task's whole stay in the Python scheduler and the
+// device module — a queue wait plus its execution, not an exec time
+constexpr int H_PT_DONE = 2;
+constexpr int N_HISTS = 3;
+const char *const HIST_NAMES[N_HISTS] = {"exec_ns", "ready_wait_ns",
+                                         "pt_ready_to_done_ns"};
 
 // flows a task may carry. The engine this file was copied from took 64,
 // which refused the GEMM_K body of a k-chain of 32 tiles (2 * 32 + 1 = 65
@@ -404,6 +415,7 @@ void complete_locked(Engine *self, int64_t tid,
                     self->ready->push_back(s);
                 }
             } else {
+                sr.ready_ns = now;      // per-task lane: ready from here
                 surfaced.push_back(s);
             }
         }
@@ -472,11 +484,15 @@ PyObject *engine_insert(PyObject *obj, PyObject *args) {
 
     int64_t tid;
     int32_t held;
+    ptrace_ring::Writer tw;
+    tw.open(self->trace.load(std::memory_order_acquire));
+    if (tw.st) tw.rec(EV_PT_LINK, 1, ptrace_ring::FLAG_START);
     {
         std::lock_guard<std::mutex> lk(*self->mu);
         tid = link_locked(self, tixs, laccs, nflows);
         held = (*self->tasks)[(size_t)tid].deps_remaining;
     }
+    if (tw.st) tw.rec(EV_PT_LINK, 1, ptrace_ring::FLAG_END);
     return Py_BuildValue("(Li)", (long long)tid, (int)held);
 }
 
@@ -504,6 +520,8 @@ PyObject *engine_activate(PyObject *obj, PyObject *arg) {
             return nullptr;
         }
         left = --rec.deps_remaining;
+        if (left == 0 && hist_of(self))
+            rec.ready_ns = ptrace_ring::now_ns();   // ready from here
     }
     return PyLong_FromLong(left);
 }
@@ -516,6 +534,8 @@ PyObject *engine_complete(PyObject *obj, PyObject *arg) {
     int64_t tid = PyLong_AsLongLong(arg);
     if (PyErr_Occurred()) return nullptr;
     std::vector<int64_t> surfaced;
+    pthist::State<N_HISTS> *hs = hist_of(self);
+    const int64_t h_now = hs ? ptrace_ring::now_ns() : 0;
     {
         std::lock_guard<std::mutex> lk(*self->mu);
         std::vector<TaskRec> &tasks = *self->tasks;
@@ -533,8 +553,14 @@ PyObject *engine_complete(PyObject *obj, PyObject *arg) {
                             "complete() on a batch-lane task");
             return nullptr;
         }
-        complete_locked(self, tid, surfaced,
-                        hist_of(self) ? ptrace_ring::now_ns() : 0);
+        if (hs && rec.ready_ns > 0)
+            hs->h[H_PT_DONE].add(h_now - rec.ready_ns);
+        complete_locked(self, tid, surfaced, h_now);
+    }
+    {
+        ptrace_ring::Writer tw;
+        tw.open(self->trace.load(std::memory_order_acquire));
+        if (tw.st) tw.rec(EV_PT_DONE, tid, ptrace_ring::FLAG_POINT);
     }
     PyObject *tup = PyTuple_New((Py_ssize_t)surfaced.size());
     if (!tup) return nullptr;
@@ -1266,12 +1292,6 @@ PyObject *engine_hist_enable(PyObject *obj, PyObject *) {
     return r;
 }
 
-PyObject *engine_hist_disable(PyObject *obj, PyObject *) {
-    return pthist::py_hist_disable<N_HISTS>(
-        reinterpret_cast<Engine *>(obj)->hist.load(
-            std::memory_order_acquire));
-}
-
 PyObject *engine_hist_snapshot(PyObject *obj, PyObject *) {
     return pthist::py_hist_snapshot<N_HISTS>(
         reinterpret_cast<Engine *>(obj)->hist.load(
@@ -1560,7 +1580,7 @@ PyMethodDef engine_methods[] = {
      "trace_enable(nrings=16, capacity=65536) -> (nrings, cap): arm the "
      "in-lane event rings (idempotent; see ptrace_ring.h)"},
     {"trace_disable", engine_trace_disable, METH_NOARGS,
-     "stop recording (rings and drop counters are kept)"},
+     "stop recording (the rings stay allocated; trace_enable re-arms)"},
     {"trace_drain", engine_trace_drain, METH_NOARGS,
      "trace_drain() -> [(ring_id, packed_events_bytes)]; event layout "
      "'<qqII' = (t_ns, id, key, flags)"},
@@ -1569,10 +1589,9 @@ PyMethodDef engine_methods[] = {
     {"monotonic_ns", engine_monotonic_ns, METH_NOARGS,
      "the trace clock (steady_clock ns) — for epoch calibration"},
     {"hist_enable", engine_hist_enable, METH_NOARGS,
-     "arm the batch-lane latency histograms (exec_ns amortized per "
-     "(class,batch), ready_wait_ns push->pop; see pthist.h)"},
-    {"hist_disable", engine_hist_disable, METH_NOARGS,
-     "stop recording (buckets are kept)"},
+     "arm the latency histograms (exec_ns amortized per (class,batch), "
+     "ready_wait_ns push->pop, pt_ready_to_done_ns per-task lane ready->"
+     "complete; see pthist.h)"},
     {"hist_snapshot", engine_hist_snapshot, METH_NOARGS,
      "{name: (count, sum_ns, buckets_bytes)} — buckets pack '<496Q'"},
     {"deps_remaining", engine_deps_remaining, METH_O,
@@ -1826,6 +1845,8 @@ PyMODINIT_FUNC PyInit__ptdtd(void) {
     if (PyModule_AddIntConstant(m, "EV_LINK", EV_LINK) < 0 ||
         PyModule_AddIntConstant(m, "EV_EXEC", EV_EXEC) < 0 ||
         PyModule_AddIntConstant(m, "EV_TASK", EV_TASK) < 0 ||
+        PyModule_AddIntConstant(m, "EV_PT_LINK", EV_PT_LINK) < 0 ||
+        PyModule_AddIntConstant(m, "EV_PT_DONE", EV_PT_DONE) < 0 ||
         PyModule_AddIntConstant(m, "HIST_BUCKETS", pthist::NBUCKETS) < 0 ||
         PyModule_AddIntConstant(m, "HIST_SUB_BITS", pthist::SUB_BITS) < 0) {
         Py_DECREF(m);

@@ -1655,12 +1655,6 @@ PyObject *graph_trace_enable(PyObject *obj, PyObject *args) {
     return ptrace_ring::py_trace_enable(self->trace, args);
 }
 
-PyObject *graph_trace_disable(PyObject *obj, PyObject *) {
-    return ptrace_ring::py_trace_disable(
-        reinterpret_cast<Graph *>(obj)->trace.load(
-            std::memory_order_acquire));
-}
-
 PyObject *graph_trace_drain(PyObject *obj, PyObject *) {
     return ptrace_ring::py_trace_drain(reinterpret_cast<Graph *>(obj)->trace.load(
             std::memory_order_acquire));
@@ -1695,12 +1689,6 @@ PyObject *graph_hist_enable(PyObject *obj, PyObject *) {
                 self->ready_stamp[t].store(now, std::memory_order_relaxed);
     }
     return r;
-}
-
-PyObject *graph_hist_disable(PyObject *obj, PyObject *) {
-    return pthist::py_hist_disable<N_HISTS>(
-        reinterpret_cast<Graph *>(obj)->hist.load(
-            std::memory_order_acquire));
 }
 
 PyObject *graph_hist_snapshot(PyObject *obj, PyObject *) {
@@ -1780,8 +1768,6 @@ PyMethodDef graph_methods[] = {
     {"trace_enable", graph_trace_enable, METH_VARARGS,
      "trace_enable(nrings=16, capacity=65536) -> (nrings, cap): arm the "
      "in-lane event rings (idempotent; see ptrace_ring.h)"},
-    {"trace_disable", graph_trace_disable, METH_NOARGS,
-     "stop recording (rings and drop counters are kept)"},
     {"trace_drain", graph_trace_drain, METH_NOARGS,
      "trace_drain() -> [(ring_id, packed_events_bytes)]; event layout "
      "'<qqII' = (t_ns, id, key, flags)"},
@@ -1792,8 +1778,6 @@ PyMethodDef graph_methods[] = {
     {"hist_enable", graph_hist_enable, METH_NOARGS,
      "arm the in-lane latency histograms (exec_ns batch-amortized, "
      "ready_wait_ns sampled 1-in-8 by task id; see pthist.h)"},
-    {"hist_disable", graph_hist_disable, METH_NOARGS,
-     "stop recording (buckets are kept)"},
     {"hist_snapshot", graph_hist_snapshot, METH_NOARGS,
      "{name: (count, sum_ns, buckets_bytes)} — buckets pack '<496Q'"},
     {nullptr, nullptr, 0, nullptr}};

@@ -82,7 +82,7 @@ struct State {
 // Shared method bodies, mirroring ptrace_ring.h's py_trace_* helpers.
 
 // hist_enable(): allocate + publish the zeroed State (idempotent — a
-// re-enable after disable keeps the accumulated buckets).
+// second call keeps the accumulated buckets).
 template <int NH>
 inline PyObject *py_hist_enable(std::atomic<State<NH> *> &slot) {
     State<NH> *st = slot.load(std::memory_order_acquire);
@@ -93,12 +93,6 @@ inline PyObject *py_hist_enable(std::atomic<State<NH> *> &slot) {
     } else {
         st->enabled.store(true, std::memory_order_release);
     }
-    Py_RETURN_NONE;
-}
-
-template <int NH>
-inline PyObject *py_hist_disable(State<NH> *st) {
-    if (st) st->enabled.store(false, std::memory_order_release);
     Py_RETURN_NONE;
 }
 

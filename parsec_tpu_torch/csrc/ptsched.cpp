@@ -392,11 +392,6 @@ PyObject *plane_hist_enable(PyObject *obj, PyObject *) {
     return pthist::py_hist_enable<1>(P(obj)->hist);
 }
 
-PyObject *plane_hist_disable(PyObject *obj, PyObject *) {
-    return pthist::py_hist_disable<1>(
-        P(obj)->hist.load(std::memory_order_acquire));
-}
-
 PyObject *plane_hist_snapshot(PyObject *obj, PyObject *) {
     return pthist::py_hist_snapshot<1>(
         P(obj)->hist.load(std::memory_order_acquire), HIST_NAMES);
@@ -467,8 +462,6 @@ PyMethodDef plane_methods[] = {
      "capsule keeps this plane alive"},
     {"hist_enable", plane_hist_enable, METH_NOARGS,
      "arm the sched.queue_ns histogram (push->pop wait, sampled 1-in-8)"},
-    {"hist_disable", plane_hist_disable, METH_NOARGS,
-     "stop recording (buckets are kept)"},
     {"hist_snapshot", plane_hist_snapshot, METH_NOARGS,
      "{name: (count, sum_ns, buckets_bytes)} — buckets pack '<496Q'"},
     {nullptr, nullptr, 0, nullptr}};

@@ -38,6 +38,15 @@ This module stands where parsec/mca/device/cuda + the generic GPU runtime
 * Task batching (parsec_gpu_task_collect_batch, device_gpu.c:2229):
   compatible queued tasks are handed to a batch hook in one dispatch when the
   task class opts in.
+* Profiling (ref: per-GPU-stream profiling streams, profiling.h:146-440):
+  with a tracer on the context, the module records one ``<name>::exec``
+  interval per task on a stream of its own — START when the body is
+  launched (after its stage-ins), END in the epilog, once the task's
+  completion event has been observed — and one ``<name>::mem`` POINT per
+  residency change, carrying the resident bytes after it (read by
+  ``tools/mem_view``). The span is host-side: it covers the launch, the
+  queueing on the stream and the poll that saw the event complete, not
+  the kernel's device time, which belongs to torch.profiler.
 * :func:`make_cuda_hook` builds the chore hook of a PTG ``BODY
   [type=CUDA]`` (the generated GPU hook, jdf2c.c:6613). PTG intermediates
   ride as tensors with no backing ``Data``: they bypass the tile heap and
@@ -52,8 +61,11 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import threading
-from typing import Any, Callable, Deque, Dict, List, Optional, Sequence
+import time
+from typing import (Any, Callable, Deque, Dict, List, Optional, Sequence,
+                    Tuple)
 
 import torch
 
@@ -62,6 +74,7 @@ from ..core.task import (DEV_CUDA, FLOW_ACCESS_CTL, FLOW_ACCESS_WRITE,
 from ..data.data import (COHERENCY_INVALID, COHERENCY_OWNED, COHERENCY_SHARED,
                          Data, DataCopy)
 from ..utils import mca, output
+from ..utils.trace import EVENT_FLAG_END, EVENT_FLAG_POINT, EVENT_FLAG_START
 from .device import DeviceModule
 
 mca.register("device_cuda_max_bytes", 0,
@@ -92,7 +105,7 @@ class CUDATask:
     """Device-side task descriptor (ref: parsec_gpu_task_t, device_gpu.h:117-155)."""
 
     __slots__ = ("task", "submit", "batchable", "batch_submit", "load",
-                 "out_arrays", "event", "oom_retries", "pinned")
+                 "out_arrays", "event", "oom_retries", "pinned", "trace_span")
 
     def __init__(self, task: Task, submit: Callable, batchable: bool = False,
                  batch_submit: Optional[Callable] = None) -> None:
@@ -114,6 +127,11 @@ class CUDATask:
         #: the readers guard of parsec_device_data_stage_in/epilog,
         #: device_gpu.c:1210,1800)
         self.pinned: List[Any] = []
+        #: its open exec span: (the trace stream its START went to, the END
+        #: key, the span's id), or None (not traced). The id is unique a
+        #: span, since DTD tasks share their class's key; the END goes to
+        #: the START's stream even if the context's tracer changed between
+        self.trace_span: Optional[Tuple[Any, int, int]] = None
 
 
 class CUDADevice(DeviceModule):
@@ -165,6 +183,12 @@ class CUDADevice(DeviceModule):
         #: called at :meth:`fini` (graph capture releases this card's
         #: programs there)
         self.fini_hooks: List[Callable[[], None]] = []
+        # the tracer the stream and keywords are bound to (_prof), and the
+        # exec spans' ids
+        self._prof_ref = None
+        self._prof_stream = None
+        self._prof_keys = None
+        self._exec_ids = itertools.count(1)
         # serializes the residency mirror (_lru/_lru_sizes/_lru_segs/_zone/
         # _resident_bytes and the reader pins): worker threads mutate it
         # from stage-ins and epilogs and the device lane's manager thread
@@ -248,6 +272,7 @@ class CUDADevice(DeviceModule):
         if drop_table and self._ncoh is not None:
             self._ncoh.drop(key)
         self.evictions += 1
+        self._trace_mem(-freed)
 
     def coh_stats(self) -> Optional[Dict[str, int]]:
         """The native coherency/residency counters, or None when the table
@@ -422,11 +447,59 @@ class CUDADevice(DeviceModule):
         with self._on_stream():
             return self._stage_in_copy(data, 0, pin=pin)
 
+    # ------------------------------------------------------------ profiling
+    def _prof(self):
+        """The module's profiling stream, lazily bound to ctx.profiling
+        (None without a tracer) and bound anew when the context's tracer
+        changes, so each tracer's dump holds the events recorded while it
+        was attached."""
+        prof = getattr(self.context, "profiling", None)
+        if prof is None:
+            return None
+        if prof is not self._prof_ref:
+            self._prof_stream = prof.stream(self.name)
+            self._prof_keys = prof.add_dictionary_keyword(f"{self.name}::exec")
+            # memory-ledger events (the dbp2mem surface, tools/profiling/
+            # dbp2mem.c): every residency change is a POINT event carrying
+            # the post-change occupancy, rendered over time by
+            # parsec_tpu_torch.tools.mem_view
+            self._mem_key = prof.add_dictionary_keyword(
+                f"{self.name}::mem", info_desc="resident{q};delta{q}")[0]
+            self._prof_ref = prof
+            self._mem_seq = 0
+        return self._prof_stream
+
+    def _trace_mem(self, delta: int) -> None:
+        """Record a residency change (bytes) on the device's trace stream;
+        called with the heap lock held, so the events are in update order."""
+        ps = self._prof()
+        if ps is None or delta == 0:
+            return
+        self._mem_seq += 1
+        ps.trace(self._mem_key, self._mem_seq, 0, EVENT_FLAG_POINT,
+                 self._prof_ref.pack_info(f"{self.name}::mem",
+                                          resident=self._resident_bytes,
+                                          delta=delta))
+
+    def _trace_launch(self, ps, gt: CUDATask, t0: float) -> None:
+        """The START of a task's exec span, stamped ``t0`` (taken before
+        the launch) and appended only once the launch succeeded, so an OOM
+        retry leaves one START for its one END."""
+        sid = next(self._exec_ids)
+        gt.trace_span = (ps, self._prof_keys[1], sid)
+        ps.events.append((self._prof_keys[0], sid,
+                          gt.task.taskpool.taskpool_id, t0, EVENT_FLAG_START,
+                          b""))
+
     def _submit_one(self, gt: CUDATask) -> None:
+        ps = self._prof()
         with self._on_stream():
             inputs = self._gather_inputs(gt)
+            t0 = time.perf_counter()
             gt.out_arrays = _as_tuple(gt.submit(self, gt.task, inputs))
             gt.event = self._record_event()
+        if ps is not None:
+            self._trace_launch(ps, gt, t0)
 
     def _gather_inputs(self, gt: CUDATask) -> List[Any]:
         task = gt.task
@@ -495,9 +568,11 @@ class CUDADevice(DeviceModule):
         """One dispatch for a batch of compatible independent tasks; a batch
         that fails (a stage-in out of memory) is resubmitted task by task
         under the OOM discipline. Returns the tasks actually dispatched."""
+        ps = self._prof()
         try:
             with self._on_stream():
                 inputs_list = [self._gather_inputs(g) for g in group]
+                t0 = time.perf_counter()
                 outs_list = group[0].batch_submit(
                     self, [g.task for g in group], inputs_list)
                 ev = self._record_event()
@@ -512,6 +587,8 @@ class CUDADevice(DeviceModule):
         for g, outs in zip(group, outs_list):
             g.out_arrays = _as_tuple(outs)
             g.event = ev
+            if ps is not None:
+                self._trace_launch(ps, g, t0)
         return group
 
     def _epilog(self, stream, gt: CUDATask) -> None:
@@ -542,6 +619,9 @@ class CUDADevice(DeviceModule):
             slot.data_out = copy
             self._lru_touch(self.res_key(data), copy)
             self._coh_mark_owned(data, copy)
+        if gt.trace_span is not None:
+            ps, end_key, sid = gt.trace_span
+            ps.trace(end_key, sid, task.taskpool.taskpool_id, EVENT_FLAG_END)
         self._unpin(gt)     # inputs consumed: copies evictable again
         self.executed_tasks += 1
         self.load_sub(gt.load)
@@ -560,6 +640,7 @@ class CUDADevice(DeviceModule):
             self._resident_bytes += new_size - old_size
             self._lru_sizes[key] = new_size
             self._lru[key] = copy
+            self._trace_mem(new_size - old_size)
             if new_size != old_size or key not in self._lru_segs:
                 # re-register on a size change AND whenever the key has no
                 # live segment (an allocate() miss under pressure must not

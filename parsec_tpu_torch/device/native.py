@@ -42,7 +42,12 @@ the GIL-free ``retire()`` entry. This module is everything around it:
   version-checked stage-in through the C coherency table, the body
   launches, write-backs at completion);
 * **counters** — ``PTDEV_STATS`` engagement accounting, so a silent
-  fall-back to the interpreted device module is a test failure.
+  fall-back to the interpreted device module is a test failure, and the
+  C-side lane and coherency counters as ``ptdev.*`` samplers of the
+  counter registry (:func:`dev_counter_sampler`,
+  :func:`coh_counter_sampler`);
+* **tracing** — the lane's in-lane ring (``EV_DEV_*``) lands as
+  ``ptdev-w*`` profiling streams through the context's trace bridge.
 
 The lane is the FAST path, not the only path: ``device/cuda.py``'s
 kernel_scheduler stays the interpreted route for DTD pools and any pool
@@ -59,7 +64,7 @@ import atexit
 import contextlib
 import time
 import weakref
-from typing import Callable, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -87,7 +92,7 @@ mca.register("device_native_poll_us", 100,
 PTDEV_STATS = LaneStats(lanes_up=0, pools_engaged=0, tasks_engaged=0,
                         pools_fallback=0, pools_ineligible=0)
 
-#: live lanes, for the exit net below
+#: live lanes, for the exit net below and the ``ptdev.*`` samplers
 _lanes: "weakref.WeakSet[NativeDeviceLane]" = weakref.WeakSet()
 
 
@@ -103,6 +108,45 @@ def _stop_abandoned_lanes() -> None:
 
 
 atexit.register(_stop_abandoned_lanes)
+
+#: C-side counters exported into the counter registry (ptdev.<name>): the
+#: lane half comes from Lane.stats(), the coherency half from the bound
+#: device's CohTable.stats()
+DEV_COUNTER_KEYS = ("submitted", "dispatched", "retired",
+                    "dispatch_batches", "overlap_hits", "late_submits",
+                    "late_retires", "cb_errors", "inflight")
+COH_COUNTER_KEYS = ("evictions", "pinned_skips", "coh_hits", "coh_misses",
+                    "stage_in_bytes", "stage_out_bytes", "resident_bytes")
+
+
+def dev_counter_sampler(key: str):
+    """Sampler summing one C-side counter across every live lane (TTL-
+    cached snapshot: one stats() call per lane per registry sweep)."""
+    def sample():
+        total = 0
+        for lane in list(_lanes):
+            try:
+                total += lane.stats_cached()[key]
+            except Exception:  # noqa: BLE001 - a torn-down lane samples 0
+                pass
+        return total
+    return sample
+
+
+def coh_counter_sampler(key: str):
+    """Sampler summing one coherency-table counter across every device
+    table attached to a live lane's device."""
+    def sample():
+        total = 0
+        for lane in list(_lanes):
+            try:
+                st = lane.coh_stats_cached()
+                if st is not None:
+                    total += st[key]
+            except Exception:  # noqa: BLE001
+                pass
+        return total
+    return sample
 
 
 def make_coh_table(budget: int):
@@ -177,11 +221,17 @@ class NativeDeviceLane:
         self.clane = _native.load_ptdev().Lane()
         self._pools: Dict[int, _PoolState] = {}
         self._next_pool = 1
+        self._stats_cache: Tuple[float, Optional[dict]] = (0.0, None)
+        self._coh_cache: Tuple[float, Optional[dict]] = (0.0, None)
         self.clane.start(self._dispatch, self._poll,
                          mca.get("device_native_poll_us", 100))
         self._up = True
         PTDEV_STATS["lanes_up"] += 1
         _lanes.add(self)
+        # in-lane ring events (EV_DEV_*) land as `ptdev-w*` profiling
+        # streams through the same bridge as the execution lanes
+        ctx._ntrace_attach("ptdev", self.clane)
+        ctx._hist_attach("ptdev", self.clane)
         output.debug_verbose(1, "ptdev",
                              f"native device lane up on {device.name}")
 
@@ -306,6 +356,26 @@ class NativeDeviceLane:
             self._clock = now
         return done
 
+    # ------------------------------------------------------------ counters
+    def stats_cached(self, ttl: float = 0.05) -> Dict[str, Any]:
+        now = time.monotonic()
+        stamp, snap = self._stats_cache
+        if snap is None or now - stamp > ttl:
+            snap = self.clane.stats()
+            self._stats_cache = (now, snap)
+        return snap
+
+    def coh_stats_cached(self, ttl: float = 0.05) -> Optional[Dict[str, Any]]:
+        tbl = getattr(self.device, "_ncoh", None)
+        if tbl is None:
+            return None
+        now = time.monotonic()
+        stamp, snap = self._coh_cache
+        if snap is None or now - stamp > ttl:
+            snap = tbl.stats()
+            self._coh_cache = (now, snap)
+        return snap
+
     # ------------------------------------------------------------ teardown
     def fini(self) -> None:
         if not self._up:
@@ -326,7 +396,12 @@ class NativeDeviceLane:
                     + s["late_submits"]:
                 break
             time.sleep(1e-3)
+        # land the lane's last ring events and fold its buckets before the
+        # manager stops
+        self.ctx._ntrace_detach(self.clane)
+        self.ctx._hist_detach(self.clane)
         self.clane.stop()
+        _lanes.discard(self)        # the samplers sum live lanes only
         for pid in list(self._pools):
             self.unbind_pool(pid)
         if self.stream is not None:

@@ -500,6 +500,16 @@ class DTDTaskpool(Taskpool):
                     _pool_sync_on_complete(tp)
                     _prev(tp)
                 self.on_complete = _chained
+        # ring lifecycle (enable): the engine records both lanes into its
+        # in-lane rings and histograms. The batched lane surfaces no
+        # per-task PINS events, so its rings are armed whenever the bridge
+        # runs (marker-only under PINS alone); the per-task lane fires the
+        # PINS events itself, so its rings are armed only for a tracer
+        # (markers would count its tasks twice). The engine is per-CONTEXT
+        # and outlives pools, so its events carry taskpool id 0
+        if self._batch_on or ctx.profiling is not None:
+            ctx._ntrace_attach("ptdtd", eng)
+        ctx._hist_attach("ptdtd", eng)
         self._neng = eng
         return eng
 
@@ -719,6 +729,14 @@ class DTDTaskpool(Taskpool):
             if plane is not None:
                 plane.unregister_pool(self._sched_pool)
             self._sched_pool = None
+        self._land_trace()
+
+    def _land_trace(self) -> None:
+        """Ring lifecycle (quiescence): land the engine's in-lane events
+        now — the engine outlives the pool, but a dumped trace must not be
+        missing a completed pool's tail."""
+        if self.ctx._ntrace is not None:
+            self.ctx._ntrace.drain_all(wait=True)
 
     def _release_native(self) -> None:
         """Hand the pool's engine-side references back: tile payload slots
@@ -1377,6 +1395,7 @@ class DTDTaskpool(Taskpool):
             # slot-ownership hand-off: batched writes land back in
             # tile.data now that the pool is drained
             self._sync_slots()
+            self._land_trace()
         return done
 
     def close(self) -> None:

@@ -1745,8 +1745,9 @@ class PTGTaskpool(Taskpool):
                 written.append(())
         return fns, written
 
-    def _mk_region_runner(self, rp: Dict[str, Any], program,
-                          slots: List[Any], mem_datas, wb_datas):
+    def _mk_region_runner(self, graph, cid: int, rp: Dict[str, Any],
+                          program, slots: List[Any], mem_datas, wb_datas,
+                          mod):
         """The fused super-task's dispatch wrapper (CPU regions, called
         from the batched data callback): resolve the region's external
         inputs (producer slots + memory reads at dispatch time — the same
@@ -1754,10 +1755,13 @@ class PTGTaskpool(Taskpool):
         program, land externally-consumed outputs back into their original
         slot ids, and perform the members' memory write-backs in
         serialization order (one version bump per member write, like the
-        per-task path)."""
+        per-task path). Brackets the body in EV_REGION ring events so
+        merged timelines show regions vs seams."""
         ext, out_slots = rp["ext"], rp["out_slots"]
+        evr, fs, fe = mod.EV_REGION, mod.FLAG_START, mod.FLAG_END
 
         def run_region():
+            graph.trace_mark(evr, cid, fs)
             ev: List[Any] = []
             for kk, v in ext:
                 if kk == "slot":
@@ -1774,6 +1778,7 @@ class PTGTaskpool(Taskpool):
                 slots[s] = v
             for dref, v in zip(wb_datas, wbs):
                 _write_back(dref, v)
+            graph.trace_mark(evr, cid, fe)
         return run_region
 
     def _ptexec_lane_fused(self, flat, plan, classes: List[TaskClass],
@@ -1838,7 +1843,8 @@ class PTGTaskpool(Taskpool):
                     "cold": not hit}
             else:
                 runners[cid] = self._mk_region_runner(
-                    rp, program, slots, mem_datas, wb_datas)
+                    graph, cid, rp, program, slots, mem_datas, wb_datas,
+                    mod)
         lane = {"graph": graph, "slots": slots, "n": flat["n"],
                 "finalized": False}
         self._ptexec_cost_bind(lane, graph, flat, names, bucket, plan=plan,
@@ -1854,7 +1860,7 @@ class PTGTaskpool(Taskpool):
             self._ptexec_bind_dev_fused(lane, devlane, flat, plan,
                                         classes, slots, mem_datas,
                                         writebacks, dev_regions,
-                                        place_dev, bucket)
+                                        place_dev, bucket, mod)
         return lane
 
     # ---------------------------------------------------------- device lane
@@ -1864,7 +1870,7 @@ class PTGTaskpool(Taskpool):
                                writebacks: Dict[int, List],
                                dev_regions: Dict[int, Dict],
                                place_dev: List[bool],
-                               bucket: int = 0) -> None:
+                               bucket: int, mod) -> None:
         """Device binding for a fused pool: same contract as
         :meth:`_ptexec_bind_dev`, but the mask covers compact nodes and
         device REGIONS dispatch as one region-sized program on the lane
@@ -1879,7 +1885,9 @@ class PTGTaskpool(Taskpool):
         hooks = self._mk_ptexec_dev_dispatch(
             flat, classes, dev_of_class, slots, mem_datas, writebacks,
             devlane, graph, fusion={"orig_of": plan["orig_of"],
-                             "dev_regions": dev_regions},
+                             "dev_regions": dev_regions,
+                             "evr": mod.EV_REGION, "fls": mod.FLAG_START,
+                             "fle": mod.FLAG_END},
             cost_obs=self._ptexec_cost_obs(lane), bucket=bucket)
         self._ptexec_dev_engage(lane, devlane, graph, hooks,
                                 plan["dev_mask"], plan["ndev_tasks"])
@@ -2049,6 +2057,7 @@ class PTGTaskpool(Taskpool):
             # original id via orig_of
             _forig = fusion["orig_of"]
             _dregs = fusion["dev_regions"]
+            _evr, _fs, _fe = fusion["evr"], fusion["fls"], fusion["fle"]
         else:
             _forig = _dregs = None
 
@@ -2112,7 +2121,9 @@ class PTGTaskpool(Taskpool):
                                 dev.pin_copy(copy)
                                 pins.append(copy)
                                 ev.append(copy.payload)
+                        graph.trace_mark(_evr, i, _fs)
                         outs, wbs_v = r["program"](tuple(ev))
+                        graph.trace_mark(_evr, i, _fe)
                         for s, v in zip(r["out_slots"], outs):
                             slots[s] = v
                         ents.append((
@@ -2337,6 +2348,10 @@ class PTGTaskpool(Taskpool):
             lane["dev"].unbind_pool(lane["dev_pool"])
         slots = lane.get("slots")
         if slots:
+            # lane-side datarepo accounting into the counter registry
+            # (the slot_stats retire counter, ptexec.slots_retired)
+            from ...utils.counters import PTEXEC_SLOTS_RETIRED, counters
+            counters.add(PTEXEC_SLOTS_RETIRED, lane["graph"].slot_stats()[1])
             slots.clear()
         self.addto_nb_tasks(-lane["n"])
 

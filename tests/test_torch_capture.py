@@ -855,3 +855,88 @@ def test_programs_charge_their_card_evict_over_budget_and_go_at_fini():
     assert progs[2].released and dev.program_bytes == 0
     assert not any(getattr(p, "dev", None) is dev
                    for _, p in CAP._program_cache.oldest_first())
+
+
+_CAP_GEMM_PTG = """
+%global MT
+%global KT
+%global descA
+%global descB
+%global descC
+
+GEMM(m, n, k)
+  m = 0 .. MT-1
+  n = 0 .. MT-1
+  k = 0 .. KT-1
+  : descC(m, n)
+  READ A <- descA(m, k)
+  READ B <- descB(k, n)
+  RW   C <- (k == 0) ? descC(m, n) : C GEMM(m, n, k-1)
+       -> (k < KT-1) ? C GEMM(m, n, k+1) : descC(m, n)
+BODY
+  C = C + BODYDOT
+END
+"""
+
+
+def test_capture_ptg_via_replay(ctx, ref_ctx):
+    """A PTG program — static task space — run as ONE captured DAG through
+    the cross-DSL replay (ptg_to_dtd + capture): tile GEMM results match
+    the PTG scheduler execution, and the reference's own captured replay
+    of the same program on the same inputs."""
+    from parsec_tpu.core.pins_modules import ptg_to_dtd_replay as ref_replay
+    from parsec_tpu.dsl.ptg.compiler import compile_ptg as ref_compile
+    from parsec_tpu_torch.core.pins_modules import ptg_to_dtd_replay
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+
+    MT = KT = 2
+    TS = 8
+    rng = np.random.default_rng(13)
+    a = rng.standard_normal((MT * TS, KT * TS)).astype(np.float32)
+    b = rng.standard_normal((KT * TS, MT * TS)).astype(np.float32)
+
+    def mats(prefix, tiled):
+        A = tiled(prefix + "A", MT * TS, KT * TS, TS, TS)
+        B = tiled(prefix + "B", KT * TS, MT * TS, TS, TS)
+        Cm = tiled(prefix + "C", MT * TS, MT * TS, TS, TS)
+        A.fill(lambda m, k: a[m * TS:(m + 1) * TS, k * TS:(k + 1) * TS])
+        B.fill(lambda k, n: b[k * TS:(k + 1) * TS, n * TS:(n + 1) * TS])
+        Cm.fill(lambda m, n: np.zeros((TS, TS), np.float32))
+        return {"descA": A, "descB": B, "descC": Cm}
+
+    src = _CAP_GEMM_PTG.replace("BODYDOT", "torch.matmul(A, B)")
+    # scheduler PTG execution
+    prog = compile_ptg(src, "capgemm")
+    m1 = mats("rs", TiledMatrix)
+    ptp = prog.instantiate(ctx, globals={"MT": MT, "KT": KT}, collections=m1)
+    ctx.add_taskpool(ptp)
+    ctx.wait(timeout=60)
+
+    # captured replay of the same program
+    m2 = mats("rc", TiledMatrix)
+    ptp2 = prog.instantiate(ctx, globals={"MT": MT, "KT": KT},
+                            collections=m2, name="capgemm2")
+    dtp = ptg_to_dtd_replay(ptp2, ctx, capture=True)
+    assert dtp._capture is not None
+    dtp.wait()
+    dtp.close()
+    ctx.wait(timeout=60)
+    assert dtp._capture.executions == 1
+
+    # the reference's captured replay on the same inputs
+    ref_src = _CAP_GEMM_PTG.replace(
+        "BODYDOT", "jnp.dot(A, B, preferred_element_type=jnp.float32)")
+    m3 = mats("rr", RefTiled)
+    rtp = ref_compile(ref_src, "capgemm").instantiate(
+        ref_ctx, globals={"MT": MT, "KT": KT}, collections=m3)
+    rdtp = ref_replay(rtp, ref_ctx, capture=True)
+    rdtp.wait()
+    rdtp.close()
+    ref_ctx.wait(timeout=60)
+
+    # replay writes through the same C tiles the PTG version wrote
+    c1, c2 = m1["descC"].to_dense(), m2["descC"].to_dense()
+    np.testing.assert_allclose(c2, c1, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c2, np.asarray(m3["descC"].to_dense()),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(c2, a @ b, rtol=1e-4, atol=1e-4)

@@ -303,6 +303,42 @@ def test_dtd_gemm_native_lane_equals_python_engine_on_the_card():
     np.testing.assert_array_equal(got, want)
 
 
+def test_traced_dtd_gemm_on_the_card(gctx, tmp_path):
+    """The kt = 32 GEMM traced on the card: C bit for bit the untraced
+    DAG's, one matched exec span a task on the device module's stream
+    (its tasks are in flight together, so each span needs an id of its
+    own), and the engine ring's landed + dropped events equal to what the
+    per-task lane recorded (a link interval and a completion point a
+    task)."""
+    from parsec_tpu_torch.tools.trace_reader import _intervals, read_pbp
+    from parsec_tpu_torch.utils.trace import Profiling
+    rng = np.random.default_rng(33)
+    a = rng.standard_normal((256, 2048)).astype(np.float32)
+    b = rng.standard_normal((2048, 256)).astype(np.float32)
+    A = collection_from_numpy("A", a, 64, 64, dtype=torch.bfloat16)
+    B = collection_from_numpy("B", b, 64, 64, dtype=torch.bfloat16)
+    C = collection_from_numpy("C", np.zeros((256, 256), np.float32), 64, 64,
+                              dtype=torch.bfloat16)
+    out = []
+    for traced in (False, True):
+        C.fill(lambda m, n: torch.zeros(64, 64, dtype=torch.bfloat16))
+        gctx.profiling = Profiling() if traced else None
+        tp = DTDTaskpool(gctx, "gemm-traced")
+        n = insert_gemm_tasks(tp, A, B, C, batch_k=True)
+        _drain(gctx, tp)
+        out.append(torch.from_numpy(C.to_dense()))
+    assert n == 16 and torch.equal(out[0], out[1])
+    trace = read_pbp(gctx.profiling.dump(str(tmp_path / "g.pbp")))
+    key = next(d["key"] for d in trace.dictionary
+               if d["name"] == f"{_dev(gctx).name}::exec")
+    spans = [(t_s, t_e) for _si, _sn, base, _e, _tp, t_s, t_e, _i
+             in _intervals(trace) if base == key]
+    assert len(spans) == n and all(t_e >= t_s for t_s, t_e in spans)
+    landed = sum(len(s["events"]) for s in trace.streams
+                 if s["name"].startswith("ptdtd-w"))
+    assert landed + gctx._dtd_neng.trace_dropped() == 3 * n
+
+
 def test_batched_lane_off_on_a_card_context(gctx):
     """Repeat inserts of one body on a card context stay on the per-task
     lane: each returns its task, and the context arms no batched pool."""

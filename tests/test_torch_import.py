@@ -162,3 +162,65 @@ def test_collection_round_trip_is_bit_exact(dtype):
             np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(port.to_dense(),
                                   ref_dense.astype(np.float32))
+
+
+#: the observability substrate's modules
+OBS_MODULES = (
+    "utils.info", "utils.trace", "utils.trace_ptf2", "utils.trace_otf2",
+    "utils.perf_event", "utils.grapher", "utils.native_trace", "utils.hist",
+    "utils.counters", "core.pins_modules", "core.watchdog",
+    "tools.trace_reader", "tools.mem_view", "tools.metrics_server",
+    "tools.flight", "tools.live_view")
+
+
+def test_observability_modules_import_neither_jax_nor_the_reference():
+    """Each module of the observability substrate imports (in this order,
+    in a fresh interpreter) with neither JAX nor the reference package in
+    ``sys.modules`` after it, and none of them pulls in pandas (the card's
+    host may lack it: ``to_dataframe`` imports it lazily)."""
+    code = (
+        "import sys\n"
+        f"mods = {OBS_MODULES!r}\n"
+        "for m in mods:\n"
+        "    __import__('parsec_tpu_torch.' + m)\n"
+        "    bad = [n for n in sys.modules if n.split('.')[0] in "
+        "('jax', 'parsec_tpu', 'pandas')]\n"
+        "    if bad:\n"
+        "        print(m, bad[:3]); sys.exit(1)\n"
+        "print(len(mods))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert int(proc.stdout.split()[-1]) == 16
+    assert all((PORT / (m.replace(".", "/") + ".py")).exists()
+               for m in OBS_MODULES)
+
+
+def test_trace_reader_cli_runs_without_jax(tmp_path):
+    """``python -m parsec_tpu_torch.tools.trace_reader`` summarizes a trace
+    and writes its chrome JSON, importing neither JAX nor the reference."""
+    from parsec_tpu_torch.utils.trace import EVENT_FLAG_END, Profiling
+    prof = Profiling()
+    kb, ke = prof.add_dictionary_keyword("unit::work")
+    st = prof.stream("worker-0")
+    for i in range(3):
+        st.trace(kb, i, 1, 0)
+        st.trace(ke, i, 1, EVENT_FLAG_END)
+    path = prof.dump(str(tmp_path / "t.pbp"))
+    out = str(tmp_path / "t.json")
+    code = ("import runpy, sys\n"
+            "sys.argv = ['trace_reader'] + sys.argv[1:]\n"
+            "try:\n"
+            "    runpy.run_module('parsec_tpu_torch.tools.trace_reader',"
+            " run_name='__main__')\n"
+            "except SystemExit as e:\n"
+            "    bad = [n for n in sys.modules if n.split('.')[0] in"
+            " ('jax', 'parsec_tpu')]\n"
+            "    sys.exit(99 if bad else e.code)\n")
+    r = subprocess.run([sys.executable, "-c", code, path, "--ctf", out],
+                       cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "1 keywords, 1 streams, 6 events" in r.stdout
+    import json
+    assert len([e for e in json.load(open(out))["traceEvents"]
+                if e.get("ph") == "X"]) == 3
