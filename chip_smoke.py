@@ -9,7 +9,8 @@ serialised fails the run), checks with ``cuobjdump -sass`` that the chain's
 bf16 kernel and the flash kernel's wgmma route run on Hopper's tensor-core
 and TMA instructions (HGMMA, UTMALDG), holds each kernel against its plain
 PyTorch version (``gemm_chain`` on its tile, split and general routes,
-``flash_attention`` on its wgmma, mma and simt routes), then drives the
+``flash_attention`` on its wgmma, mma and simt routes, at head dims from
+1 to 256, and a head dim of 257 refused), then drives the
 port's main paths through the entry points a user calls:
 
 * the DTD tiled GEMM (bf16, N = 16384 in 512 x 512 tiles, so every GEMM_K
@@ -89,7 +90,22 @@ port's main paths through the entry points a user calls:
   the lanes' stats, no watchdog trip; and the overheads, reported and not
   gated: the reference benchmark's tracing and histogram legs on the PTG
   chain shape, the DTD GEMM slope with the tracer on and off and mode
-  (a)'s with the rings on and off, each in turns.
+  (a)'s with the rings on and off, each in turns;
+* the rest of the single-rank substrate (phase 11), on one context at the
+  POTRF cell's width: ``compose`` of a redistribution (f32 8192², 512²
+  tiles, into a symmetric lower collection of 256² tiles, 528 fragment
+  tasks) and a POTRF on the result (5984 tasks), no POTRF task before the
+  first stage completed, the copy bit for bit and the factor's residual
+  held; redistribution with unaligned offsets (bit for bit the plain
+  slice) and the whole-tile reshuffle (every payload moved by reference,
+  no memory grown); four recursive-device tasks, each factoring a 4096²
+  tile by a nested POTRF over its subtile view; the collection helpers
+  (apply, map_operator, the reductions, broadcast) bit for bit a plain
+  pass, and ``diag_band_to_rect`` of the factor; a checkpoint of the
+  factor restored onto the card bit for bit; the backend probe, from its
+  subprocess and then cached; and ``flash_attention`` at head dims 80 and
+  256 timed beside SDPA, with a 2-layer LM at head dim 80 (n_embd 1280,
+  16 heads) through the flash core against the dense core.
 
 Every phase that fails ends the run with a nonzero exit code.
 
@@ -99,8 +115,10 @@ kernel: launches on the main path, error against the plain version, times
 and bound; the chain's entry counts the native lane's scheduled DAGs and
 the replays, with each engine's count, PINS on and off, beside it under
 ``launches_by_lane``; flash's entry also its profiled device time, its
-launches by route, the mma route's times in turns with it and a float32
-sub-entry), and last ``{"ok": true, "device": {...}}``.
+launches by route, the mma route's times in turns with it, a float32
+sub-entry and the ``head_dims`` rows at d = 80 and 256; its launches
+include the head-dim-80 LM's), and last ``{"ok": true, "device":
+{...}}``.
 
 Needs one CUDA card; exits nonzero without one.
 """
@@ -428,8 +446,10 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
 
 
 # (q shape, kv shape, causal, q_offset, k_offset, rows that see no key);
-# bf16 takes the wgmma route at head dims 64 and 128, the mma route at 16
-# and 32, float32 the simt route
+# bf16 takes the wgmma route at head dims 33-128 that are multiples of 8,
+# the mma route at the others (up to 256), float32 the simt route; a head
+# dim between built sizes runs the next one's instantiation, its extra
+# columns zero-filled as they load
 FLASH_CASES = {
     "non-causal": ((2, 128, 64), (2, 128, 64), False, 0, 0, 0),
     "causal LM shape": ((96, 1024, 64), (96, 1024, 64), True, 0, 0, 0),
@@ -450,7 +470,20 @@ FLASH_CASES = {
     "offsets and sq != sk d=64": ((2, 192, 64), (2, 160, 64), True, 40, 72,
                                   32),
     "ragged d=128": ((2, 200, 128), (2, 333, 128), False, 0, 0, 0),
+    "d=1 causal ragged": ((2, 70, 1), (2, 90, 1), True, 20, 0, 0),
+    "d=8": ((2, 100, 8), (2, 100, 8), False, 0, 0, 0),
+    "d=48 ring offset": ((2, 200, 48), (2, 260, 48), True, 60, 0, 0),
+    "d=80 causal": ((16, 1024, 80), (16, 1024, 80), True, 0, 0, 0),
+    "d=80 all-masked block": ((1, 128, 80), (1, 128, 80), True, 0, 128,
+                              128),
+    "d=96 ragged": ((2, 130, 96), (2, 190, 96), False, 0, 0, 0),
+    "d=200 causal": ((2, 150, 200), (2, 150, 200), True, 0, 0, 0),
+    "d=256 causal": ((4, 512, 256), (4, 512, 256), True, 0, 0, 0),
+    "d=256 offsets": ((2, 129, 256), (2, 300, 256), True, 171, 0, 0),
 }
+#: the head dims of the timing rows beside the LM path's 64: Phi-2's 80
+#: and Gemma's 256, at the LM path's (96, 1024) causal bf16 shape
+FLASH_TIMED_HEAD_DIMS = (80, 256)
 
 
 def check_flash(K, torch, gen) -> None:
@@ -498,6 +531,15 @@ def check_flash(K, torch, gen) -> None:
     torch.cuda.synchronize()
     if routes != set(K.FLASH_ROUTES):
         raise AssertionError(f"the flash checks reached only {routes}")
+    wide = torch.zeros(1, 8, K.FLASH_MAX_HEAD_DIM + 1, device="cuda")
+    try:
+        K.flash_attention(wide, wide, wide)
+    except ValueError as e:
+        log(f"kernel check flash_attention head dim "
+            f"{K.FLASH_MAX_HEAD_DIM + 1}: raises ({e})")
+    else:
+        raise AssertionError("flash_attention took a head dim over its "
+                             "limit")
 
 
 def check_stencil1d(K, torch, gen) -> None:
@@ -1086,6 +1128,31 @@ def flash_device_times(K, torch) -> dict:
             + f"; scaled_dot_product_attention's kernel "
             f"{row['library_kernel']}")
         del q, k, v, q4, k4, v4
+    for hd in FLASH_TIMED_HEAD_DIMS:
+        q, k, v = (torch.randn(bh, s, hd, device="cuda", generator=gen
+                               ).to(torch.bfloat16) for _ in range(3))
+        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, hd)
+                      for t in (q, k, v))
+        route = K.flash_route(torch.bfloat16, hd, True)
+        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_bf16<"
+        sdpa_kernels = profiled_kernels(
+            torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                          is_causal=True))
+        out[f"bfloat16 d={hd}"] = row = {
+            "route": route,
+            "device_ms": profiled_ms(
+                torch, lambda: K.flash_attention(q, k, v, causal=True),
+                kernel),
+            "library_device_ms": (max(sdpa_kernels.values())
+                                  if sdpa_kernels else None),
+            "library_kernel": (max(sdpa_kernels, key=sdpa_kernels.get)[:120]
+                               if sdpa_kernels else "not measured")}
+        log(f"flash_attention bfloat16 ({bh}, {s}, {hd}) causal under "
+            f"torch.profiler: {route} route device "
+            f"{fmt_ms(row['device_ms'])}; scaled_dot_product_attention "
+            f"device {fmt_ms(row['library_device_ms'])} (kernel "
+            f"{row['library_kernel']})")
+        del q, k, v, q4, k4, v4
     return out
 
 
@@ -1169,9 +1236,18 @@ def flash_entry(K, torch, gen, launches: int, by_route: dict,
 
 
 def tiles_of(torch, M, device: str = "cuda") -> "torch.Tensor":
-    """The newest copy of every tile of ``M``, assembled on ``device``."""
-    return torch.cat([torch.cat([M.data_of(m, n).newest_copy().payload.to(
-        device) for n in range(M.nt)], dim=1) for m in range(M.mt)], dim=0)
+    """The newest copy of every stored tile of ``M`` assembled on
+    ``device``, zeros where ``M`` stores no tile."""
+    out = torch.zeros(M.lm, M.ln, dtype=M.dtype, device=device)
+    for m in range(M.mt):
+        for n in range(M.nt):
+            if not M.stored(m, n):
+                continue
+            r, c = M.tile_shape(m, n)
+            out[m * M.mb:m * M.mb + r, n * M.nb:n * M.nb + c] = \
+                torch.as_tensor(M.data_of(m, n).newest_copy().payload
+                                )[:r, :c].to(device)
+    return out
 
 
 def dtd_stencil(ptt, K, torch, ctx, dev) -> tuple:
@@ -3043,6 +3119,528 @@ def ptdev_events(trace, mark: dict) -> tuple:
     return disp, retire
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the rest of the single-rank substrate on the card
+# ---------------------------------------------------------------------------
+
+#: (a) the POTRF cell's width: S at the GEMM's tile, T (symmetric lower) at
+#: POTRF's; (b) V's tile and the unaligned region; (c) the recursive tiles
+SUB_N, SUB_S_TS, SUB_T_TS = POTRF_N, GEMM_TS, POTRF_TS
+SUB_V_TS = 384
+SUB_REGION = dict(m=7000, n=6000, si=7, sj=13, ti=21, tj=5)
+SUB_REC_N, SUB_REC_TILES = 4096, 4
+#: the 2-layer LM at head dim 80 (n_embd 1280, 16 heads; Phi-2's head dim)
+LM_D80 = dict(vocab_size=50257, d_model=1280, d_ff=5120, n_heads=16,
+              n_layers=2, max_seq=1024)
+LM_D80_BATCH = 4
+
+
+def sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def potrf_tasks(mt: int) -> int:
+    """The tasks of a tiled POTRF over mt x mt tiles: POTRF, TRSM, SYRK and
+    GEMM."""
+    return mt + 2 * (mt * (mt - 1) // 2) + mt * (mt - 1) * (mt - 2) // 6
+
+
+def frob_residual(torch, L, A) -> float:
+    """||L Lᵀ - A||_F / ||A||_F in float64 on L's device, L's lower
+    triangle."""
+    L64, A64 = L.double().tril(), A.double()
+    return ((L64 @ L64.mT - A64).norm() / A64.norm()).item()
+
+
+def substrate_compose(ptt, torch, ctx, dev, spd, spd_dev,
+                      device: str = "cuda") -> tuple:
+    """(a) ``compose(ctx, redistribute S→T lower, POTRF on T)`` at the POTRF
+    cell's width. Gates: when the POTRF stage is built (the compound calls
+    its builder at stage 1's completion), every fragment task has run on
+    the card and no POTRF task exists yet, and T's lower tiles are S's
+    slices bit for bit; the factor's residual is within the POTRF cell's
+    1e-5. Returns (S, T)."""
+    from parsec_tpu_torch.data.matrix import SymTwoDimBlockCyclic
+    from parsec_tpu_torch.data.redistribute import redistribute
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks
+    N, sts, tts = SUB_N, SUB_S_TS, SUB_T_TS
+    S = ptt.collection_from_numpy("S", spd, sts, sts, device=device)
+    T = SymTwoDimBlockCyclic("T", N, N, tts, tts, uplo=0, device=device)
+    rec = {}
+    ex0 = dev.executed_tasks
+    t0 = time.perf_counter()
+    stage1 = ptt.DTDTaskpool(ctx, "redistribute S->T")
+    n1 = redistribute(stage1, S, T)
+
+    def stage1_done(_tp):
+        rec["done"] = time.perf_counter()
+
+    def potrf_stage():
+        rec["built"] = time.perf_counter()
+        rec["ran"] = dev.executed_tasks - ex0
+        r = sts // tts
+        rec["same"] = all(torch.equal(
+            T.data_of(m, n).newest_copy().payload,
+            S.data_of(m // r, n // r).newest_copy().payload[
+                (m % r) * tts:(m % r + 1) * tts,
+                (n % r) * tts:(n % r + 1) * tts])
+            for m in range(T.mt) for n in range(m + 1))
+        tp = ptt.DTDTaskpool(ctx, "potrf T")
+        rec["n2"] = insert_potrf_tasks(tp, T)
+        tp.close()
+        return tp
+
+    stage1.on_complete = stage1_done
+    comp = ptt.compose(ctx, stage1, potrf_stage)
+    stage1.close()
+    ctx.wait()
+    sync(torch, device)
+    t_end = time.perf_counter()
+    resid = frob_residual(torch, tiles_of(torch, T, device), spd_dev)
+    log(f"substrate (a) compose: redistribute S ({N}^2 f32, TS {sts}) -> T "
+        f"(symmetric lower, TS {tts}) {n1} fragment tasks in "
+        f"{rec['done'] - t0:.3f} s, then POTRF on T {rec.get('n2')} tasks "
+        f"in {t_end - rec['built']:.3f} s; at the POTRF stage's build "
+        f"{rec['ran']} tasks had run on the card, T's lower tiles "
+        f"{'bit for bit' if rec['same'] else 'NOT'} S's slices; "
+        f"||LL^T - A||_F/||A||_F = {resid:.3e}")
+    if not comp.completed or n1 != T.mt * (T.mt + 1) // 2 or \
+            rec["ran"] != n1 or rec["built"] < rec["done"] or \
+            rec["n2"] != potrf_tasks(T.mt):
+        raise AssertionError(f"compose ran out of order or miscounted: {rec}")
+    if not rec["same"]:
+        raise AssertionError("stage 1 left T's tiles unequal to S's slices")
+    if not resid < 1e-5:
+        raise AssertionError(f"the composed POTRF's residual {resid:.3e}")
+    return S, T
+
+
+def substrate_redistribute(ptt, torch, ctx, dev, S, spd_dev,
+                           device: str = "cuda") -> None:
+    """(b) Redistribution at full size: the unaligned fragment path S → V
+    (TS 384) over the region, bit for bit the plain slice assignment, and
+    the reshuffle path S → U (same tiles): each U tile's device payload IS
+    S's, and the card's allocated memory grows by less than one tile."""
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.data.redistribute import redistribute
+    N, R = SUB_N, SUB_REGION
+    V = TwoDimBlockCyclic("V", N, N, SUB_V_TS, SUB_V_TS, device=device)
+    t0 = time.perf_counter()
+    tp = ptt.DTDTaskpool(ctx, "redistribute S->V")
+    n_v = redistribute(tp, S, V, **R)
+    tp.wait(); tp.close(); ctx.wait()
+    sync(torch, device)
+    t_v = time.perf_counter() - t0
+    want = torch.zeros(N, N, device=device)
+    want[R["ti"]:R["ti"] + R["m"], R["tj"]:R["tj"] + R["n"]] = \
+        spd_dev[R["si"]:R["si"] + R["m"], R["sj"]:R["sj"] + R["n"]]
+    same_v = torch.equal(tiles_of(torch, V, device), want)
+    del V, want
+    U = TwoDimBlockCyclic("U", N, N, SUB_S_TS, SUB_S_TS, device=device)
+    for m in range(U.mt):
+        for n in range(U.nt):
+            U.data_of(m, n)                  # U's zero tiles exist before
+    sync(torch, device)
+
+    def allocated():
+        return torch.cuda.memory_allocated() if device == "cuda" else 0
+    mem0 = allocated()
+    t0 = time.perf_counter()
+    tp = ptt.DTDTaskpool(ctx, "reshuffle S->U")
+    n_u = redistribute(tp, S, U)
+    tp.wait(); tp.close(); ctx.wait()
+    sync(torch, device)
+    t_u = time.perf_counter() - t0
+    grown = allocated() - mem0
+    tile = SUB_S_TS * SUB_S_TS * 4
+    moved = sum(U.data_of(m, n).get_copy(dev.device_index).payload is
+                S.data_of(m, n).newest_copy().payload
+                for m in range(U.mt) for n in range(U.nt))
+    log(f"substrate (b) redistribute: S -> V (TS {SUB_V_TS}, region {R}) "
+        f"{n_v} fragment tasks in {t_v:.3f} s, "
+        f"{'bit for bit' if same_v else 'NOT equal to'} the plain slice; "
+        f"reshuffle S -> U (TS {SUB_S_TS}) {n_u} move tasks in {t_u:.3f} s, "
+        f"{moved} of {U.mt * U.nt} U device payloads are S's, allocated "
+        f"memory grew {grown} B (a tile is {tile} B)")
+    if not same_v:
+        raise AssertionError("the unaligned redistribution differs from the "
+                             "plain slice")
+    if n_u != U.mt * U.nt or moved != n_u or not grown < tile:
+        raise AssertionError("the reshuffle copied instead of moving")
+
+
+def substrate_recursive(ptt, torch, ctx, device: str = "cuda") -> None:
+    """(c) Four DEV_RECURSIVE tasks, each factoring one 4096² SPD tile on the
+    card by a nested POTRF (TS 256, 816 tasks) over its subtile view.
+    Gates: each task ran on the recursive device, each subtile buffer lies
+    on the card, each parent completed after its nested pool, each
+    residual within 1e-5."""
+    from parsec_tpu_torch.core.task import (Chore, DEV_RECURSIVE,
+                                            FLOW_ACCESS_CTL, Flow, Task,
+                                            TaskClass, Taskpool)
+    from parsec_tpu_torch.data.matrix import TiledMatrix
+    from parsec_tpu_torch.data.subtile import SubtileCollection
+    from parsec_tpu_torch.device.recursive import (RecursiveDevice,
+                                                   make_recursive_hook)
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks
+    nt, ts = SUB_REC_TILES, SUB_REC_N
+    spds = []
+    for k in range(nt):
+        g = torch.Generator(device=device).manual_seed(100 + k)
+        x = torch.randn(ts, ts, dtype=torch.float64, device=device,
+                        generator=g) / math.sqrt(ts)
+        spds.append((x @ x.mT + torch.eye(ts, dtype=torch.float64,
+                                          device=device) * ts * 0.05
+                     ).float())
+    R = TiledMatrix("Rec", nt * ts, ts, ts, ts, device=device)
+    R.fill(lambda m, n: spds[m])
+    order, seen = [], {}
+
+    def builder(task):
+        k = task.locals["k"]
+        sub = SubtileCollection(R.data_of(k, 0), SUB_T_TS, SUB_T_TS,
+                                name=f"sub{k}")
+        tp = ptt.DTDTaskpool(ctx, f"nested potrf {k}")
+        seen[k] = (isinstance(task.selected_device, RecursiveDevice),
+                   sub.buffer.device.type == device,
+                   insert_potrf_tasks(tp, sub))
+        tp.close()
+
+        def flushed(_tp):
+            sub.flush()
+            order.append(("nested", k))
+        tp.on_complete = flushed
+        return tp
+
+    outer = Taskpool("recursive outer")
+    tc = TaskClass("R")
+    tc.add_flow(Flow("ctl", FLOW_ACCESS_CTL))
+    tc.count_mode = True
+    tc.add_chore(Chore(DEV_RECURSIVE, make_recursive_hook(builder)))
+    outer.add_task_class(tc)
+
+    def startup(stream, pool):
+        pool.set_nb_tasks(nt)
+        tasks = [Task(pool, tc, {"k": k}) for k in range(nt)]
+        for t in tasks:
+            t.on_complete = lambda t_: order.append(("parent",
+                                                     t_.locals["k"]))
+        return tasks
+
+    outer.startup_hook = startup
+    t0 = time.perf_counter()
+    ctx.add_taskpool(outer)
+    ctx.wait()
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    resid = [frob_residual(torch, torch.as_tensor(
+        R.data_of(k, 0).newest_copy().payload), spds[k]) for k in range(nt)]
+    after = all(order.index(("nested", k)) < order.index(("parent", k))
+                for k in range(nt)) if len(order) == 2 * nt else False
+    log(f"substrate (c) recursive: {nt} DEV_RECURSIVE tasks, each a nested "
+        f"POTRF over the subtile view of a {ts}^2 tile (TS {SUB_T_TS}): "
+        f"(recursive device, buffer on the card, tasks) {seen}; parents "
+        f"after their nested pools {after}; residuals "
+        f"{', '.join(f'{r:.3e}' for r in resid)}; {wall:.3f} s")
+    if not outer.completed or not after or \
+            seen != {k: (True, True, potrf_tasks(ts // SUB_T_TS))
+                     for k in range(nt)} or \
+            not all(r < 1e-5 for r in resid):
+        raise AssertionError("the recursive subtile POTRF failed its gates")
+
+
+def band_pack_plain(torch, d, sd, shape) -> "torch.Tensor":
+    """The reference's per-column band packing on the card (the plain
+    version of ``diag_band_to_rect``'s body)."""
+    mb = d.shape[0]
+    out = torch.zeros(shape, dtype=d.dtype, device=d.device)
+    for j in range(mb):
+        out[:mb - j, j] = d[j:mb, j]
+        if sd is not None:
+            out[mb - j:mb + 1, j] = sd[:j + 1, j]
+    return out
+
+
+def substrate_ops(ptt, torch, ctx, T, device: str = "cuda") -> None:
+    """(d) The collection helpers on f32 8192², TS 512 collections on the
+    card (apply, map_operator, reduce_row, reduce_col, reduce_all,
+    broadcast), each tile bit for bit a plain torch pass in the same order,
+    and diag_band_to_rect of T's factor against the plain per-column
+    packing."""
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.data import ops as O
+    N, ts = SUB_N, SUB_S_TS
+    rng = np.random.default_rng(31)
+    D = ptt.collection_from_numpy(
+        "D", rng.standard_normal((N, N), dtype=np.float32), ts, ts,
+        device=device)
+    E = ptt.collection_from_numpy(
+        "E", rng.standard_normal((N, N), dtype=np.float32), ts, ts,
+        device=device)
+    cells = [(m, n) for m in range(D.mt) for n in range(D.nt)]
+    Dp = {c: D.data_of(*c).newest_copy().payload.clone() for c in cells}
+    Ep = {c: E.data_of(*c).newest_copy().payload.clone() for c in cells}
+    t0 = time.perf_counter()
+    tp = ptt.DTDTaskpool(ctx, "ops")
+    n = O.apply(tp, D, lambda m, k, x: x * (1.5 + (m - k) * 0.25))
+    n += O.map_operator(tp, D, E, lambda s, d: d - s)
+    n += O.reduce_row(tp, E, lambda d, s: d + s)
+    n += O.reduce_col(tp, E, lambda d, s: d - s)
+    n += O.reduce_all(tp, D, lambda d, s: d + s, root=(1, 2))
+    tp.wait(); tp.close(); ctx.wait()
+    tp = ptt.DTDTaskpool(ctx, "broadcast")
+    n += O.broadcast(tp, E, root=(0, 0))
+    tp.wait(); tp.close(); ctx.wait()
+    sync(torch, device)
+    wall = time.perf_counter() - t0
+    # the plain pass, in the helpers' insertion order
+    for m, k in cells:
+        Dp[m, k] = Dp[m, k] * (1.5 + (m - k) * 0.25)
+    for c in cells:
+        Ep[c] = Ep[c] - Dp[c]
+    for m in range(E.mt):
+        for k in range(1, E.nt):
+            Ep[m, 0] = Ep[m, 0] + Ep[m, k]
+    for k in range(E.nt):
+        for m in range(1, E.mt):
+            Ep[0, k] = Ep[0, k] - Ep[m, k]
+    order = [(1, 2)] + [c for c in cells if c != (1, 2)]
+    stride = 1
+    while stride < len(order):
+        for i in range(0, len(order) - stride, 2 * stride):
+            dst, src = order[i], order[i + stride]
+            Dp[dst] = Dp[dst] + Dp[src]
+        stride *= 2
+    for c in cells:
+        if c != (0, 0):
+            Ep[c] = Ep[0, 0]
+    same = sum(torch.equal(D.data_of(*c).newest_copy().payload, Dp[c]) and
+               torch.equal(E.data_of(*c).newest_copy().payload, Ep[c])
+               for c in cells)
+    del D, E, Dp, Ep
+    mb = T.mb
+    B = TwoDimBlockCyclic("Band", mb + 1, T.nt * (mb + 2), mb + 1, mb + 2,
+                          device=device)
+    t1 = time.perf_counter()
+    tp = ptt.DTDTaskpool(ctx, "diag_band_to_rect")
+    n_band = O.diag_band_to_rect(tp, T, B)
+    tp.wait(); tp.close(); ctx.wait()
+    sync(torch, device)
+    wall_band = time.perf_counter() - t1
+    band_same = all(torch.equal(
+        B.data_of(0, k).newest_copy().payload,
+        band_pack_plain(torch, T.data_of(k, k).newest_copy().payload,
+                        T.data_of(k + 1, k).newest_copy().payload
+                        if k + 1 < T.nt else None, (mb + 1, mb + 2)))
+        for k in range(T.nt))
+    log(f"substrate (d) collection ops on f32 {N}^2 (TS {ts}) on the card: "
+        f"{n} tasks in {wall:.3f} s, {same} of {len(cells)} tile pairs bit "
+        f"for bit the plain pass; diag_band_to_rect of T's factor: "
+        f"{n_band} tasks in {wall_band:.3f} s, "
+        f"{'bit for bit' if band_same else 'NOT equal to'} the plain "
+        f"per-column packing")
+    if same != len(cells) or not band_same or n_band != T.nt:
+        raise AssertionError("a collection helper differs from its plain "
+                             "pass")
+
+
+def substrate_checkpoint(ptt, K, torch, T, device: str = "cuda") -> None:
+    """(e) Save T's factor, restore it into a fresh collection on the card,
+    bit for bit; the files go under the build directory and are removed."""
+    import shutil
+    from parsec_tpu_torch.data.matrix import SymTwoDimBlockCyclic
+    from parsec_tpu_torch.utils import checkpoint
+    where = os.path.join(K.BUILD_DIR, "chip_smoke_checkpoint")
+    path = os.path.join(where, "T")
+    try:
+        t0 = time.perf_counter()
+        npz = checkpoint.save(path, {"T": T})
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(npz)
+        T2 = SymTwoDimBlockCyclic("T", T.lm, T.ln, T.mb, T.nb, uplo=0,
+                                  device=device)
+        t0 = time.perf_counter()
+        n = checkpoint.restore(path, {"T": T2})
+        sync(torch, device)
+        t_restore = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(where, ignore_errors=True)
+    tiles = [(m, k) for m in range(T.mt) for k in range(m + 1)]
+    same = sum(torch.equal(T.data_of(*c).newest_copy().payload,
+                           T2.data_of(*c).newest_copy().payload) for c in tiles)
+    on_card = all(T2.data_of(*c).newest_copy().payload.device.type == device
+                  for c in tiles)
+    log(f"substrate (e) checkpoint of T's factor: {nbytes} B "
+        f"({nbytes / 2**20:.1f} MiB) saved in {t_save:.3f} s, {n} tiles "
+        f"restored onto the card in {t_restore:.3f} s, {same} of "
+        f"{len(tiles)} bit for bit")
+    if n != len(tiles) or same != len(tiles) or not on_card:
+        raise AssertionError("the checkpoint did not restore T's factor")
+
+
+def substrate_probe(torch) -> None:
+    """(f) The backend probe: after a reset, the first decision comes from
+    its subprocess (and writes the cache file), the second is an
+    in-process hit."""
+    from parsec_tpu_torch.device import probe
+    probe.reset_for_tests()
+    t0 = time.perf_counter()
+    first = probe.decide_backend()
+    t1 = time.perf_counter()
+    second = probe.decide_backend()
+    t2 = time.perf_counter()
+    cached = os.path.exists(probe._cache_path())
+    log(f"substrate (f) probe: decide_backend() {first} from its subprocess "
+        f"in {t1 - t0:.3f} s (cache file written: {cached}), again "
+        f"{second} in {(t2 - t1) * 1e6:.1f} us")
+    if first != ("cuda", torch.cuda.device_count()) or second is not first \
+            or not cached:
+        raise AssertionError(f"the probe decided {first}, then {second}")
+
+
+def flash_head_dim_rows(K, torch, device_times: dict) -> list:
+    """(g) The flash kernel at head dims 80 and 256 at the LM path's (96,
+    1024) causal bf16 shape: every element within the bf16 tolerance of
+    its plain version, the kernel line's time, plain's, SDPA's, and the
+    bound; the profiled device times from ``device_times``."""
+    import torch.nn.functional as F
+    bh, s = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rows = []
+    for d in FLASH_TIMED_HEAD_DIMS:
+        q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
+                               ).to(torch.bfloat16) for _ in range(3))
+        got = K.flash_attention(q, k, v, causal=True).float()
+        want = K.flash_attention_plain(q, k, v, causal=True).float()
+        err = (got - want).abs()
+        beyond = int((err > K.flash_attention_bf16_tolerance(
+            q, k, v, causal=True)).sum())
+        kernel_ms = cuda_time_ms(lambda: K.flash_attention(q, k, v,
+                                                           causal=True))
+        plain_ms = cuda_time_ms(
+            lambda: K.flash_attention_plain(q, k, v, causal=True), iters=5)
+        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
+                      for t in (q, k, v))
+        library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            q4, k4, v4, is_causal=True))
+        e = kernel_entry(
+            "flash_attention", "parsec_tpu_torch/csrc/flash_attention.cu",
+            "parsec_tpu/ops/pallas_kernels.py:329", 0, err.max().item(),
+            kernel_ms, plain_ms, 4 * bh * s * d * 2,
+            4.0 * d * bh * (s * (s + 1) / 2), "bfloat16", library_ms)
+        dt = device_times[f"bfloat16 d={d}"]
+        row = {"shape": [bh, s, d], "dtype": "bfloat16", "causal": True,
+               "route": dt["route"], "max_abs_err": e["max_abs_err"],
+               "beyond_tolerance": beyond, "ms": kernel_ms,
+               "device_ms": dt["device_ms"], "plain_ms": plain_ms,
+               "bound_ms": e["bound_ms"], "bound_by": e["bound_by"],
+               "library_ms": library_ms,
+               "library_device_ms": dt["library_device_ms"],
+               "library_kernel": dt["library_kernel"]}
+        rows.append(row)
+        log(f"flash_attention bfloat16 ({bh}, {s}, {d}) causal, "
+            f"{row['route']} route: kernel {kernel_ms:.4f} ms (device "
+            f"{fmt_ms(row['device_ms'])}), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {library_ms:.4f} ms (device "
+            f"{fmt_ms(row['library_device_ms'])}), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err "
+            f"{row['max_abs_err']:.3e}, {beyond} beyond the bf16 tolerance")
+        if beyond:
+            raise AssertionError(f"flash_attention at head dim {d} disagrees "
+                                 f"with its plain version")
+        del q, k, v, q4, k4, v4, got, want, err
+    return rows
+
+
+def lm_head_dim_80(K, torch) -> tuple:
+    """(g) A 2-layer LM at n_embd 1280 and 16 heads (head dim 80): the f32
+    forward through the flash core against the dense core at the LM's
+    rtol/atol 2e-3, and the bf16 flash forward against the f32 flash
+    logits at LOGIT_TOL / LOGIT_NORM_TOL. Returns the flash launches, in
+    all and by route, counted from 0 just before."""
+    from parsec_tpu_torch.parallel import model as M
+    from parsec_tpu_torch.parallel.transformer import flash_attention_core
+    cfg = M.ModelConfig(**LM_D80)
+    params = M.params_from_numpy(M.init_lm_params(3, cfg))
+    rng = np.random.default_rng(4)
+    x = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                      (LM_D80_BATCH, LM_SEQ))).cuda()
+    L = cfg.n_layers
+    K.flash_attention.launches = 0
+    K.flash_attention.launches_by_route = dict.fromkeys(K.FLASH_ROUTES, 0)
+    by_route = K.flash_attention.launches_by_route
+    with torch.inference_mode():
+        got = M.lm_apply(params, x, attention=flash_attention_core)
+        want = M.lm_apply(params, x)
+        err = (got - want).abs()
+        bad = int((err > 2e-3 + 2e-3 * want.abs()).sum())
+        bf16 = M.lm_apply(params, x, attention=flash_attention_core,
+                          compute_dtype=torch.bfloat16)
+        dev = logits_check(torch, bf16, got)
+        finite = bool(torch.isfinite(got).all() and
+                      torch.isfinite(bf16).all())
+    launches = K.flash_attention.launches
+    log(f"LM head dim 80 ({LM_D80}, B={LM_D80_BATCH} S={LM_SEQ}): f32 "
+        f"flash-core logits vs dense core max abs err "
+        f"{err.max().item():.3e}, {bad} beyond rtol/atol 2e-3; bf16 flash "
+        f"logits vs f32: {dev[0]} beyond rtol/atol {LOGIT_TOL}, norm-wise "
+        f"{dev[2]:.3e}; finite {finite}; flash launches {launches}, by "
+        f"route {by_route}")
+    if bad or not finite or dev[0] or not dev[2] <= LOGIT_NORM_TOL:
+        raise AssertionError("the head-dim-80 LM's flash core disagrees")
+    if launches != 2 * L or by_route["simt"] != L or by_route["wgmma"] != L:
+        raise AssertionError(f"the head-dim-80 LM launched the flash kernel "
+                             f"{launches} times ({by_route})")
+    del params, got, want, bf16, err
+    torch.cuda.empty_cache()
+    return launches, dict(by_route)
+
+
+def substrate(ptt, K, torch, smi, device_times: dict,
+              device: str = "cuda") -> tuple:
+    """Phase 11: the single-rank substrate on the card, (a)-(g) in order on
+    one context. Returns the flash launches of the head-dim-80 LM (in all
+    and by route) and the flash timing rows. ``device="cpu"`` rehearses
+    (a)-(e) on a CPU context with the CUDA module over CPU tensors (at the
+    sizes the caller sets) and returns nothing."""
+    from parsec_tpu_torch.device.cuda import CUDADevice
+    from parsec_tpu_torch.ops.potrf import make_spd
+    t_phase = time.perf_counter()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        ctx = ptt.Context(nb_cores=1)
+    else:
+        ptt.mca.set("device_cuda_over_cpu", True)
+        ctx = ptt.Context(nb_cores=1, device="cpu")
+    dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
+    names = [d.name for d in ctx.devices.devices]
+    log(f"substrate: devices {list(enumerate(names))} ({smi})")
+    if names[:2] != ["cpu", "recursive"] or dev.device_index != 2:
+        raise AssertionError(f"device numbering {names}")
+    spd = make_spd(SUB_N, seed=7)
+    spd_dev = torch.from_numpy(spd).to(device)
+    S, T = substrate_compose(ptt, torch, ctx, dev, spd, spd_dev, device)
+    substrate_redistribute(ptt, torch, ctx, dev, S, spd_dev, device)
+    del S
+    substrate_recursive(ptt, torch, ctx, device)
+    substrate_ops(ptt, torch, ctx, T, device)
+    substrate_checkpoint(ptt, K, torch, T, device)
+    del T, spd_dev
+    ctx.fini()
+    if device != "cuda":
+        ptt.mca.params.unset("device_cuda_over_cpu")
+        return None
+    torch.cuda.empty_cache()
+    substrate_probe(torch)
+    rows = flash_head_dim_rows(K, torch, device_times)
+    launches, by_route = lm_head_dim_80(K, torch)
+    log(f"substrate phase peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, wall time "
+        f"{time.perf_counter() - t_phase:.1f} s ({smi})")
+    return launches, by_route, rows
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3079,13 +3677,22 @@ def main() -> int:
         f"{'present' if os.path.exists(py_h) else 'MISSING'}")
     # one compiler process per source (nvcc for the kernels, the host C++
     # compiler for the lanes), all started together
+    build_s = {}
+
+    def timed(build, name):
+        t = time.perf_counter()
+        build(name)
+        build_s[name] = time.perf_counter() - t
+
     with ThreadPoolExecutor(len(names) + len(lanes)) as pool:
-        jobs = [pool.submit(K.build, n) for n in names] + \
-            [pool.submit(NATIVE.build, s) for s in lanes]
+        jobs = [pool.submit(timed, K.build, n) for n in names] + \
+            [pool.submit(timed, NATIVE.build, s) for s in lanes]
         for job in jobs:
             job.result()
     log(f"built {', '.join(names)} (nvcc) and _{', _'.join(lanes)} "
-        f"({' '.join(NATIVE.cxx())}) in {time.perf_counter() - t0:.3f} s")
+        f"({' '.join(NATIVE.cxx())}) in {time.perf_counter() - t0:.3f} s; "
+        f"each, started together: "
+        + ", ".join(f"{n} {t:.1f} s" for n, t in build_s.items()))
     for stem in lanes:
         for line in NATIVE.build_log.get(stem, "").splitlines():
             log(f"c++ {stem}: {line}")
@@ -3409,13 +4016,21 @@ def main() -> int:
     lane_launches["native_traced"] = obs["launches"]
     gemm_by_route["split"] += obs["split"]
 
-    # ---- 11. kernel line at the main paths' shapes ----------------------
+    # ---- 11. the rest of the single-rank substrate on the card ---------
+    lm80_launches, lm80_by_route, flash_rows = substrate(ptt, K, torch, smi,
+                                                         flash_device)
+    flash_launches += lm80_launches
+    for r, n_r in lm80_by_route.items():
+        flash_by_route[r] += n_r
+
+    # ---- 12. kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
                flash_entry(K, torch, gen, flash_launches, flash_by_route,
                            flash_device),
                stencil_entry(K, torch, gen, stencil_launches),
                matmul]
     kernels[0]["launches_by_lane"] = lane_launches
+    kernels[1]["head_dims"] = flash_rows
     for e in kernels:
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path")

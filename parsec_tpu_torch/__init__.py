@@ -13,11 +13,14 @@ classes and drains eligible pools through the native execution lane
 (``csrc/ptexec.cpp``).
 
 Layer map:
-  utils/   — config (MCA params), logging
+  utils/   — config (MCA params), logging, tracing, checkpoint/restore
   core/    — task model, scheduling, the scheduler plane, termdet, PINS,
              the progress loop
-  data/    — data copies/coherency, collections, tiled matrices
-  device/  — device modules: the CPU and the CUDA card
+  data/    — data copies/coherency, collections (the tiled matrices and
+             their distributions, subtile views), arenas, collection ops,
+             redistribution
+  device/  — device modules: the CPU, the recursive device and the CUDA
+             card; the backend probe
   dsl/     — DTD insert_task (the native engine's per-task and batched
              lanes, the Python engine), graph capture, the PTG frontend
              (parser, compiler, the native ptexec lane)
@@ -41,7 +44,11 @@ from .core.task import (
     FLOW_ACCESS_READ, FLOW_ACCESS_WRITE, FLOW_ACCESS_RW, FLOW_ACCESS_CTL,
     DEV_CPU, DEV_CUDA, DEV_ALL,
 )
-from .data.matrix import TiledMatrix, TwoDimBlockCyclic, collection_from_numpy
+from .core.compound import compose
+from .data.matrix import (SBCDistribution, SymTwoDimBlockCyclic,
+                          SymTwoDimBlockCyclicBand, TiledMatrix,
+                          TwoDimBlockCyclic, VectorTwoDimCyclic,
+                          collection_from_numpy)
 from .dsl.dtd import AFFINITY, DTDTaskpool, READ, RW, WRITE
 from .utils import mca
 
@@ -52,5 +59,32 @@ __all__ = [
     "FLOW_ACCESS_READ", "FLOW_ACCESS_WRITE", "FLOW_ACCESS_RW",
     "FLOW_ACCESS_CTL", "DEV_CPU", "DEV_CUDA", "DEV_ALL",
     "DTDTaskpool", "READ", "WRITE", "RW", "AFFINITY",
-    "TiledMatrix", "TwoDimBlockCyclic", "collection_from_numpy",
+    "TiledMatrix", "TwoDimBlockCyclic", "collection_from_numpy", "compose",
+    "SymTwoDimBlockCyclic", "SymTwoDimBlockCyclicBand", "SBCDistribution",
+    "VectorTwoDimCyclic",
+    # lazy (PEP 562) exports below
+    "compile_ptg", "NamedDatatype", "checkpoint",
 ]
+
+# the rest of the user surface resolves lazily so `import parsec_tpu_torch`
+# stays light
+_LAZY = {
+    "compile_ptg": ("parsec_tpu_torch.dsl.ptg.compiler", "compile_ptg"),
+    "NamedDatatype": ("parsec_tpu_torch.data.reshape", "NamedDatatype"),
+    "checkpoint": ("parsec_tpu_torch.utils.checkpoint", None),
+}
+
+
+def __getattr__(name):
+    entry = _LAZY.get(name)
+    if entry is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    mod = importlib.import_module(entry[0])
+    value = mod if entry[1] is None else getattr(mod, entry[1])
+    globals()[name] = value
+    return value
+
+
+def __dir__():
+    return sorted(set(list(globals()) + list(_LAZY)))

@@ -22,7 +22,14 @@
 // * Causal key tiles wholly above the block's diagonal are never visited:
 //   the loop ends at the last key the block's last row can see.
 // * Ragged tails of sq and sk are masked here (zero-filled tiles, padded
-//   keys scored NEG), so any sq, sk >= 1 runs; head dims 16, 32, 64, 128.
+//   keys scored NEG), so any sq, sk >= 1 runs.
+// * Any head dim 1 <= d <= 256. A launch at d runs the instantiation at the
+//   smallest built size D >= d of {16, 32, 64, 128, 256} (64 or 128 on the
+//   wgmma route): the loads of q, k and v fill columns d .. D - 1 with zeros
+//   in shared memory or registers (TMA's out-of-bounds fill on the wgmma
+//   route), never in a padded copy in device memory, and the store writes
+//   the d real columns. Zero columns change neither q k^T nor the first d
+//   columns of P V, and the default scale is 1/sqrt(d) from the caller.
 //
 // Precision.
 // * float32: every product and sum is a float32 FMA on the SIMT cores, never
@@ -51,14 +58,15 @@
 // launch (ops/cuda_kernels.py flash_route); a route whose preconditions do
 // not hold is refused with cudaErrorInvalidValue, never exchanged:
 //
-// * wgmma (bf16, d = 64 or 128, 16-byte aligned bases): Hopper's path. A
+// * wgmma (bf16, 32 < d <= 128 with d % 8 == 0, 16-byte aligned bases, at
+//   D = 64 or 128): Hopper's path. A
 //   work unit is (bh, a 128-row q tile); a block has 288 threads, two
 //   consumer warpgroups of 64 q rows each and one producer warp. The
 //   producer's first lane loads each unit's Q tile into the free one of two
 //   buffers and streams its 128-key K and V tiles through a ring of STAGES
-//   stages (3 at d = 64, 2 at d = 128: 128 and 192 KB of shared memory) with
+//   stages (3 at D = 64, 2 at D = 128: 128 and 192 KB of shared memory) with
 //   TMA: 3-D tensor maps over (d, s, bh), boxes of 64 columns x 128 rows x 1
-//   with 128-byte swizzle (two boxes a row block at d = 128), so the zero
+//   with 128-byte swizzle (two boxes a row block at D = 128), so the zero
 //   fill of a ragged tail stays inside its head. K and V of a stage have a
 //   full mbarrier each, so S can start before V has landed; an empty
 //   mbarrier a stage or Q buffer takes an arrival from each of the 8
@@ -84,14 +92,17 @@
 //   warpgroups taking turns on the tensor cores; P V of one tile under the
 //   softmax of the next; S of the next tile under the softmax) measured
 //   slower here (flash_variants.py).
-// * mma (bf16 at d = 16 or 32, or on bases not 16-byte aligned): 4 warps a
-//   block, 16 q rows each; the Q tile is loaded once into mma A fragments
-//   held in registers; K and V tiles of 64 rows are staged through shared
-//   memory with 16-byte loads (scalar loads on unaligned bases) and shared
+// * mma (the other bf16 launches, D = 256 included): 4 warps a block, 16 q
+//   rows each; the Q tile is loaded once into mma A fragments held in
+//   registers (at D = 256 into shared memory, where each k16 step loads its
+//   fragment, as O's 128 registers leave no room); K and V tiles of 64 rows
+//   are staged through shared memory with 16-byte loads (scalar loads on
+//   unaligned bases or rows) and shared
 //   by the 4 warps; mma.sync m16n8k16. Staging and math alternate behind
 //   barriers.
-// * simt (float32): the same block shape, 32-key K and V tiles in shared
-//   memory, FMA on the SIMT cores.
+// * simt (float32): 64 q rows a block, two threads a row (four at D = 256),
+//   32-key K and V tiles in shared memory (16 at D = 256: 32 KB), FMA on
+//   the SIMT cores.
 // The mma and simt grids are (bh, 64-row q tiles), heaviest first.
 //
 // C entry point (ctypes): flash_attention(q, k, v, out, bh, sq, sk, d,
@@ -153,59 +164,81 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Rows [r0, r0 + 64) of a (nrows, D) row-major matrix into shared memory
-// (leading dim D + 8), zero-filling rows past nrows.
+// Rows [r0, r0 + 64) of a (nrows, d) row-major matrix into shared memory
+// (leading dim D + 8, D >= d), zero-filling rows past nrows and columns d .. D
+// - 1. `vec`: 16-byte loads (aligned base and d % 8 == 0).
 template <int D>
 __device__ __forceinline__ void stage_bf16(bf16* dst,
                                            const bf16* __restrict__ src,
-                                           int r0, int nrows, bool vec) {
+                                           int r0, int nrows, int d,
+                                           bool vec) {
   constexpr int LD = D + 8, VPR = D / 8;
   for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
     const int r = i / VPR, c = (i % VPR) * 8, gr = r0 + r;
-    bf16* d = dst + r * LD + c;
-    if (gr >= nrows) {
-      *reinterpret_cast<uint4*>(d) = make_uint4(0u, 0u, 0u, 0u);
+    bf16* dp = dst + r * LD + c;
+    if (gr >= nrows || c >= d) {
+      *reinterpret_cast<uint4*>(dp) = make_uint4(0u, 0u, 0u, 0u);
     } else if (vec) {
-      *reinterpret_cast<uint4*>(d) =
-          *reinterpret_cast<const uint4*>(src + (size_t)gr * D + c);
+      *reinterpret_cast<uint4*>(dp) =
+          *reinterpret_cast<const uint4*>(src + (size_t)gr * d + c);
     } else {
 #pragma unroll
-      for (int e = 0; e < 8; ++e) d[e] = src[(size_t)gr * D + c + e];
+      for (int e = 0; e < 8; ++e)
+        dp[e] = c + e < d ? src[(size_t)gr * d + c + e] : __float2bfloat16(0.f);
     }
   }
 }
+
+// The mma kernel's layout at built size D: at D = 256 the warp's Q fragments
+// (64 registers) would not fit beside O's 128, so Q stays in shared memory
+// and each k16 step of S loads its fragment there.
+template <int D>
+struct Mma {
+  static constexpr bool Q_SHARED = D > 128;
+  static constexpr int LD = D + 8;
+  static constexpr size_t SMEM = sizeof(bf16) * BK * LD * (Q_SHARED ? 3 : 2);
+};
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ out, int sq,
-           int sk, int causal, float scale, int q_off, int k_off, bool vec) {
-  constexpr int LD = D + 8;
+           int sk, int d, int causal, float scale, int q_off, int k_off,
+           bool vec) {
+  using M = Mma<D>;
+  constexpr int LD = M::LD;
   constexpr int KC = D / 16;    // k steps of the q k^T product
   constexpr int NT = D / 8;     // 8-column tiles of the output
-  __shared__ __align__(16) bf16 Ks[BK * LD];
-  __shared__ __align__(16) bf16 Vs[BK * LD];
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  bf16* Ks = reinterpret_cast<bf16*>(mma_smem);
+  bf16* Vs = Ks + BK * LD;
+  bf16* Qs = Vs + BK * LD;      // Q_SHARED only
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row, pair within a row
   const int wr = warp * 16;               // the warp's first row in the tile
-  const bf16* qb = q + (size_t)bh * sq * D;
-  const bf16* kb = k + (size_t)bh * sk * D;
-  const bf16* vb = v + (size_t)bh * sk * D;
+  const bf16* qb = q + (size_t)bh * sq * d;
+  const bf16* kb = k + (size_t)bh * sk * d;
+  const bf16* vb = v + (size_t)bh * sk * d;
 
-  // the Q tile, through the K buffer, into A fragments held for the block
-  stage_bf16<D>(Ks, qb, row0, sq, vec);
-  __syncthreads();
-  uint32_t qa[KC][4];
+  // the Q tile: into A fragments held for the block (through the K buffer),
+  // or into its own buffer at D = 256
+  uint32_t qa[M::Q_SHARED ? 1 : KC][4];
+  if constexpr (M::Q_SHARED) {
+    stage_bf16<D>(Qs, qb, row0, sq, d, vec);
+  } else {
+    stage_bf16<D>(Ks, qb, row0, sq, d, vec);
+    __syncthreads();
 #pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const bf16* p = Ks + (wr + g) * LD + kc * 16 + 2 * t;
-    qa[kc][0] = ld32(p);
-    qa[kc][1] = ld32(p + 8 * LD);
-    qa[kc][2] = ld32(p + 8);
-    qa[kc][3] = ld32(p + 8 * LD + 8);
+    for (int kc = 0; kc < KC; ++kc) {
+      const bf16* p = Ks + (wr + g) * LD + kc * 16 + 2 * t;
+      qa[kc][0] = ld32(p);
+      qa[kc][1] = ld32(p + 8 * LD);
+      qa[kc][2] = ld32(p + 8);
+      qa[kc][3] = ld32(p + 8 * LD + 8);
+    }
   }
   __syncthreads();
 
@@ -218,19 +251,35 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kend = key_end(sq, sk, causal, row0, BQ, q_off, k_off);
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    stage_bf16<D>(Ks, kb, k0, sk, vec);
-    stage_bf16<D>(Vs, vb, k0, sk, vec);
+    stage_bf16<D>(Ks, kb, k0, sk, d, vec);
+    stage_bf16<D>(Vs, vb, k0, sk, d, vec);
     __syncthreads();
 
-    // S = Q K^T for 16 rows x 64 keys: 8 tiles of 8 keys
+    // S = Q K^T for 16 rows x 64 keys: 8 tiles of 8 keys, each summed over
+    // the k16 steps in order
     float s[8][4];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+    if constexpr (M::Q_SHARED) {
 #pragma unroll
       for (int kc = 0; kc < KC; ++kc) {
-        const bf16* p = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
-        mma_bf16(s[j], qa[kc], ld32(p), ld32(p + 8));
+        const bf16* p = Qs + (wr + g) * LD + kc * 16 + 2 * t;
+        const uint32_t a[4] = {ld32(p), ld32(p + 8 * LD), ld32(p + 8),
+                               ld32(p + 8 * LD + 8)};
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const bf16* kp = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
+          mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+#pragma unroll
+        for (int kc = 0; kc < KC; ++kc) {
+          const bf16* p = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
+          mma_bf16(s[j], qa[kc], ld32(p), ld32(p + 8));
+        }
       }
     }
 
@@ -293,74 +342,98 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
+  // only the d real columns are written: pairs where d is even, else one
+  // element at a time
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + wr + g + 8 * h;
     if (r >= sq) continue;
     const float den = fmaxf(l[h], 1e-30f);
-    bf16* dst = out + ((size_t)bh * sq + r) * D + 2 * t;
+    bf16* dst = out + ((size_t)bh * sq + r) * d;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * h] / den, o[n][2 * h + 1] / den);
+      const int col = n * 8 + 2 * t;
+      const float y0 = o[n][2 * h] / den, y1 = o[n][2 * h + 1] / den;
+      if (d % 2 == 0) {
+        if (col < d)
+          *reinterpret_cast<__nv_bfloat162*>(dst + col) =
+              __floats2bfloat162_rn(y0, y1);
+      } else {
+        if (col < d) dst[col] = __float2bfloat16(y0);
+        if (col + 1 < d) dst[col + 1] = __float2bfloat16(y1);
+      }
     }
   }
 }
 
 // ---------------------------------------------------------------- float32
 
-constexpr int F_BK = 32;        // keys per shared-memory tile
+// The SIMT kernel's layout at built size D: TPR threads share a q row (2, and
+// 4 at D = 256, so q and O stay at 64 registers each), 64 rows a block, and
+// K and V tiles of BKF keys (32, and 16 at D = 256: 32 KB of shared memory).
+template <int D>
+struct Simt {
+  static constexpr int TPR = D > 128 ? 4 : 2;
+  static constexpr int THREADS = BQ * TPR;
+  static constexpr int BKF = D > 128 ? 16 : 32;
+  static constexpr int P = D / (2 * TPR);   // float2 pairs a thread owns
+};
 
-// Rows [r0, r0 + F_BK) of a (nrows, D) row-major matrix into shared memory,
-// zero-filling rows past nrows.
+// Rows [r0, r0 + BKF) of a (nrows, d) row-major matrix into shared memory
+// (leading dim D), zero-filling rows past nrows and columns d .. D - 1.
+// `vec`: 16-byte loads (aligned base and d % 4 == 0).
 template <int D>
 __device__ __forceinline__ void stage_f32(float* dst,
                                           const float* __restrict__ src,
-                                          int r0, int nrows, bool vec) {
+                                          int r0, int nrows, int d, bool vec) {
+  using S = Simt<D>;
   constexpr int VPR = D / 4;
-  for (int i = threadIdx.x; i < F_BK * VPR; i += THREADS) {
+  for (int i = threadIdx.x; i < S::BKF * VPR; i += S::THREADS) {
     const int r = i / VPR, c = (i % VPR) * 4, gr = r0 + r;
-    float* d = dst + r * D + c;
-    if (gr >= nrows) {
-      *reinterpret_cast<float4*>(d) = make_float4(0.f, 0.f, 0.f, 0.f);
+    float* dp = dst + r * D + c;
+    if (gr >= nrows || c >= d) {
+      *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
     } else if (vec) {
-      *reinterpret_cast<float4*>(d) =
-          *reinterpret_cast<const float4*>(src + (size_t)gr * D + c);
+      *reinterpret_cast<float4*>(dp) =
+          *reinterpret_cast<const float4*>(src + (size_t)gr * d + c);
     } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) d[e] = src[(size_t)gr * D + c + e];
+      for (int e = 0; e < 4; ++e)
+        dp[e] = c + e < d ? src[(size_t)gr * d + c + e] : 0.f;
     }
   }
 }
 
-// Two threads share a q row: thread half `hf` owns the columns 4i + 2hf and
-// 4i + 2hf + 1 (i < D/4), so the two halves read neighbouring words of a
-// shared row and each dot is two half-sums joined by one shuffle.
+// Thread part `hf` of a row owns the columns 2 TPR i + 2 hf and
+// 2 TPR i + 2 hf + 1 (i < P), so the parts read neighbouring words of a
+// shared row and each dot is TPR part-sums joined by shuffles.
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Simt<D>::THREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int sq,
-          int sk, int causal, float scale, int q_off, int k_off, bool vec) {
-  constexpr int P = D / 4;      // float2 pairs a thread owns
-  __shared__ __align__(16) float Ks[F_BK * D];
-  __shared__ __align__(16) float Vs[F_BK * D];
+          int sk, int d, int causal, float scale, int q_off, int k_off,
+          bool vec) {
+  using S = Simt<D>;
+  constexpr int TPR = S::TPR, P = S::P, BKF = S::BKF;
+  __shared__ __align__(16) float Ks[BKF * D];
+  __shared__ __align__(16) float Vs[BKF * D];
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
-  const int hf = threadIdx.x % 2;
-  const int row = row0 + threadIdx.x / 2;
+  const int hf = threadIdx.x % TPR;
+  const int row = row0 + threadIdx.x / TPR;
   const bool live = row < sq;
-  const float* kb = k + (size_t)bh * sk * D;
-  const float* vb = v + (size_t)bh * sk * D;
+  const float* kb = k + (size_t)bh * sk * d;
+  const float* vb = v + (size_t)bh * sk * d;
 
   float2 qr[P], o[P];
   {
-    const float* qrow = q + ((size_t)bh * sq + (live ? row : 0)) * D;
+    const float* qrow = q + ((size_t)bh * sq + (live ? row : 0)) * d;
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const int c = 4 * i + 2 * hf;
-      qr[i] = live ? make_float2(qrow[c] * scale, qrow[c + 1] * scale)
-                   : make_float2(0.f, 0.f);
+      const int c = 2 * TPR * i + 2 * hf;
+      qr[i] = make_float2(live && c < d ? qrow[c] * scale : 0.f,
+                          live && c + 1 < d ? qrow[c + 1] * scale : 0.f);
       o[i] = make_float2(0.f, 0.f);
     }
   }
@@ -368,24 +441,25 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int qpos = q_off + row;
 
   const int kend = key_end(sq, sk, causal, row0, BQ, q_off, k_off);
-  for (int k0 = 0; k0 < kend; k0 += F_BK) {
-    stage_f32<D>(Ks, kb, k0, sk, vec);
-    stage_f32<D>(Vs, vb, k0, sk, vec);
+  for (int k0 = 0; k0 < kend; k0 += BKF) {
+    stage_f32<D>(Ks, kb, k0, sk, d, vec);
+    stage_f32<D>(Vs, vb, k0, sk, d, vec);
     __syncthreads();
 
-    float s[F_BK];
+    float s[BKF];
     float mx = m;
 #pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
+    for (int j = 0; j < BKF; ++j) {
       const float2* kr = reinterpret_cast<const float2*>(Ks + j * D) + hf;
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < P; ++i) {
-        const float2 kv = kr[2 * i];
+        const float2 kv = kr[TPR * i];
         part = fmaf(qr[i].x, kv.x, part);
         part = fmaf(qr[i].y, kv.y, part);
       }
-      const float x = part + __shfl_xor_sync(FULL, part, 1);
+      float x = part + __shfl_xor_sync(FULL, part, 1);
+      if (TPR == 4) x += __shfl_xor_sync(FULL, x, 2);
       const int col = k0 + j;
       const bool keep = col < sk && (!causal || k_off + col <= qpos);
       s[j] = keep ? x : NEG;
@@ -394,7 +468,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
     const float corr = expf(m - mx);
     float sum = 0.f;
 #pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
+    for (int j = 0; j < BKF; ++j) {
       s[j] = s[j] > 0.5f * NEG ? expf(s[j] - mx) : 0.f;
       sum += s[j];
     }
@@ -406,11 +480,11 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
       o[i].y *= corr;
     }
 #pragma unroll
-    for (int j = 0; j < F_BK; ++j) {
+    for (int j = 0; j < BKF; ++j) {
       const float2* vr = reinterpret_cast<const float2*>(Vs + j * D) + hf;
 #pragma unroll
       for (int i = 0; i < P; ++i) {
-        const float2 vv = vr[2 * i];
+        const float2 vv = vr[TPR * i];
         o[i].x = fmaf(s[j], vv.x, o[i].x);
         o[i].y = fmaf(s[j], vv.y, o[i].y);
       }
@@ -420,11 +494,18 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   if (!live) return;
   const float den = fmaxf(l, 1e-30f);
-  float* dst = out + ((size_t)bh * sq + row) * D + 2 * hf;
+  float* dst = out + ((size_t)bh * sq + row) * d;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    *reinterpret_cast<float2*>(dst + 4 * i) =
-        make_float2(o[i].x / den, o[i].y / den);
+    const int c = 2 * TPR * i + 2 * hf;
+    if (d % 2 == 0) {
+      if (c < d)
+        *reinterpret_cast<float2*>(dst + c) =
+            make_float2(o[i].x / den, o[i].y / den);
+    } else {
+      if (c < d) dst[c] = o[i].x / den;
+      if (c + 1 < d) dst[c + 1] = o[i].y / den;
+    }
   }
 }
 
@@ -670,7 +751,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
                  const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v,
                  bf16* __restrict__ out, int bh_count, int sq, int sk,
-                 int causal, float scale_log2, int q_off, int k_off) {
+                 int d, int causal, float scale_log2, int q_off, int k_off) {
   using W = Wgmma<D>;
   extern __shared__ uint8_t smem_raw[];
   // 128-byte swizzled tiles want 1024-byte aligned buffers
@@ -806,9 +887,10 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const int r = wg_row0 + 16 * w + g + 8 * h;
       if (r >= sq) continue;
       const float den = fmaxf(l[h], 1e-30f);
-      bf16* dst = out + ((size_t)bh * sq + r) * D + 2 * t;
+      bf16* dst = out + ((size_t)bh * sq + r) * d + 2 * t;
 #pragma unroll
       for (int n = 0; n < D / 8; ++n) {
+        if (n * 8 >= d) break;   // d % 8 == 0: only real columns
         *reinterpret_cast<__nv_bfloat162*>(dst + n * 8) =
             __floats2bfloat162_rn(o[4 * n + 2 * h] / den,
                                   o[4 * n + 2 * h + 1] / den);
@@ -823,14 +905,16 @@ constexpr int ROUTE_SIMT = 0, ROUTE_MMA = 1, ROUTE_WGMMA = 2;
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
-                 int bh, int sq, int sk, int causal, float scale, int q_off,
-                 int k_off, int sms, cudaStream_t st) {
+                 int bh, int sq, int sk, int d, int causal, float scale,
+                 int q_off, int k_off, int sms, cudaStream_t st) {
   using W = Wgmma<D>;
   CUtensorMap tm_q, tm_k, tm_v;
-  const uint64_t row = (uint64_t)D * 2;
-  if (!encode3(&tm_q, q, D, sq, bh, row, row * sq, 64, W_BQ, 1) ||
-      !encode3(&tm_k, k, D, sk, bh, row, row * sk, 64, W_BK, 1) ||
-      !encode3(&tm_v, v, D, sk, bh, row, row * sk, 64, W_BK, 1))
+  // the maps span the d real columns; a box's columns past d are out of
+  // bounds, and TMA fills them with zeros
+  const uint64_t row = (uint64_t)d * 2;
+  if (!encode3(&tm_q, q, d, sq, bh, row, row * sq, 64, W_BQ, 1) ||
+      !encode3(&tm_k, k, d, sk, bh, row, row * sk, 64, W_BK, 1) ||
+      !encode3(&tm_v, v, d, sk, bh, row, row * sk, 64, W_BK, 1))
     return (int)cudaErrorInvalidValue;
   static bool attr = false;
   if (!attr) {
@@ -844,26 +928,38 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int units = bh * ((sq + W_BQ - 1) / W_BQ);
   const int grid = units < sms ? units : sms;
   flash_bf16_wgmma<D><<<grid, W_THREADS, W::SMEM, st>>>(
-      tm_q, tm_k, tm_v, static_cast<bf16*>(out), bh, sq, sk, causal,
+      tm_q, tm_k, tm_v, static_cast<bf16*>(out), bh, sq, sk, d, causal,
       (float)((double)scale * 1.4426950408889634), q_off, k_off);
   return (int)cudaGetLastError();
 }
 
 template <int D>
-void launch(const void* q, const void* k, const void* v, void* out, dim3 grid,
-            int sq, int sk, int causal, float scale, int q_off, int k_off,
-            int dtype, bool vec, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* out, dim3 grid,
+           int sq, int sk, int d, int causal, float scale, int q_off,
+           int k_off, int dtype, bool vec, cudaStream_t st) {
   if (dtype == 0) {
-    flash_f32<D><<<grid, THREADS, 0, st>>>(
+    flash_f32<D><<<grid, Simt<D>::THREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(out), sq, sk,
+        static_cast<const float*>(v), static_cast<float*>(out), sq, sk, d,
         causal, scale, q_off, k_off, vec);
   } else {
-    flash_bf16<D><<<grid, THREADS, 0, st>>>(
+    constexpr size_t smem = Mma<D>::SMEM;
+    if (smem > 48 * 1024) {
+      static bool attr = false;
+      if (!attr) {
+        const cudaError_t e = cudaFuncSetAttribute(
+            flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            (int)smem);
+        if (e != cudaSuccess) return (int)e;
+        attr = true;
+      }
+    }
+    flash_bf16<D><<<grid, THREADS, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, causal,
-        scale, q_off, k_off, vec);
+        static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, d,
+        causal, scale, q_off, k_off, vec);
   }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -872,39 +968,41 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int bh, int sq, int sk, int d,
                                int causal, float scale, int q_off, int k_off,
                                int dtype, int route, int sms, void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || (sq + BQ - 1) / BQ > 65535)
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
+      (sq + BQ - 1) / BQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  // 16-byte loads and TMA need every row start aligned: aligned bases
-  // suffice, as a row is d * 2 or d * 4 bytes, a multiple of 16 for every
-  // supported d
-  const bool vec = aligned16(q) && aligned16(k) && aligned16(v);
+  // 16-byte loads and TMA need every row start aligned: aligned bases and a
+  // row of d * 2 or d * 4 bytes that is a multiple of 16
+  const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
+                   d % (dtype == 1 ? 8 : 4) == 0;
   if (route == ROUTE_WGMMA) {
-    if (dtype != 1 || !vec || sms < 1 ||
+    if (dtype != 1 || !vec || d <= 32 || d > 128 || sms < 1 ||
         (long)bh * ((sq + W_BQ - 1) / W_BQ) > 0x7fffffff)
       return (int)cudaErrorInvalidValue;
-    if (d == 64)
-      return launch_wgmma<64>(q, k, v, out, bh, sq, sk, causal, scale, q_off,
-                              k_off, sms, st);
-    if (d == 128)
-      return launch_wgmma<128>(q, k, v, out, bh, sq, sk, causal, scale,
-                               q_off, k_off, sms, st);
-    return (int)cudaErrorInvalidValue;
+    if (d <= 64)
+      return launch_wgmma<64>(q, k, v, out, bh, sq, sk, d, causal, scale,
+                              q_off, k_off, sms, st);
+    return launch_wgmma<128>(q, k, v, out, bh, sq, sk, d, causal, scale,
+                             q_off, k_off, sms, st);
   }
   if (!(route == ROUTE_SIMT && dtype == 0) &&
       !(route == ROUTE_MMA && dtype == 1))
     return (int)cudaErrorInvalidValue;
+  // the smallest built size D >= d; the loads zero-fill columns d .. D - 1
   const dim3 grid(bh, (sq + BQ - 1) / BQ);
-  switch (d) {
-    case 16: launch<16>(q, k, v, out, grid, sq, sk, causal, scale, q_off,
-                        k_off, dtype, vec, st); break;
-    case 32: launch<32>(q, k, v, out, grid, sq, sk, causal, scale, q_off,
-                        k_off, dtype, vec, st); break;
-    case 64: launch<64>(q, k, v, out, grid, sq, sk, causal, scale, q_off,
-                        k_off, dtype, vec, st); break;
-    case 128: launch<128>(q, k, v, out, grid, sq, sk, causal, scale, q_off,
-                          k_off, dtype, vec, st); break;
-    default: return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (d <= 16)
+    return launch<16>(q, k, v, out, grid, sq, sk, d, causal, scale, q_off,
+                      k_off, dtype, vec, st);
+  if (d <= 32)
+    return launch<32>(q, k, v, out, grid, sq, sk, d, causal, scale, q_off,
+                      k_off, dtype, vec, st);
+  if (d <= 64)
+    return launch<64>(q, k, v, out, grid, sq, sk, d, causal, scale, q_off,
+                      k_off, dtype, vec, st);
+  if (d <= 128)
+    return launch<128>(q, k, v, out, grid, sq, sk, d, causal, scale, q_off,
+                       k_off, dtype, vec, st);
+  return launch<256>(q, k, v, out, grid, sq, sk, d, causal, scale, q_off,
+                     k_off, dtype, vec, st);
 }

@@ -814,11 +814,20 @@ def discover_cuda_devices(want: torch.device) -> List[CUDADevice]:
     """The device module for the context's device (ref: device discovery,
     device_cuda_module.c:45). ``want`` is the card the context asked for;
     on a ``cpu`` context the test mode may register the module over the
-    CPU. A context that asked for CUDA on a machine without it raises."""
+    CPU. A context that asked for CUDA on a machine without it raises, and
+    so does one whose backend probe (:mod:`.probe`, a subprocess under a
+    timeout, decided once per process) found no card: with the probe's
+    reason."""
     if want.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA device was asked for, but "
                                "torch.cuda.is_available() is False")
+        from . import probe
+        platform, _count = probe.decide_backend()
+        if platform != "cuda":
+            raise RuntimeError(f"a CUDA device was asked for, but the "
+                               f"backend probe decided {platform!r}: "
+                               f"{probe.reason()}")
         index = want.index if want.index is not None \
             else torch.cuda.current_device()
         return [CUDADevice(torch.device("cuda", index))]

@@ -6,8 +6,9 @@ Re-design of parsec/mca/device/device.{c,h}:
   attach/detach; the reference's taskpool_register/memory_register/
   data_advise come with the slices that use them) plus the
   accelerator-facing hooks the GPU superclass defines (device_gpu.h:246-281).
-* :class:`DeviceRegistry` — ordered list of devices (device 0 = CPU, then
-  accelerators, ref: device.c), per-device load tracking and **best-device
+* :class:`DeviceRegistry` — ordered list of devices (device 0 = CPU, device
+  1 = the recursive device, then the CUDA card, ref: device.c), per-device
+  load tracking and **best-device
   selection** (ref: parsec_select_best_device, device.c:100-277): data
   affinity first (run where the write-copy already lives), else minimal
   estimated-time-of-availability with the load-balance skew tunables
@@ -31,6 +32,9 @@ mca.register("device_load_balance_skew", 20,
              "Percent skew tolerated before moving work off the affine device", type=int)
 mca.register("device_load_balance_allow_cpu", True,
              "Allow spilling accelerator-capable tasks to the CPU device", type=bool)
+mca.register("device_recursive_enabled", True,
+             "Register the recursive device (tasks whose body is a "
+             "sub-taskpool)", type=bool)
 
 
 class DeviceModule:
@@ -96,12 +100,16 @@ class DeviceRegistry:
         self._discover(context)
 
     def _discover(self, context) -> None:
-        """Device 0 is the CPU; the CUDA module follows. A context that
-        asked for the card gets it or an exception: discovery never carries
-        on quietly without it (the recursive device of the reference is not
-        ported yet)."""
+        """Device 0 is the CPU, device 1 the recursive device (unless
+        ``device_recursive_enabled`` is off), and the CUDA module follows:
+        code that needs a device's index reads it from the registry. A
+        context that asked for the card gets it or an exception: discovery
+        never carries on quietly without it."""
         from .cpu import CPUDevice
         self.add(CPUDevice())
+        if mca.get("device_recursive_enabled", True):
+            from .recursive import RecursiveDevice
+            self.add(RecursiveDevice())
         from .cuda import discover_cuda_devices
         for dev in discover_cuda_devices(context.device):
             self.add(dev)

@@ -2,7 +2,8 @@
 scheduler plane and the device lane as CPython extensions built from the
 package's own C++ (``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``,
 ``csrc/ptsched.cpp``, ``csrc/ptdev.cpp``), and the
-native core (``csrc/ptcore.cpp``: the dependency table) as a plain C library
+native core (``csrc/ptcore.cpp``: the dependency table and the zone
+allocator) as a plain C library
 bound with ctypes.
 
 They run on the host, beside the card, so they are built with the host C++
@@ -218,6 +219,15 @@ def load_core():
             lib.pt_dep_table_get.argtypes = [
                 ctypes.c_void_p, ctypes.POINTER(ctypes.c_int64),
                 ctypes.c_int32]
+            lib.pt_zone_create.restype = ctypes.c_void_p
+            lib.pt_zone_create.argtypes = [ctypes.c_int64, ctypes.c_int64]
+            lib.pt_zone_destroy.argtypes = [ctypes.c_void_p]
+            lib.pt_zone_alloc.restype = ctypes.c_int64
+            lib.pt_zone_alloc.argtypes = [ctypes.c_void_p, ctypes.c_int64]
+            lib.pt_zone_free.argtypes = [ctypes.c_void_p, ctypes.c_int64,
+                                         ctypes.c_int64]
+            lib.pt_zone_stats.argtypes = [ctypes.c_void_p,
+                                          ctypes.POINTER(ctypes.c_int64)]
             _core = lib
             output.debug_verbose(1, "native", "ptcore loaded")
     return _core
@@ -275,5 +285,45 @@ class NativeDepTable:
         try:
             if self._t and self._lib:
                 self._lib.pt_dep_table_destroy(self._t)
+        except Exception:  # noqa: BLE001 - interpreter shutdown
+            pass
+
+
+class NativeZone:
+    """The native zone allocator (``csrc/ptcore.cpp`` ``pt_zone_*``): the
+    first-fit, coalescing offset allocator of
+    :class:`~parsec_tpu_torch.utils.zone_malloc.ZoneMalloc` in C++, over
+    ``total_bytes`` in ``unit``-byte segments. ``alloc`` returns a byte
+    offset, or None when no hole fits."""
+
+    __slots__ = ("_z", "_lib")
+
+    def __init__(self, total_bytes: int, unit: int = 1 << 20) -> None:
+        self._lib = load_core()
+        if self._lib is None:
+            raise RuntimeError("the native core is off (--mca "
+                               "native_enabled 0)")
+        self._z = self._lib.pt_zone_create(total_bytes, unit)
+        if not self._z:
+            raise MemoryError("pt_zone_create failed")
+
+    def alloc(self, nbytes: int) -> Optional[int]:
+        off = self._lib.pt_zone_alloc(self._z, nbytes)
+        return None if off < 0 else off
+
+    def free(self, offset: int, nbytes: int) -> None:
+        self._lib.pt_zone_free(self._z, offset, nbytes)
+
+    def stats(self) -> dict:
+        import ctypes
+        out = (ctypes.c_int64 * 4)()
+        self._lib.pt_zone_stats(self._z, out)
+        return {"free_bytes": out[0], "in_use_bytes": out[1],
+                "hwm_bytes": out[2], "largest_hole_bytes": out[3]}
+
+    def __del__(self) -> None:
+        try:
+            if self._z and self._lib:
+                self._lib.pt_zone_destroy(self._z)
         except Exception:  # noqa: BLE001 - interpreter shutdown
             pass

@@ -17,9 +17,11 @@ on the CPU; it never falls back from one to the other.
 * :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
   (``csrc/flash_attention.cu``): a thread block owns a q tile and streams
   k/v tiles past an online softmax held in registers, on the route
-  :func:`flash_route` picks: ``wgmma`` (bf16 at head dim 64 or 128: a TMA
-  ring fed by a producer warp, two consumer warpgroups on ``wgmma``),
-  ``mma`` (other bf16: ``mma.sync``) or ``simt`` (float32). It replaces the
+  :func:`flash_route` picks: ``wgmma`` (bf16 at head dims 33-128 that are
+  multiples of 8: a TMA ring fed by a producer warp, two consumer
+  warpgroups on ``wgmma``), ``mma`` (other bf16: ``mma.sync``) or ``simt``
+  (float32). Any head dim up to 256 runs, on the instantiation at the next
+  built size, its extra columns zero-filled as they load. It replaces the
   TPU kernel ``_flash_attn_call`` of the same module.
 * :func:`matmul` — blocked A·B with the output accumulated in its own dtype
   per k block, a second entry point of ``csrc/gemm_chain.cu`` that runs the
@@ -544,8 +546,10 @@ stencil1d.launches = 0
 # flash attention
 # ---------------------------------------------------------------------------
 
-#: head dims the kernel is built for
-FLASH_HEAD_DIMS = (16, 32, 64, 128)
+#: the widest head dim the kernel takes; it is built at 16, 32, 64, 128 and
+#: 256, and a launch at head dim d runs the smallest of them >= d, with
+#: columns d .. D - 1 zero-filled as they load
+FLASH_MAX_HEAD_DIM = 256
 #: dtype codes of the C entry point
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: route codes of the C entry point
@@ -555,12 +559,13 @@ FLASH_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
 def flash_route(dtype, d: int, aligned: bool) -> str:
     """The route of a flash launch: a pure function of the dtype, the head
     dim and the operands' 16-byte alignment. ``simt`` for float32 (no TF32,
-    so the SIMT cores); ``wgmma`` (TMA and ``wgmma``) for bf16 at d = 64 or
-    128 on 16-byte aligned bases, which TMA needs; ``mma`` (``mma.sync``)
-    for the other bf16 launches."""
+    so the SIMT cores); ``wgmma`` (TMA and ``wgmma``, built at 64 and 128)
+    for bf16 at 32 < d <= 128 with d % 8 == 0 on 16-byte aligned bases, as
+    TMA needs 16-byte aligned rows; ``mma`` (``mma.sync``) for the other
+    bf16 launches, d <= 32 and d > 128 included."""
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if d in (64, 128) and aligned else "mma"
+    return "wgmma" if 32 < d <= 128 and d % 8 == 0 and aligned else "mma"
 
 
 def _check_flash(q, k, v) -> None:
@@ -651,7 +656,8 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     :func:`flash_route`'s.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, head dim in :data:`FLASH_HEAD_DIMS`) or raise."""
+    kernel (contiguous, head dim up to :data:`FLASH_MAX_HEAD_DIM`) or
+    raise."""
     del block_q, block_k
     _check_flash(q, k, v)
     d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
@@ -662,9 +668,9 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
                                      k_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {d} is not one of the "
-                         f"kernel's {FLASH_HEAD_DIMS}")
+    if d > FLASH_MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} is over the "
+                         f"kernel's limit of {FLASH_MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous operands")
     lib = _library("flash_attention")

@@ -381,8 +381,9 @@ def test_stage_in_once_then_eviction_writes_back(gctx):
 
 
 # (q shape, kv shape, causal, q_offset, k_offset, rows that see no key).
-# Head dims 64 and 128 take the wgmma route in bf16 (128-row q blocks,
-# 128-key tiles), 16 and 32 the mma route; the d = 64 cases reach every kind
+# Head dims 33-128 that are multiples of 8 take the wgmma route in bf16
+# (128-row q blocks, 128-key tiles), the others the mma route (up to 256);
+# the d = 64 cases reach every kind
 # of key tile: wholly visible, crossing the diagonal (offsets equal or not,
 # sq = sk or not), wholly masked, and the ragged end of k.
 FLASH_CASES = [
@@ -403,6 +404,18 @@ FLASH_CASES = [
     ((1, 257, 64), (1, 257, 64), True, 0, 0, 0),
     ((2, 4, 64), (2, 4, 64), False, 0, 0, 0),
     ((3, 1, 64), (3, 1, 64), True, 0, 0, 0),
+    # head dims between and up to the built sizes: d runs the instantiation
+    # at the next built size with its extra columns zero-filled as they
+    # load (48, 80, 96: wgmma in bf16 with TMA's out-of-bounds fill; 1, 8,
+    # 200, 256: mma), ragged and causal
+    ((2, 70, 1), (2, 90, 1), True, 20, 0, 0),
+    ((2, 100, 8), (2, 100, 8), False, 0, 0, 0),
+    ((2, 200, 48), (2, 260, 48), True, 60, 0, 0),
+    ((2, 257, 80), (2, 257, 80), True, 0, 0, 0),
+    ((1, 128, 80), (1, 128, 80), True, 0, 128, 128),
+    ((2, 130, 96), (2, 190, 96), False, 0, 0, 0),
+    ((2, 150, 200), (2, 150, 200), True, 0, 0, 0),
+    ((2, 129, 256), (2, 300, 256), True, 171, 0, 0),
     ((2, 200, 64), (2, 300, 64), True, 100, 0, 0),
     ((1, 192, 64), (1, 160, 64), True, 40, 72, 32),
     ((2, 512, 64), (2, 512, 64), True, 0, 0, 0),
@@ -414,11 +427,11 @@ FLASH_CASES = [
 
 def _flash_route_of(dtype, d):
     """The route each case must take: float32 on the SIMT cores, bf16 on
-    wgmma at head dims 64 and 128 (every case here is 16-byte aligned),
-    else on mma.sync."""
+    wgmma at head dims 33-128 that are multiples of 8 (every case here is
+    16-byte aligned), else on mma.sync."""
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if d in (64, 128) else "mma"
+    return "wgmma" if 32 < d <= 128 and d % 8 == 0 else "mma"
 
 
 def _flash_inputs(qs, ks, dtype):
@@ -504,6 +517,44 @@ def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
     assert launch(bf, 64, 1, R["simt"]) != 0
 
 
+@pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
+                                     (torch.bfloat16, 80),
+                                     (torch.bfloat16, 200),
+                                     (torch.float32, 80),
+                                     (torch.float32, 256)])
+def test_flash_pads_columns_in_its_loads_not_in_memory(dtype, d):
+    """A head dim between built sizes: q, k and v end where a buffer of NaN
+    begins, so a load that read past column d - 1 of the last row, or a
+    padded TMA box not filled with zeros, would carry NaN into the output.
+    The output's d columns must hold the plain version; the NaN tail after
+    the output must stay untouched (the store writes d columns)."""
+    _need_card()
+    bh, s = 2, 130
+    n = bh * s * d
+    bufs = [torch.full((n + 4096,), float("nan"), device="cuda", dtype=dtype)
+            for _ in range(3)]
+    gen = torch.Generator(device="cuda").manual_seed(d)
+    for b in bufs:
+        b[:n] = torch.randn(n, device="cuda", generator=gen).to(dtype)
+    q, k, v = (b[:n].view(bh, s, d) for b in bufs)
+    kw = dict(causal=True, q_offset=0, k_offset=0)
+    with _counted_on(K.flash_attention, _flash_route_of(dtype, d)):
+        got = K.flash_attention(q, k, v, **kw)
+    assert torch.isfinite(got).all()
+    _flash_holds(got, q, k, v, kw, 0)
+    out_buf = torch.full((n + 4096,), float("nan"), device="cuda", dtype=dtype)
+    out = out_buf[:n].view(bh, s, d)
+    err = K._library("flash_attention").flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s, s, d,
+        1, d ** -0.5, 0, 0, K._FLASH_DTYPES[dtype],
+        K.FLASH_ROUTES[_flash_route_of(dtype, d)], K._sm_count(q.device),
+        torch.cuda.current_stream().cuda_stream)
+    assert err == 0
+    torch.cuda.synchronize()
+    assert torch.equal(out, got)
+    assert torch.isnan(out_buf[n:]).all()
+
+
 # planted faults in the wgmma kernel: (name, source text, its replacement)
 FLASH_FAULTS = [
     ("skip the last key tile",
@@ -577,9 +628,9 @@ def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
 def test_flash_kernel_raises_instead_of_falling_back():
     _need_card()
     q = torch.zeros(2, 64, 64, device="cuda")
-    with pytest.raises(ValueError, match="head dim"):
-        K.flash_attention(q[..., :48].contiguous(), q[..., :48].contiguous(),
-                          q[..., :48].contiguous())
+    wide = torch.zeros(2, 64, 257, device="cuda")
+    with pytest.raises(ValueError, match="head dim 257 .*limit of 256"):
+        K.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(TypeError):

@@ -1,6 +1,6 @@
 """The port's single-rank examples (``examples_torch/``: ex00 start/stop,
-ex01 hello world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF) and
-ex11 (graph capture)) run green on a CPU context, each in its own
+ex01 hello world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF),
+ex11 (graph capture) and ex16 (redistribution)) run green on a CPU context, each in its own
 interpreter, and none of them imports JAX or the reference package."""
 
 import ast
@@ -13,7 +13,7 @@ import pytest
 
 EX_DIR = pathlib.Path(__file__).resolve().parent.parent / "examples_torch"
 EXAMPLES = ["ex00", "ex01", "ex02", "ex04", "ex05", "ex06", "ex07",
-            "ex11"]
+            "ex11", "ex16"]
 
 
 def _script(ex: str) -> pathlib.Path:

@@ -73,6 +73,16 @@ CASES = {
     "prime_seq": lambda: (_qkv(41, (1, 257, 16)), dict(causal=True),
                           "float32", 0),
     "small_seq": lambda: (_qkv(42, (1, 4, 16)), {}, "float32", 0),
+    # head dims the card runs on the next built size's instantiation
+    "head_dim_80_causal": lambda: (_qkv(43, (2, 96, 80)), dict(causal=True),
+                                   "float32", 0),
+    "head_dim_80_bf16": lambda: (_qkv(44, (1, 64, 80)), dict(causal=True),
+                                 "bfloat16", 0),
+    "head_dim_256_ring": lambda: (_qkv(45, (1, 64, 256), (1, 128, 256)),
+                                  dict(causal=True, q_offset=64),
+                                  "float32", 0),
+    "head_dim_1": lambda: (_qkv(46, (1, 40, 1)), dict(causal=True),
+                           "float32", 0),
 }
 
 
@@ -214,6 +224,7 @@ _BOUND_CASES = {
     "unaligned_offset": ((1, 64, 32), (1, 64, 32), True, 0, 32),
     "small_seq": ((1, 4, 16), (1, 4, 16), False, 0, 0),
     "head_dim_128_offsets": ((2, 300, 128), (2, 333, 128), True, 100, 60),
+    "head_dim_80": ((2, 200, 80), (2, 260, 80), True, 60, 0),
 }
 
 

@@ -41,6 +41,44 @@ def test_importing_the_port_loads_neither_jax_nor_the_reference():
     assert int(proc.stdout.split()[-1]) >= 15     # every module imported
 
 
+#: the modules of the single-rank substrate slice
+SUBSTRATE_MODULES = (
+    "parsec_tpu_torch.core.compound", "parsec_tpu_torch.device.recursive",
+    "parsec_tpu_torch.device.probe", "parsec_tpu_torch.data.subtile",
+    "parsec_tpu_torch.data.ops", "parsec_tpu_torch.data.redistribute",
+    "parsec_tpu_torch.data.arena", "parsec_tpu_torch.utils.checkpoint")
+
+
+def test_substrate_modules_load_neither_jax_nor_the_reference():
+    code = ("import sys\n"
+            f"for m in {SUBSTRATE_MODULES!r}:\n"
+            "    __import__(m)\n"
+            "bad = [n for n in sys.modules if n == 'jax' or "
+            "n.startswith('jax.') or n == 'parsec_tpu' or "
+            "n.startswith('parsec_tpu.')]\n"
+            "sys.exit(1 if bad else 0)\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_top_level_exports_resolve():
+    """The user surface is importable from the package root; checkpoint,
+    compile_ptg and NamedDatatype resolve lazily (PEP 562), as in the
+    reference."""
+    import parsec_tpu_torch as pt
+    assert pt.DTDTaskpool.__name__ == "DTDTaskpool"
+    assert callable(pt.compile_ptg) and callable(pt.compose)
+    assert pt.TwoDimBlockCyclic and pt.TiledMatrix and pt.NamedDatatype
+    assert pt.SymTwoDimBlockCyclic and pt.SymTwoDimBlockCyclicBand
+    assert pt.SBCDistribution and pt.VectorTwoDimCyclic
+    assert callable(pt.checkpoint.save) and callable(pt.checkpoint.restore)
+    assert pt.READ | pt.RW | pt.AFFINITY
+    assert {"checkpoint", "compile_ptg", "compose"} <= set(dir(pt))
+    with pytest.raises(AttributeError):
+        pt.no_such_symbol
+
+
 def test_no_port_source_names_jax_or_the_reference():
     pattern = re.compile(r"\bjax\b|\bparsec_tpu\b(?!_torch)", re.IGNORECASE)
     files = [p for p in PORT.rglob("*")

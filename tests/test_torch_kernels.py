@@ -237,13 +237,16 @@ def test_dot_precision_policy():
 
 # (dtype, head dim, 16-byte aligned bases) -> route, for every class
 FLASH_ROUTE_CASES = [
-    *(((torch.float32, d, a), "simt") for d in (16, 32, 64, 128)
+    *(((torch.float32, d, a), "simt")
+      for d in (1, 8, 16, 32, 48, 64, 80, 96, 128, 200, 256)
       for a in (True, False)),
-    ((torch.bfloat16, 64, True), "wgmma"),
-    ((torch.bfloat16, 128, True), "wgmma"),
-    ((torch.bfloat16, 64, False), "mma"),
-    ((torch.bfloat16, 128, False), "mma"),
-    *(((torch.bfloat16, d, a), "mma") for d in (16, 32)
+    *(((torch.bfloat16, d, True), "wgmma") for d in (40, 48, 64, 80, 96,
+                                                     120, 128)),
+    *(((torch.bfloat16, d, False), "mma") for d in (48, 64, 80, 96, 128)),
+    # off the wgmma route: d <= 32, rows that are not a 16-byte multiple
+    # (d % 8 != 0), and d > 128 (built at 256 on mma.sync only)
+    *(((torch.bfloat16, d, a), "mma") for d in (1, 8, 16, 32, 33, 44, 81,
+                                                 136, 200, 256)
       for a in (True, False)),
 ]
 
