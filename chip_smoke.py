@@ -9,8 +9,8 @@ serialised fails the run), checks with ``cuobjdump -sass`` that the chain's
 bf16 kernel and the flash kernel's wgmma route run on Hopper's tensor-core
 and TMA instructions (HGMMA, UTMALDG), holds each kernel against its plain
 PyTorch version (``gemm_chain`` on its tile, split and general routes,
-``flash_attention`` on its wgmma, mma and simt routes, at head dims from
-1 to 256, and a head dim of 257 refused), then drives the
+``flash_attention`` on its wgmma, mma, simt and chunked routes, at head
+dims from 1 to 1000), then drives the
 port's main paths through the entry points a user calls:
 
 * the DTD tiled GEMM (bf16, N = 16384 in 512 x 512 tiles, so every GEMM_K
@@ -103,11 +103,26 @@ port's main paths through the entry points a user calls:
   (apply, map_operator, the reductions, broadcast) bit for bit a plain
   pass, and ``diag_band_to_rect`` of the factor; a checkpoint of the
   factor restored onto the card bit for bit; the backend probe, from its
-  subprocess and then cached; and ``flash_attention`` at head dims 80 and
-  256 timed beside SDPA, with a 2-layer LM at head dim 80 (n_embd 1280,
-  16 heads) through the flash core against the dense core.
+  subprocess and then cached; and ``flash_attention`` at head dims 80,
+  256 and 512 (the chunked route; also f32 at (16, 1024, 512)) timed
+  beside SDPA, with a 2-layer LM at head dim 80 (n_embd 1280, 16 heads)
+  through the flash core against the dense core;
+* distribution on the task path (phase 12), every rank on the one card
+  with a tile budget of its own: the DTD GEMM of phase 3 on two in-process
+  ranks joined by the d2d backend (``comm/d2d.py``; its C bit for bit the
+  single-rank DAG's, the B half a rank lacks moved card to card with no
+  host materialization, both slopes); the DTD POTRF of phase 5 on two OS
+  processes over TCP (``comm/tcp.py``, forkserver ranks) with ``--mca
+  comm_device_mem 1`` (CUDA IPC pulls, ``comm/xhost.py``; residual < 1e-5,
+  every pin retired) and without (the factor bit for bit the same, the
+  host bounces counted); the reference bench's 2-rank PTG legs through the
+  native comm lane (``csrc/ptcomm.cpp``) and through ``remote_dep.py`` in
+  turns; and the 2-rank PTG GEMM with a ``[type=CUDA]`` body (f32, N =
+  8192) against ``torch.matmul``.
 
-Every phase that fails ends the run with a nonzero exit code.
+Every phase that fails ends the run with a nonzero exit code. At its
+end, and when it fails, the script stops every process it started and
+waits for each (the TCP ranks' forkserver among them).
 
 Output: one line per measurement, then the card's name and power limit as
 nvidia-smi gives them, then ``{"kernels": [...]}`` (one entry per ported
@@ -116,8 +131,9 @@ and bound; the chain's entry counts the native lane's scheduled DAGs and
 the replays, with each engine's count, PINS on and off, beside it under
 ``launches_by_lane``; flash's entry also its profiled device time, its
 launches by route, the mma route's times in turns with it, a float32
-sub-entry and the ``head_dims`` rows at d = 80 and 256; its launches
-include the head-dim-80 LM's), and last ``{"ok": true, "device":
+sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
+include the head-dim-80 LM's; the chain's ``distributed`` lane counts the
+2-rank GEMM's launches), and last ``{"ok": true, "device":
 {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
@@ -167,6 +183,61 @@ LOGIT_TOL, LOGIT_NORM_TOL = 0.05, 0.02
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def become_subreaper() -> None:
+    """Make this process the parent of every orphan among its descendants
+    (Linux ``PR_SET_CHILD_SUBREAPER``), so that :func:`stop_children` also
+    finds a process whose own parent exited before it."""
+    import ctypes
+    libc = ctypes.CDLL(None, use_errno=True)
+    if libc.prctl(36, 1, 0, 0, 0) != 0:      # PR_SET_CHILD_SUBREAPER
+        raise OSError(ctypes.get_errno(), "prctl(PR_SET_CHILD_SUBREAPER)")
+
+
+def _children() -> list:
+    """(pid, state, command) of each process whose parent is this one."""
+    me, out = os.getpid(), []
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue                          # exited while we looked
+        cmd = stat[stat.index("(") + 1:stat.rindex(")")]
+        state, ppid = stat[stat.rindex(")") + 2:].split()[:2]
+        if int(ppid) == me:
+            out.append((int(name), state, cmd))
+    return out
+
+
+def stop_children(grace_s: float = 5.0) -> list:
+    """Stop every process this one started and is still running, and wait
+    for each: the forkserver of the TCP ranks and its resource tracker
+    first, as they ask to be stopped, then whatever is left, with SIGTERM
+    and, after ``grace_s``, SIGKILL. With :func:`become_subreaper` in force
+    the orphans of exited children are among them. Returns the commands of
+    the processes it had to signal."""
+    import signal
+    if "parsec_tpu_torch.comm.tcp" in sys.modules:
+        sys.modules["parsec_tpu_torch.comm.tcp"].stop_forkserver()
+    signalled, deadline = [], time.monotonic() + grace_s
+    while True:
+        with contextlib.suppress(ChildProcessError):
+            while os.waitpid(-1, os.WNOHANG)[0]:
+                pass                          # reap the ones that exited
+        live = [(pid, cmd) for pid, state, cmd in _children() if state != "Z"]
+        if not live:
+            return signalled
+        sig = signal.SIGKILL if time.monotonic() > deadline else signal.SIGTERM
+        for pid, cmd in live:
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+            if cmd not in signalled:
+                signalled.append(cmd)
+        time.sleep(0.05)
 
 
 def smi_line() -> str:
@@ -447,9 +518,10 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
 
 # (q shape, kv shape, causal, q_offset, k_offset, rows that see no key);
 # bf16 takes the wgmma route at head dims 33-128 that are multiples of 8,
-# the mma route at the others (up to 256), float32 the simt route; a head
-# dim between built sizes runs the next one's instantiation, its extra
-# columns zero-filled as they load
+# the mma route at the others (up to 256), float32 the simt route, and
+# either dtype the chunked route past 256; a head dim between built sizes
+# runs the next one's instantiation, its extra columns zero-filled as they
+# load
 FLASH_CASES = {
     "non-causal": ((2, 128, 64), (2, 128, 64), False, 0, 0, 0),
     "causal LM shape": ((96, 1024, 64), (96, 1024, 64), True, 0, 0, 0),
@@ -480,10 +552,38 @@ FLASH_CASES = {
     "d=200 causal": ((2, 150, 200), (2, 150, 200), True, 0, 0, 0),
     "d=256 causal": ((4, 512, 256), (4, 512, 256), True, 0, 0, 0),
     "d=256 offsets": ((2, 129, 256), (2, 300, 256), True, 171, 0, 0),
+    # past one 256-column step: the chunked route
+    "d=257 causal offsets": ((2, 130, 257), (2, 150, 257), True, 20, 0, 0),
+    "d=320 all-masked block": ((1, 128, 320), (1, 128, 320), True, 0, 64,
+                               64),
+    "d=512 causal": ((4, 512, 512), (4, 512, 512), True, 0, 0, 0),
+    "d=512 ragged": ((1, 64, 512), (1, 100, 512), False, 0, 0, 0),
+    "d=1000 causal offsets": ((1, 70, 1000), (1, 90, 1000), True, 20, 0,
+                              0),
 }
-#: the head dims of the timing rows beside the LM path's 64: Phi-2's 80
-#: and Gemma's 256, at the LM path's (96, 1024) causal bf16 shape
-FLASH_TIMED_HEAD_DIMS = (80, 256)
+#: the timing rows beside the LM path's head dim 64, (dtype, bh, d) at
+#: sequence 1024, causal: Phi-2's 80 and Gemma's 256 at the LM path's bh
+#: in bf16, and d = 512 (the chunked route) in bf16 at that bh and in
+#: float32 at bh 16
+FLASH_TIMED = (("bfloat16", 96, 80), ("bfloat16", 96, 256),
+               ("bfloat16", 96, 512), ("float32", 16, 512))
+
+
+def flash_kernel_name(route: str, dtype: str) -> str:
+    """The device kernel's name prefix on a flash route (torch.profiler)."""
+    if route == "chunked":
+        return "flash_bf16<256, true>" if dtype == "bfloat16" \
+            else "flash_f32<256, true>"
+    if route == "wgmma":
+        return "flash_bf16_wgmma"
+    return "flash_bf16<" if dtype == "bfloat16" else "flash_f32<"
+
+
+def sdpa_view(t, bh: int):
+    """(bh, s, d) as SDPA's (batch, heads, s, d): the LM path's 12 heads,
+    else one batch of bh heads."""
+    h = GPT2_SMALL["n_heads"] if bh % GPT2_SMALL["n_heads"] == 0 else bh
+    return t.view(bh // h, h, *t.shape[-2:])
 
 
 def check_flash(K, torch, gen) -> None:
@@ -531,15 +631,6 @@ def check_flash(K, torch, gen) -> None:
     torch.cuda.synchronize()
     if routes != set(K.FLASH_ROUTES):
         raise AssertionError(f"the flash checks reached only {routes}")
-    wide = torch.zeros(1, 8, K.FLASH_MAX_HEAD_DIM + 1, device="cuda")
-    try:
-        K.flash_attention(wide, wide, wide)
-    except ValueError as e:
-        log(f"kernel check flash_attention head dim "
-            f"{K.FLASH_MAX_HEAD_DIM + 1}: raises ({e})")
-    else:
-        raise AssertionError("flash_attention took a head dim over its "
-                             "limit")
 
 
 def check_stencil1d(K, torch, gen) -> None:
@@ -1128,17 +1219,17 @@ def flash_device_times(K, torch) -> dict:
             + f"; scaled_dot_product_attention's kernel "
             f"{row['library_kernel']}")
         del q, k, v, q4, k4, v4
-    for hd in FLASH_TIMED_HEAD_DIMS:
-        q, k, v = (torch.randn(bh, s, hd, device="cuda", generator=gen
-                               ).to(torch.bfloat16) for _ in range(3))
-        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, hd)
-                      for t in (q, k, v))
-        route = K.flash_route(torch.bfloat16, hd, True)
-        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_bf16<"
+    for name, bh_, hd in FLASH_TIMED:
+        dt = getattr(torch, name)
+        q, k, v = (torch.randn(bh_, s, hd, device="cuda", generator=gen
+                               ).to(dt) for _ in range(3))
+        q4, k4, v4 = (sdpa_view(t, bh_) for t in (q, k, v))
+        route = K.flash_route(dt, hd, True)
+        kernel = flash_kernel_name(route, name)
         sdpa_kernels = profiled_kernels(
             torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                           is_causal=True))
-        out[f"bfloat16 d={hd}"] = row = {
+        out[f"{name} d={hd}"] = row = {
             "route": route,
             "device_ms": profiled_ms(
                 torch, lambda: K.flash_attention(q, k, v, causal=True),
@@ -1147,7 +1238,7 @@ def flash_device_times(K, torch) -> dict:
                                   if sdpa_kernels else None),
             "library_kernel": (max(sdpa_kernels, key=sdpa_kernels.get)[:120]
                                if sdpa_kernels else "not measured")}
-        log(f"flash_attention bfloat16 ({bh}, {s}, {hd}) causal under "
+        log(f"flash_attention {name} ({bh_}, {s}, {hd}) causal under "
             f"torch.profiler: {route} route device "
             f"{fmt_ms(row['device_ms'])}; scaled_dot_product_attention "
             f"device {fmt_ms(row['library_device_ms'])} (kernel "
@@ -3500,37 +3591,41 @@ def substrate_probe(torch) -> None:
 
 
 def flash_head_dim_rows(K, torch, device_times: dict) -> list:
-    """(g) The flash kernel at head dims 80 and 256 at the LM path's (96,
-    1024) causal bf16 shape: every element within the bf16 tolerance of
-    its plain version, the kernel line's time, plain's, SDPA's, and the
-    bound; the profiled device times from ``device_times``."""
+    """(g) The flash kernel at the FLASH_TIMED rows (head dims 80 and 256
+    at the LM path's (96, 1024) causal bf16 shape; d = 512 on the chunked
+    route at that shape in bf16 and at (16, 1024) in float32): every
+    element within the tolerance of its plain version (bf16's bound;
+    float32 rtol/atol 2e-4), the kernel line's time, plain's, SDPA's, and
+    the bound; the profiled device times from ``device_times``."""
     import torch.nn.functional as F
-    bh, s = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ
+    s = LM_SEQ
     gen = torch.Generator(device="cuda").manual_seed(12)
     rows = []
-    for d in FLASH_TIMED_HEAD_DIMS:
+    for name, bh, d in FLASH_TIMED:
+        dt_ = getattr(torch, name)
         q, k, v = (torch.randn(bh, s, d, device="cuda", generator=gen
-                               ).to(torch.bfloat16) for _ in range(3))
+                               ).to(dt_) for _ in range(3))
         got = K.flash_attention(q, k, v, causal=True).float()
         want = K.flash_attention_plain(q, k, v, causal=True).float()
         err = (got - want).abs()
-        beyond = int((err > K.flash_attention_bf16_tolerance(
-            q, k, v, causal=True)).sum())
+        tol = K.flash_attention_bf16_tolerance(q, k, v, causal=True) \
+            if name == "bfloat16" else 2e-4 + 2e-4 * want.abs()
+        beyond = int((err > tol).sum())
         kernel_ms = cuda_time_ms(lambda: K.flash_attention(q, k, v,
                                                            causal=True))
         plain_ms = cuda_time_ms(
             lambda: K.flash_attention_plain(q, k, v, causal=True), iters=5)
-        q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
-                      for t in (q, k, v))
+        q4, k4, v4 = (sdpa_view(t, bh) for t in (q, k, v))
+        K.dot_precision()                  # no TF32 for the library either
         library_ms = cuda_time_ms(lambda: F.scaled_dot_product_attention(
             q4, k4, v4, is_causal=True))
         e = kernel_entry(
             "flash_attention", "parsec_tpu_torch/csrc/flash_attention.cu",
             "parsec_tpu/ops/pallas_kernels.py:329", 0, err.max().item(),
-            kernel_ms, plain_ms, 4 * bh * s * d * 2,
-            4.0 * d * bh * (s * (s + 1) / 2), "bfloat16", library_ms)
-        dt = device_times[f"bfloat16 d={d}"]
-        row = {"shape": [bh, s, d], "dtype": "bfloat16", "causal": True,
+            kernel_ms, plain_ms, 4 * bh * s * d * q.element_size(),
+            4.0 * d * bh * (s * (s + 1) / 2), name, library_ms)
+        dt = device_times[f"{name} d={d}"]
+        row = {"shape": [bh, s, d], "dtype": name, "causal": True,
                "route": dt["route"], "max_abs_err": e["max_abs_err"],
                "beyond_tolerance": beyond, "ms": kernel_ms,
                "device_ms": dt["device_ms"], "plain_ms": plain_ms,
@@ -3539,13 +3634,14 @@ def flash_head_dim_rows(K, torch, device_times: dict) -> list:
                "library_device_ms": dt["library_device_ms"],
                "library_kernel": dt["library_kernel"]}
         rows.append(row)
-        log(f"flash_attention bfloat16 ({bh}, {s}, {d}) causal, "
+        log(f"flash_attention {name} ({bh}, {s}, {d}) causal, "
             f"{row['route']} route: kernel {kernel_ms:.4f} ms (device "
             f"{fmt_ms(row['device_ms'])}), plain {plain_ms:.4f} ms, "
             f"scaled_dot_product_attention {library_ms:.4f} ms (device "
             f"{fmt_ms(row['library_device_ms'])}), bound "
             f"{row['bound_ms']:.4f} ms ({row['bound_by']}); max abs err "
-            f"{row['max_abs_err']:.3e}, {beyond} beyond the bf16 tolerance")
+            f"{row['max_abs_err']:.3e}, {beyond} beyond the tolerance; "
+            f"SDPA's kernel {row['library_kernel']}")
         if beyond:
             raise AssertionError(f"flash_attention at head dim {d} disagrees "
                                  f"with its plain version")
@@ -3641,6 +3737,679 @@ def substrate(ptt, K, torch, smi, device_times: dict,
     return launches, by_route, rows
 
 
+# ---------------------------------------------------------------------------
+# phase 12: distribution on the task path
+# ---------------------------------------------------------------------------
+#: step 1: the DTD GEMM of phase 3 on two in-process ranks (P = 2, Q = 1)
+DIST_GEMM_N, DIST_GEMM_TS = GEMM_N, GEMM_TS
+#: step 2: the DTD POTRF of phase 5 on two OS processes over TCP
+DIST_POTRF_N, DIST_POTRF_TS = POTRF_N, POTRF_TS
+#: step 3: the 2-rank PTG legs of the reference bench (bench.py:1130-1170)
+DIST_CHAIN_NT, DIST_CHAIN_DEPTH = 64, 128
+DIST_DATA_NT, DIST_DATA_DEPTH, DIST_DATA_TS = 16, 32, 32
+DIST_REPS = 2
+#: the chain leg's lanes in turns (True: the native comm lane)
+DIST_TURNS = (True, False, False, True)
+#: step 4: the 2-rank PTG GEMM with a [type=CUDA] body, f32
+DIST_PTG_T, DIST_PTG_TS = 16, 512
+#: each rank's tile budget on the one card (``device_cuda_max_bytes``):
+#: a second context on the card would otherwise budget 75% of what the
+#: first left free
+DIST_RANK_BYTES = 4 << 30
+DIST_PROC_BYTES = 1 << 30
+
+#: the test program of the distributed PTG GEMM (the reference's
+#: tests/test_distributed.py::test_distributed_ptg_gemm), its body in torch
+DIST_PTG_GEMM_SRC = """
+%global MT
+%global NT
+%global KT
+%global descA
+%global descB
+%global descC
+
+RA(m, k)
+  m = 0 .. MT-1
+  k = 0 .. KT-1
+  : descA(m, k)
+  READ A <- descA(m, k)
+       -> A GEMM(m, 0 .. NT-1, k)
+BODY
+  A = A
+END
+
+RB(k, n)
+  k = 0 .. KT-1
+  n = 0 .. NT-1
+  : descB(k, n)
+  READ B <- descB(k, n)
+       -> B GEMM(0 .. MT-1, n, k)
+BODY
+  B = B
+END
+
+GEMM(m, n, k)
+  m = 0 .. MT-1
+  n = 0 .. NT-1
+  k = 0 .. KT-1
+  : descC(m, n)
+  priority = KT - k
+  READ A <- A RA(m, k)
+  READ B <- B RB(k, n)
+  RW   C <- (k == 0) ? descC(m, n) : C GEMM(m, n, k-1)
+       -> (k < KT-1) ? C GEMM(m, n, k+1) : descC(m, n)
+BODY [type=CUDA]
+  C = C + torch.matmul(A, B)
+END
+"""
+
+#: the reference bench's 2-rank legs (benchmarks/comm_lane.py): every
+#: chain edge crosses ranks (level l is owned by rank l % 2)
+DIST_CHAIN_SRC = """%global NT
+%global DEPTH
+%global descA
+T(i, l)
+  i = 0 .. NT-1
+  l = 0 .. DEPTH-1
+  : descA(l, i)
+  CTL S <- (l > 0) ? S T(i, l-1)
+        -> (l < DEPTH-1) ? S T(i, l+1)
+BODY
+  pass
+END
+"""
+DIST_DATA_SRC = """%global NT
+%global DEPTH
+%global TS
+%global descA
+%global descX
+%global descY
+T(i, l)
+  i = 0 .. NT-1
+  l = 0 .. DEPTH-1
+  : descA(l, i)
+  RW X <- (l == 0) ? descX(0, i) : X T(i, l-1)
+       -> (l < DEPTH-1) ? X T(i, l+1) : descY(0, i)
+BODY
+  pass
+END
+"""
+
+
+def dist_counters() -> dict:
+    from parsec_tpu_torch.utils.counters import counters
+    return {k: counters.read(k) for k in (
+        "comm.ici_d2d_msgs", "comm.ici_d2d_bytes", "comm.ici_host_msgs",
+        "comm.host_materialized_msgs", "comm.xhost_offered_msgs",
+        "comm.xhost_d2d_msgs", "comm.xhost_d2d_bytes")}
+
+
+def dist_gemm(ptt, K, torch, smi, device: str = "cuda") -> dict:
+    """Step 1: the DTD GEMM of phase 3 (bf16, batch_k) on two in-process
+    ranks joined by the d2d backend, both driving the one card. C is held
+    bit for bit to the single-rank DAG's C (each tile's chain runs the
+    same kernel over the same tiles in the same order); every GEMM_K task
+    launches the chain on its split route; the B tiles a rank does not own
+    cross card to card, none host-materialized. Slopes (3 DAGs - 1 DAG)
+    of the 2-rank run and of the single-rank Python engine (the engine the
+    distributed pools take). Returns the chain launches of the 2-rank
+    runs."""
+    from parsec_tpu_torch.comm.d2d import D2DCE
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.comm.threads import run_distributed
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.ops.gemm import gemm_flops, insert_gemm_tasks
+    N, TS = DIST_GEMM_N, DIST_GEMM_TS
+    T = N // TS
+    on_card = device == "cuda"
+    # the operands made on the device from a seed (a host generator takes
+    # seconds at this size)
+    gen = torch.Generator(device=device).manual_seed(42)
+    a_dev = torch.randn(N, N, device=device, generator=gen).to(
+        torch.bfloat16)
+    b_dev = torch.randn(N, N, device=device, generator=gen).to(
+        torch.bfloat16)
+
+    def tiled(name, rank=0, nodes=1, P=1, zero=False):
+        M = TwoDimBlockCyclic(name, N, N, TS, TS, P=P, Q=1, nodes=nodes,
+                              myrank=rank, dtype=torch.bfloat16,
+                              device=device)
+        src = a_dev if name == "A" else b_dev
+        M.fill(lambda m, n: torch.zeros(TS, TS, dtype=torch.bfloat16)
+               if zero else src[m * TS:(m + 1) * TS, n * TS:(n + 1) * TS])
+        return M
+
+    # the single-rank reference C (one DAG from a zero C) and the
+    # single-rank Python engine's slope, on a context of its own
+    t0 = time.perf_counter()
+    ctx = ptt.Context(nb_cores=1, device=device)
+    A, B, C = tiled("A"), tiled("B"), tiled("C", zero=True)
+    if on_card:
+        torch.cuda.synchronize()
+
+    def single(n_dags: int) -> float:
+        with dtd_engine(ptt, False):
+            tp = ptt.DTDTaskpool(ctx, "gemm1")
+            t = time.perf_counter()
+            for _ in range(n_dags):
+                insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            tp.wait(); tp.close(); ctx.wait()
+            if on_card:
+                torch.cuda.synchronize()
+            return time.perf_counter() - t
+    single(1)
+    ref_c = tiles_of(torch, C, device)
+    s_lo, s_hi = single(1), single(3)
+    ctx.fini()
+    del A, B, C, ctx
+    if on_card:
+        torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t0
+
+    dmap = [torch.device(device, 0) if on_card else torch.device("cpu")] * 2
+    ptt.mca.set("device_cuda_max_bytes", DIST_RANK_BYTES)
+    if not on_card:
+        ptt.mca.set("device_cuda_over_cpu", True)
+    runs = []         # (what, wall s, counter delta, chain launches)
+    rank_out = [None, None]
+
+    def program(rank, fabric):
+        ctx = ptt.Context(nb_cores=1, device=device, my_rank=rank,
+                          nb_ranks=2)
+        RemoteDepEngine(ctx, D2DCE(fabric, rank, dmap))
+        # the home tiles on the card: the B tiles a rank sends are CUDA
+        # tensors, the d2d plane's case
+        A = tiled("A", rank, 2, 2)
+        B = tiled("B", rank, 2, 2)
+        C = tiled("C", rank, 2, 2, zero=True)
+        if on_card:
+            torch.cuda.synchronize()
+
+        def run(what: str, n_dags: int) -> None:
+            fabric.barrier()
+            if rank == 0:
+                runs.append([what, time.perf_counter(), dist_counters(),
+                             K.gemm_chain.launches,
+                             K.gemm_chain.launches_by_route["split"]])
+            # the counters are the process's, both ranks': no rank sends
+            # (an insert may) before rank 0 has read them
+            fabric.barrier()
+            tp = ptt.DTDTaskpool(ctx, "dgemm")
+            for _ in range(n_dags):
+                insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            tp.wait(timeout=600)
+            tp.close()
+            ctx.wait(timeout=600)
+            if on_card:
+                torch.cuda.synchronize()
+            fabric.barrier()
+            if rank == 0:
+                r = runs[-1]
+                c1 = dist_counters()
+                r[1] = time.perf_counter() - r[1]
+                r[2] = {k: c1[k] - v for k, v in r[2].items()}
+                r[3] = K.gemm_chain.launches - r[3]
+                r[4] = K.gemm_chain.launches_by_route["split"] - r[4]
+        run("1 DAG from a zero C", 1)
+        mine = {(m, n): C.data_of(m, n).newest_copy().payload
+                for m in range(T) for n in range(T) if C.rank_of(m, n) == rank}
+        same = all(torch.equal(t, ref_c[m * TS:(m + 1) * TS,
+                                        n * TS:(n + 1) * TS])
+                   for (m, n), t in mine.items())
+        del mine
+        run("1 DAG", 1)
+        run("3 DAGs", 3)
+        rank_out[rank] = {"same": same, "tasks_local": tp_local(ctx)}
+        ctx.fini()
+        return same
+
+    def tp_local(ctx):
+        return sum(s.nb_executed for s in ctx.streams)
+
+    t0 = time.perf_counter()
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    same = run_distributed(2, program, timeout=900)
+    t_dist = time.perf_counter() - t0
+    ptt.mca.params.unset("device_cuda_max_bytes")
+    if not on_card:
+        ptt.mca.params.unset("device_cuda_over_cpu")
+    peak = torch.cuda.max_memory_allocated() / 2**30 if on_card else 0.0
+    del a_dev, b_dev, ref_c
+    first, one, three = runs
+    tile_bytes = TS * TS * 2
+    want_msgs = 2 * (T // 2) * T          # each rank: the B half it lacks
+    for what, wall, cnt, l_, split_ in runs:
+        log(f"distribution step 1, 2-rank DTD GEMM bf16 N={N} TS={TS} "
+            f"(P=2, Q=1, d2d backend, one card), {what}: wall {wall:.3f} s, "
+            f"gemm_chain {l_} launches ({split_} split), comm.ici_d2d_msgs "
+            f"{cnt['comm.ici_d2d_msgs']:.0f}, comm.ici_d2d_bytes "
+            f"{cnt['comm.ici_d2d_bytes']:.0f}, comm.ici_host_msgs "
+            f"{cnt['comm.ici_host_msgs']:.0f}, comm.host_materialized_msgs "
+            f"{cnt['comm.host_materialized_msgs']:.0f} ({smi})")
+    slope = (three[1] - one[1]) / 2
+    s_slope = (s_hi - s_lo) / 2
+    log(f"distribution step 1: 2-rank slope {slope * 1e3:.1f} ms/DAG -> "
+        f"{gemm_flops(N, N, N) / 1e9 / slope:.1f} GFLOP/s; single-rank "
+        f"Python engine T1 {s_lo:.3f} s, T3 {s_hi:.3f} s, slope "
+        f"{s_slope * 1e3:.1f} ms/DAG; C of the 2-rank DAG bit for bit the "
+        f"single-rank DAG's: {all(same)}; tasks run a rank "
+        f"{[o['tasks_local'] for o in rank_out]}; peak device memory "
+        f"{peak:.3f} GiB for both ranks and the reference C (each rank "
+        f"holds its halves of A, B, C and the B half it receives: "
+        f"{4 * N * N // 2 * 2 / 2**30:.2f} GiB, budget "
+        f"{DIST_RANK_BYTES / 2**30:.0f} GiB); single {t_single:.1f} s, "
+        f"2-rank {t_dist:.1f} s ({smi})")
+    if not all(same):
+        raise AssertionError("the 2-rank DTD GEMM's C differs from the "
+                             "single-rank DAG's")
+    for what, wall, cnt, l_, split_ in runs:
+        dags = 3 if what == "3 DAGs" else 1
+        if on_card and (l_ != T * T * dags or split_ != l_):
+            raise AssertionError(f"2-rank GEMM ({what}): {l_} chain launches "
+                                 f"({split_} split), expected {T * T * dags}")
+        if cnt["comm.host_materialized_msgs"] or cnt["comm.ici_host_msgs"]:
+            raise AssertionError(f"2-rank GEMM ({what}): a payload crossed "
+                                 f"through host memory: {cnt}")
+    if first[2]["comm.ici_d2d_msgs"] != want_msgs or \
+            first[2]["comm.ici_d2d_bytes"] != want_msgs * tile_bytes:
+        raise AssertionError(f"2-rank GEMM: {first[2]} d2d traffic, "
+                             f"expected {want_msgs} tiles of {tile_bytes} B")
+    return {"launches": sum(r[3] for r in runs), "wall_s": t_single + t_dist}
+
+
+def _dist_spd(torch, n: int, device: str):
+    """The POTRF operand, made on ``device`` from a seed (every process
+    makes the same one)."""
+    gen = torch.Generator(device=device).manual_seed(7)
+    a = torch.randn(n, n, device=device, generator=gen,
+                    dtype=torch.float64) / math.sqrt(n)
+    return (a @ a.T + torch.eye(n, device=device, dtype=torch.float64)
+            * n * 0.05).float()
+
+
+def dist_potrf_program(rank, ce, n, ts, device="cuda"):
+    """One rank of step 2 (an OS process): the DTD POTRF of an n x n
+    operand in ts x ts tiles over the TCP mesh on the card, with a tile
+    budget of its own; ``comm_device_mem`` comes from the parent's
+    environment. Returns the rank's lower tiles, the xhost counters and
+    its peak device memory."""
+    import torch
+
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks
+    on_card = device == "cuda"
+    ptt.mca.set("device_cuda_max_bytes", DIST_PROC_BYTES)
+    ptt.mca.set("device_load_balance_allow_cpu", False)
+    if not on_card:
+        ptt.mca.set("device_cuda_over_cpu", True)
+    t0 = time.perf_counter()
+    spd = _dist_spd(torch, n, device)
+    ctx = ptt.Context(nb_cores=1, device=device, my_rank=rank,
+                      nb_ranks=ce.nb_ranks)
+    RemoteDepEngine(ctx, ce)
+    A = TwoDimBlockCyclic("A", n, n, ts, ts, P=2, Q=1, nodes=2, myrank=rank,
+                          device=device)
+    A.fill(lambda m, k: spd[m * ts:(m + 1) * ts, k * ts:(k + 1) * ts])
+    del spd
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    c0 = dist_counters()
+    ce.sync()
+    t1 = time.perf_counter()
+    tp = ptt.DTDTaskpool(ctx, "dpotrf")
+    ntasks = insert_potrf_tasks(tp, A)
+    tp.wait(timeout=600)
+    tp.close()
+    ctx.wait(timeout=600)
+    if on_card:
+        torch.cuda.synchronize()
+    ce.sync()
+    wall = time.perf_counter() - t1
+    tiles = {(m, k): A.data_of(m, k).newest_copy().payload.cpu().numpy()
+             for m in range(A.mt) for k in range(m + 1)
+             if A.rank_of(m, k) == rank}
+    executed = sum(s.nb_executed for s in ctx.streams)
+    ctx.fini()
+    # every pull ACKed: the ledger empties once the peer's ACKs land
+    t2 = time.perf_counter()
+    while ce._xhost is not None and ce._xhost.pending() and \
+            time.perf_counter() - t2 < 30:
+        ce.progress()
+        time.sleep(0.002)
+    c1 = dist_counters()
+    out = {"tiles": tiles, "wall": wall, "setup": t1 - t0,
+           "ntasks": ntasks, "executed": executed,
+           "pins": ce._xhost.pending() if ce._xhost is not None else -1,
+           "counters": {k: c1[k] - v for k, v in c0.items()},
+           "peak_gib": (torch.cuda.max_memory_allocated() / 2**30
+                        if on_card else 0.0)}
+    ce.sync()
+    ce.fini()
+    return out
+
+
+def dist_potrf(torch, smi, device: str = "cuda") -> float:
+    """Step 2: the DTD POTRF of phase 5 (f32) on two OS processes on the
+    one card over TCP (``run_distributed_procs``), with ``--mca
+    comm_device_mem 1`` (CUDA IPC pulls: residual < 1e-5, xhost pulls > 0,
+    no host materialization, every pin retired) and then with it off (the
+    factor bit for bit the same, the host bounces counted)."""
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    import functools
+    n, ts = DIST_POTRF_N, DIST_POTRF_TS
+    t0 = time.perf_counter()
+    got = {}
+    for device_mem in (True, False):
+        os.environ["PARSEC_MCA_comm_device_mem"] = "1" if device_mem else "0"
+        try:
+            res = run_distributed_procs(
+                2, functools.partial(dist_potrf_program, n=n, ts=ts,
+                                     device=device),
+                timeout=900)
+        finally:
+            os.environ.pop("PARSEC_MCA_comm_device_mem", None)
+        L = np.zeros((n, n), np.float32)
+        for r in res:
+            for (m, k), t in r["tiles"].items():
+                L[m * ts:(m + 1) * ts, k * ts:(k + 1) * ts] = t
+        got[device_mem] = L = np.tril(L)
+        Ld = torch.from_numpy(L).to(device, torch.float64)
+        A64 = _dist_spd(torch, n, device).double()
+        resid = ((Ld @ Ld.mT - A64).abs().max() / A64.abs().max()).item()
+        del Ld, A64
+        cnt = [r["counters"] for r in res]
+        log(f"distribution step 2, 2-process DTD POTRF f32 N={n} TS={ts} "
+            f"over TCP on one card, comm_device_mem "
+            f"{int(device_mem)}: {res[0]['ntasks']} tasks, run "
+            f"{[r['executed'] for r in res]} a rank, wall "
+            f"{max(r['wall'] for r in res):.3f} s (set-up "
+            f"{max(r['setup'] for r in res):.1f} s), max|LL^T - A| / max|A| "
+            f"= {resid:.3e}; per rank xhost offered "
+            f"{[c['comm.xhost_offered_msgs'] for c in cnt]}, pulled "
+            f"{[c['comm.xhost_d2d_msgs'] for c in cnt]} "
+            f"({[c['comm.xhost_d2d_bytes'] for c in cnt]} B), host "
+            f"materialized {[c['comm.host_materialized_msgs'] for c in cnt]}"
+            f", pins left {[r['pins'] for r in res]}, peak device memory "
+            f"{[round(r['peak_gib'], 3) for r in res]} GiB (budget "
+            f"{DIST_PROC_BYTES / 2**30:.0f} GiB a process) ({smi})")
+        if not resid < 1e-5:
+            raise AssertionError(f"2-process POTRF residual {resid}")
+        pulled = sum(c["comm.xhost_d2d_msgs"] for c in cnt)
+        bounced = sum(c["comm.host_materialized_msgs"] for c in cnt)
+        if device_mem and device == "cuda" and (
+                pulled <= 0 or bounced or any(r["pins"] for r in res)
+                or pulled != sum(c["comm.xhost_offered_msgs"] for c in cnt)):
+            raise AssertionError("the POTRF's panels did not all cross by "
+                                 "CUDA IPC pulls")
+        if not device_mem and device == "cuda" and (pulled or not bounced):
+            raise AssertionError("with comm_device_mem 0 the panels must "
+                                 "host-bounce, counted")
+    same = np.array_equal(got[True], got[False])
+    log(f"distribution step 2: the factor over CUDA IPC and over the host "
+        f"bounce {'bit for bit the same' if same else 'DIFFER'}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if not same:
+        raise AssertionError("the 2-process POTRF factor depends on the "
+                             "payload plane")
+    return time.perf_counter() - t0
+
+
+def dist_chain_program(rank, ce, nt, depth, reps, native=True,
+                       device="cuda"):
+    """One rank of the 2-rank chain leg (bench.py's chain_program): NT
+    CTL chains of DEPTH levels, every edge crossing ranks; rate = global
+    tasks / barrier-aligned wall, median of DIST_REPS after a warm rep."""
+    import statistics
+
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    if not native:
+        ptt.mca.set("comm_native", False)
+    ptt.mca.set("device_cuda_max_bytes", 1 << 28)
+    ctx = ptt.Context(nb_cores=1, device=device, my_rank=rank,
+                      nb_ranks=ce.nb_ranks)
+    RemoteDepEngine(ctx, ce)
+    A = TwoDimBlockCyclic("descA", depth, nt, 1, 1, P=2, Q=1, nodes=2,
+                          myrank=rank)
+    prog = compile_ptg(DIST_CHAIN_SRC, "dist-chain")
+    rates, tp = [], None
+    for r in range(reps + 1):
+        ce.sync()
+        t0 = time.perf_counter()
+        tp = prog.instantiate(ctx, globals={"NT": nt, "DEPTH": depth},
+                              collections={"descA": A},
+                              name=f"dist-chain-{r}")
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        ce.sync()
+        if r:
+            rates.append(nt * depth / (time.perf_counter() - t0))
+    return _dist_lane_result(ctx, ce, tp, rates)
+
+
+def dist_data_program(rank, ce, nt, depth, ts, reps, native=True,
+                      device="cuda"):
+    """One rank of the 2-rank data-flow leg (bench.py's data_program): a
+    TS x TS f32 tile hops ranks at every level."""
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.data.matrix import TiledMatrix, TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    if not native:
+        ptt.mca.set("comm_native", False)
+    ptt.mca.set("device_cuda_max_bytes", 1 << 28)
+    ctx = ptt.Context(nb_cores=1, device=device, my_rank=rank,
+                      nb_ranks=ce.nb_ranks)
+    RemoteDepEngine(ctx, ce)
+    A = TwoDimBlockCyclic("descA", depth, nt, 1, 1, P=2, Q=1, nodes=2,
+                          myrank=rank)
+    X = TiledMatrix("descX", ts, nt * ts, ts, ts)
+    X.fill(lambda m, i: np.full((ts, ts), float(i + 1), np.float32))
+    Y = TiledMatrix("descY", ts, nt * ts, ts, ts)
+    prog = compile_ptg(DIST_DATA_SRC, "dist-data")
+    rates, tp = [], None
+    for r in range(reps + 1):
+        ce.sync()
+        t0 = time.perf_counter()
+        tp = prog.instantiate(ctx, globals={"NT": nt, "DEPTH": depth,
+                                            "TS": ts},
+                              collections={"descA": A, "descX": X,
+                                           "descY": Y},
+                              name=f"dist-data-{r}")
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        ce.sync()
+        if r:
+            rates.append(nt * depth / (time.perf_counter() - t0))
+    # the terminal write-back landed on the owner of T(i, DEPTH-1) with the
+    # forwarded (unchanged) seed value
+    checked = 0
+    if (depth - 1) % 2 == rank:
+        for i in range(nt):
+            v = float(Y.data_of(0, i).newest_copy().payload[0, 0])
+            if v != float(i + 1):
+                raise AssertionError(f"data leg tile {i}: {v}")
+            checked += 1
+    return dict(_dist_lane_result(ctx, ce, tp, rates), checked=checked)
+
+
+def _dist_lane_result(ctx, ce, tp, rates) -> dict:
+    import statistics
+    engaged = tp._ptexec_state is not None and \
+        tp._ptexec_state.get("pool_id") is not None
+    stats = None
+    if ctx.comm.native is not None:
+        s = ctx.comm.native.comm.stats()
+        stats = {k: (list(v) if isinstance(v, list) else v)
+                 for k, v in s.items()}
+    out = {"rate": statistics.median(rates), "rates": rates,
+           "engaged": engaged, "stats": stats}
+    ce.sync()
+    ctx.fini()
+    ce.fini()
+    return out
+
+
+def dist_ptg_legs(smi, device: str = "cuda") -> float:
+    """Step 3: the reference bench's 2-rank PTG legs on two OS processes,
+    through the native comm lane (``csrc/ptcomm.cpp``) and through
+    ``remote_dep.py`` (``--mca comm_native 0``) in turns: the chains
+    (NT x DEPTH CTL tasks, every edge crossing ranks) native, python,
+    python, native; the data-flow leg native. Every native run engaged the
+    lane on both ranks with no frame error."""
+    import functools
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    t0 = time.perf_counter()
+    rates = {True: [], False: []}
+    for native in DIST_TURNS:
+        res = run_distributed_procs(2, functools.partial(
+            dist_chain_program, nt=DIST_CHAIN_NT, depth=DIST_CHAIN_DEPTH,
+            reps=DIST_REPS, native=native, device=device),
+            timeout=900)
+        if native and not all(r["engaged"] and r["stats"]["frame_errors"]
+                              == 0 for r in res):
+            raise AssertionError(f"2-rank chain off the native comm lane: "
+                                 f"{[(r['engaged'], r['stats']) for r in res]}")
+        if not native and any(r["engaged"] for r in res):
+            raise AssertionError("the comm_native 0 chain rode the lane")
+        rates[native].append(res[0]["rate"])
+        log(f"distribution step 3, 2-rank PTG chain NT={DIST_CHAIN_NT} "
+            f"DEPTH={DIST_CHAIN_DEPTH} "
+            f"{'native comm lane' if native else 'remote_dep.py'}: "
+            f"{res[0]['rate']:,.0f} tasks/s (reps "
+            f"{[round(x) for x in res[0]['rates']]})"
+            + (f", frames acts_tx {[r['stats']['acts_tx'] for r in res]}, "
+               f"frame_errors {[r['stats']['frame_errors'] for r in res]}"
+               if native else "") + f" ({smi})")
+    res = run_distributed_procs(2, functools.partial(
+        dist_data_program, nt=DIST_DATA_NT, depth=DIST_DATA_DEPTH,
+        ts=DIST_DATA_TS, reps=DIST_REPS, device=device), timeout=900)
+    if not all(r["engaged"] and r["stats"]["frame_errors"] == 0
+               for r in res) or sum(r["checked"] for r in res) != \
+            DIST_DATA_NT:
+        raise AssertionError(f"2-rank data leg: {res}")
+    nat = float(np.median(rates[True]))
+    py = float(np.median(rates[False]))
+    log(f"distribution step 3: chain rates in turns native "
+        f"{[round(x) for x in rates[True]]}, remote_dep.py "
+        f"{[round(x) for x in rates[False]]} tasks/s -> native / "
+        f"remote_dep.py = {nat / py:.1f}x; data-flow leg NT="
+        f"{DIST_DATA_NT} DEPTH={DIST_DATA_DEPTH} TS={DIST_DATA_TS} native "
+        f"{res[0]['rate']:,.0f} tasks/s, data_tx "
+        f"{[r['stats']['data_tx'] for r in res]}, frame_errors "
+        f"{[r['stats']['frame_errors'] for r in res]}; "
+        f"{time.perf_counter() - t0:.1f} s ({smi})")
+    return time.perf_counter() - t0
+
+
+def dist_ptg_gemm(ptt, torch, smi, device: str = "cuda") -> float:
+    """Step 4: the 2-rank PTG GEMM (the reference test's program) with its
+    ``[type=CUDA]`` body, f32, on two in-process ranks driving the one
+    card: max err / max |ref| < 1e-5 against torch.matmul, TF32 off."""
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.comm.threads import ThreadsCE, run_distributed
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    from parsec_tpu_torch.ops.cuda_kernels import dot_precision
+    T, TS = DIST_PTG_T, DIST_PTG_TS
+    n = T * TS
+    dot_precision()                      # TF32 off for the bodies and ref
+    gen = torch.Generator(device=device).manual_seed(5)
+    a = torch.randn(n, n, device=device, generator=gen)
+    b = torch.randn(n, n, device=device, generator=gen)
+    prog = compile_ptg(DIST_PTG_GEMM_SRC, "dist_ptg_gemm")
+    ptt.mca.set("device_cuda_max_bytes", DIST_RANK_BYTES)
+    ptt.mca.set("device_load_balance_allow_cpu", False)
+    if device != "cuda":
+        ptt.mca.set("device_cuda_over_cpu", True)
+    out = {}
+
+    def program(rank, fabric):
+        ctx = ptt.Context(nb_cores=1, device=device, my_rank=rank,
+                          nb_ranks=2)
+        RemoteDepEngine(ctx, ThreadsCE(fabric, rank))
+        kw = dict(nodes=2, myrank=rank, P=2, Q=1, device=device)
+        A = TwoDimBlockCyclic("dA", n, n, TS, TS, **kw)
+        B = TwoDimBlockCyclic("dB", n, n, TS, TS, **kw)
+        C = TwoDimBlockCyclic("dC", n, n, TS, TS, **kw)
+        A.fill(lambda m, k: a[m * TS:(m + 1) * TS, k * TS:(k + 1) * TS])
+        B.fill(lambda k, j: b[k * TS:(k + 1) * TS, j * TS:(j + 1) * TS])
+        C.fill(lambda m, j: torch.zeros(TS, TS))
+        if device == "cuda":
+            torch.cuda.synchronize()
+        tp = prog.instantiate(ctx, globals={"MT": T, "NT": T, "KT": T},
+                              collections={"descA": A, "descB": B,
+                                           "descC": C},
+                              name="dist_ptg_gemm")
+        fabric.barrier()
+        t = time.perf_counter()
+        ctx.add_taskpool(tp)
+        ctx.wait(timeout=600)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        fabric.barrier()
+        wall = time.perf_counter() - t
+        for m in range(T):
+            for j in range(T):
+                if C.rank_of(m, j) == rank:
+                    out[(m, j)] = C.data_of(m, j).newest_copy().payload
+        executed = sum(s.nb_executed for s in ctx.streams)
+        ctx.fini()
+        return wall, executed
+
+    t0 = time.perf_counter()
+    res = run_distributed(2, program, timeout=900)
+    ptt.mca.params.unset("device_cuda_max_bytes")
+    ptt.mca.params.unset("device_load_balance_allow_cpu")
+    if device != "cuda":
+        ptt.mca.params.unset("device_cuda_over_cpu")
+    got = torch.zeros(n, n, device=device)
+    for (m, j), t in out.items():
+        got[m * TS:(m + 1) * TS, j * TS:(j + 1) * TS] = t.to(device)
+    ref = torch.matmul(a, b)
+    rel = ((got - ref).abs().max() / ref.abs().max()).item()
+    log(f"distribution step 4, 2-rank PTG GEMM f32 N={n} TS={TS} "
+        f"([type=CUDA] body, ThreadsCE): wall {max(w for w, _ in res):.3f} "
+        f"s, tasks run a rank {[e for _, e in res]}, max err / max |ref| "
+        f"{rel:.3e} against torch.matmul (TF32 off) ({smi})")
+    if len(out) != T * T or not rel < 1e-5:
+        raise AssertionError(f"2-rank PTG GEMM: {len(out)} tiles, rel {rel}")
+    return time.perf_counter() - t0
+
+
+def distribution(ptt, K, torch, smi, device: str = "cuda") -> dict:
+    """Phase 12: distribution on the task path, steps 1-4 in order, each
+    step's wall seconds and the phase's. Returns the chain launches of the
+    2-rank GEMM (the ``distributed`` lane of the chain's entry)."""
+    t0 = time.perf_counter()
+    walls = {}
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    g = dist_gemm(ptt, K, torch, smi, device)
+    walls["1 2-rank DTD GEMM (d2d)"] = g["wall_s"]
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    walls["2 2-process DTD POTRF (TCP, CUDA IPC)"] = dist_potrf(
+        torch, smi, device)
+    walls["3 2-rank PTG legs (native comm lane, remote_dep)"] = \
+        dist_ptg_legs(smi, device)
+    walls["4 2-rank PTG GEMM [type=CUDA]"] = dist_ptg_gemm(ptt, torch, smi,
+                                                          device)
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log("distribution: wall seconds by step " + "; ".join(
+        f"{k} {v:.1f}" for k, v in walls.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s ({smi})")
+    return {"launches": g["launches"], "walls": walls}
+
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3670,8 +4439,9 @@ def main() -> int:
     t0 = time.perf_counter()
     names = ("gemm_chain", "flash_attention", "stencil1d")
     # the host lanes (C++, no device code): the DTD engine, the PTG lane,
-    # the scheduler plane and the native core (the dependency table)
-    lanes = ("ptdtd", "ptexec", "ptsched", "ptdev", "ptcore")
+    # the scheduler plane, the device lane, the comm lane and the native
+    # core (the dependency table)
+    lanes = ("ptdtd", "ptexec", "ptsched", "ptdev", "ptcomm", "ptcore")
     py_h = os.path.join(sysconfig.get_paths()["include"], "Python.h")
     log(f"Python headers for the host lanes: {py_h} "
         f"{'present' if os.path.exists(py_h) else 'MISSING'}")
@@ -4023,7 +4793,13 @@ def main() -> int:
     for r, n_r in lm80_by_route.items():
         flash_by_route[r] += n_r
 
-    # ---- 12. kernel line at the main paths' shapes ----------------------
+    # ---- 12. distribution on the task path, ranks on the one card ------
+    dist = distribution(ptt, K, torch, smi)
+    launches += dist["launches"]
+    lane_launches["distributed"] = dist["launches"]
+    gemm_by_route["split"] += dist["launches"]
+
+    # ---- 13. kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
                flash_entry(K, torch, gen, flash_launches, flash_by_route,
                            flash_device),
@@ -4034,6 +4810,8 @@ def main() -> int:
     for e in kernels:
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path")
+    left = stop_children()
+    log(f"processes left running and stopped at the end: {left or 'none'}")
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -4043,4 +4821,12 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    become_subreaper()
+    try:
+        rc = main()
+    finally:
+        left = stop_children()
+        if left:
+            print(f"chip_smoke: stopped processes left running: {left}",
+                  file=sys.stderr)
+    sys.exit(rc)

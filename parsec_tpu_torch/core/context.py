@@ -8,7 +8,8 @@ Re-design of parsec/parsec.c (parsec_init, :405) + parsec/scheduling.c:
   execution_stream.h:117-174), with ``add_taskpool / start / wait / test``
   mirroring parsec/runtime.h:174-388.
 * The per-thread hot loop re-creates ``__parsec_context_wait``
-  (scheduling.c:727, hot loop :789-818) including exponential backoff.
+  (scheduling.c:727, hot loop :789-818) including exponential backoff and
+  master-thread communication progress.
 * ``_task_progress`` re-creates ``__parsec_task_progress`` (scheduling.c:507)
   and ``__parsec_execute`` (scheduling.c:126): prepare_input → best-device
   selection → chore evaluate/hook → return-code dispatch
@@ -120,7 +121,11 @@ class Context:
     ``device`` is the accelerator the context drives: ``"cuda"`` (the
     default, the current card), ``"cuda:<i>"``, or ``"cpu"`` for a context
     with no accelerator (every body runs on the CPU device; the tests use
-    it). A CUDA request on a machine without CUDA raises."""
+    it). A CUDA request on a machine without CUDA raises.
+
+    ``my_rank``/``nb_ranks`` place the context in a distributed run; a
+    comm engine (``comm/remote_dep.RemoteDepEngine``) attaches itself as
+    :attr:`comm` and sets both."""
 
     def __init__(
         self,
@@ -128,6 +133,8 @@ class Context:
         scheduler: Optional[str] = None,
         argv: Optional[List[str]] = None,
         device: Any = "cuda",
+        my_rank: int = 0,
+        nb_ranks: int = 1,
     ) -> None:
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -142,6 +149,11 @@ class Context:
         if nb_cores is None:
             nb_cores = mca.get("runtime_nb_cores", 0) or (os.cpu_count() or 1)
         self.nb_cores = max(1, nb_cores)
+        self.my_rank = my_rank
+        self.nb_ranks = nb_ranks
+        #: the rank's protocol engine (comm/remote_dep.py), set when it
+        #: attaches; None on a single-rank context
+        self.comm = None
         self.pins = pins_mod.PinsManager()
         self.paranoid = mca.get("debug_paranoid", 0)
         from .vpmap import VPMap
@@ -222,6 +234,10 @@ class Context:
         #: starvation backoff stays short — the next ready task comes from
         #: the lane's manager thread, not from this process's walk
         self._ptexec_dev_live = 0
+        #: count of COMM-BOUND lane graphs in flight: while one lives,
+        #: starvation backoff is capped near the wire latency — the comm
+        #: progress thread ingests remote releases GIL-free at any moment
+        self._ptexec_comm_live = 0
         # per-thread stream binding
         self._tls = threading.local()
         self._tls.stream = self.streams[0]
@@ -232,8 +248,9 @@ class Context:
         #: a task twice or drop it). REENTRANT: nested loops on one thread
         #: (wait inside a drain) are legal
         self._master_loop_lock = threading.RLock()
-        # schedule() only needs to wake anyone when parked workers exist;
-        # single-core runs skip the Event syscall
+        # schedule() only needs to wake anyone when parked workers or a
+        # comm thread exist; single-core local runs skip the Event syscall
+        # (RemoteDepEngine flips this when it attaches)
         self._need_wake = self.nb_cores > 1
         self._gc_held = False
         #: bridge landing the native lanes' in-lane ring events into
@@ -244,7 +261,8 @@ class Context:
         #: and latency percentiles over HTTP/UDS JSON, up for the
         #: context's whole life (--mca metrics_port / metrics_uds)
         from ..tools.metrics_server import MetricsServer
-        self.metrics = MetricsServer.maybe_start(rank=0, nb_ranks=1)
+        self.metrics = MetricsServer.maybe_start(rank=my_rank,
+                                                 nb_ranks=nb_ranks)
         #: native latency histograms (utils/hist.py): armed on every lane
         #: the context enqueues when requested explicitly or implied by a
         #: live metrics endpoint (/metrics serves live percentiles); off =
@@ -430,7 +448,7 @@ class Context:
 
     # ------------------------------------------------------------------ start/wait
     def start(self) -> None:
-        """parsec_context_start (ref: scheduling.c:968): spawn workers."""
+        """parsec_context_start (ref: scheduling.c:968): spawn workers, wake comm."""
         if self._started:
             return
         self._started = True
@@ -439,6 +457,8 @@ class Context:
                                  name=f"parsec-worker-{s.th_id}", daemon=True)
             self._workers.append(t)
             t.start()
+        if self.comm is not None:
+            self.comm.enable()
 
     def test(self) -> bool:
         """parsec_context_test: True when no active taskpool remains."""
@@ -464,12 +484,30 @@ class Context:
     def fini(self, timeout: Optional[float] = None) -> None:
         """parsec_fini: drain and join workers; report statistics. After a
         body error the context is poisoned: fini skips the drain and tears
-        down cleanly instead of re-raising."""
+        down cleanly instead of re-raising. On a distributed context, a
+        drain that cannot finish within ``timeout`` (a peer rank died
+        mid-graph) degrades to a warned teardown instead of hanging."""
         if self._finalized:
             return
         if self._error is None:
-            self.wait(timeout=timeout)
+            try:
+                self.wait(timeout=timeout)
+            except TimeoutError:
+                if self.comm is None:
+                    raise
+                output.warning("fini: drain timed out with work outstanding; "
+                               "tearing down anyway")
         self._finalized = True
+        if self.comm is not None and self.profiling is not None:
+            # the per-rank clock-offset metadata lands BEFORE any dump (the
+            # multi-rank trace merge rebases this rank's timestamps with
+            # it): finalize the ladder first (bounded, collective), then
+            # stamp
+            try:
+                self.comm.clock_sync_finalize(timeout=2.0)
+                self.comm.stamp_clock_meta()
+            except Exception:  # noqa: BLE001 — merge degrades to raw clocks
+                pass
         if self._ntrace is not None:
             # fini: land straggler ring events (blocking final drain)
             self._ntrace.drain_all(wait=True)
@@ -496,6 +534,8 @@ class Context:
             # them under the GIL
             self._ptdev.fini()
             self._ptdev = False
+        if self.comm is not None:
+            self.comm.fini()
         self.devices.fini()
         if self._dtd_neng is not None:
             # the per-context DTD engine never hits a per-pool detach
@@ -653,6 +693,8 @@ class Context:
             self._ptexec_q.append((tp, lane))
             if lane.get("dev_pool") is not None:
                 self._ptexec_dev_live += 1
+            if lane.get("pool_id") is not None:
+                self._ptexec_comm_live += 1
             # scheduler plane, LAZY arming (the one-pool fast path): a
             # lone lane graph keeps its private allocation-free ready
             # vector. The moment a SECOND pool runs concurrently (or a pool
@@ -752,13 +794,15 @@ class Context:
                     raise RuntimeError(
                         f"native device lane callback failed: {msg}")
             mine = graph.run(lane["callback"], 256, budget, stream.th_id)
-            if mine == 0 and lane.get("dev_pool") is not None \
+            if mine == 0 and (lane.get("pool_id") is not None
+                              or lane.get("dev_pool") is not None) \
                     and not graph.failed() and not graph.done():
-                # device-bound lane starved mid-graph: the next ready task
-                # arrives from the device manager thread, not from this
-                # process's walk — micro-poll briefly instead of paying a
-                # full hot-loop iteration per hop (bounded: about 1 ms,
-                # then the outer loop resumes its usual servicing)
+                # comm- or device-bound lane starved mid-graph: the next
+                # ready task arrives from the comm progress thread or the
+                # device manager thread, not from this process's walk —
+                # micro-poll briefly instead of paying a full hot-loop
+                # iteration per hop (bounded: about 1 ms, then the outer
+                # loop resumes its usual servicing)
                 for spin in range(224):
                     time.sleep(0 if spin < 200 else 2e-5)
                     mine = graph.run(lane["callback"], 256, budget,
@@ -816,6 +860,8 @@ class Context:
                 self._ptexec_q.pop(i)
                 if lane.get("dev_pool") is not None:
                     self._ptexec_dev_live -= 1
+                if lane.get("pool_id") is not None:
+                    self._ptexec_comm_live -= 1
                 return
 
     def _sched_pool_retire(self, lane: Dict[str, Any]) -> None:
@@ -934,7 +980,11 @@ class Context:
                     raise self._error
                 return  # workers park quietly; the master surfaces the error
             # poll device modules (our analogue of the GPU manager thread)
-            did_something = bool(self.devices.progress(stream))
+            did_something = False
+            # master progresses communications inline (ref: scheduling.c:790-798)
+            if stream.is_master and self.comm is not None:
+                did_something |= bool(self.comm.progress())
+            did_something |= bool(self.devices.progress(stream))
             # native PTG execution lane: join the front graph's batched C
             # walk (returns promptly when starved — see _ptexec_drain)
             if self._ptexec_q:
@@ -1031,7 +1081,8 @@ class Context:
                 # — capped short while a device-bound lane graph is in
                 # flight: its next ready task arrives from the device
                 # lane's manager thread, not from this process
-                cap = 2e-5 if self._ptexec_dev_live else backoff_max
+                cap = 2e-5 if (self._ptexec_comm_live
+                               or self._ptexec_dev_live) else backoff_max
                 if cap == backoff_max and self.sched_plane is not None \
                         and (self._ptexec_q or self._dtd_batch_pools) \
                         and self.sched_plane.queued_total() > 0:
@@ -1201,8 +1252,9 @@ class Context:
         Walks output deps, updates successor dependency masks/counters
         (parsec.c:1657), collects newly-ready tasks and schedules them
         (scheduling keeps the highest-priority task as ``next_task``, ref:
-        __parsec_schedule_vp scheduling.c:360). One rank: every successor
-        is local.
+        __parsec_schedule_vp scheduling.c:360). In a distributed run a
+        successor owned by another rank gets the flow's output shipped
+        instead, once per destination and wire datatype.
         """
         tp = task.taskpool
         tc = task.task_class
@@ -1224,6 +1276,7 @@ class Context:
                     out = slot.data_out if slot.data_out is not None \
                         else slot.data_in
                     entry.data[f.flow_index] = out
+        distributed = self.comm is not None and self.nb_ranks > 1
 
         def visit(dep, succ_locals: Dict[str, int]) -> None:
             succ_tc = dep.task_class
@@ -1235,6 +1288,11 @@ class Context:
                 ready.append(self.make_task(tp, succ_tc, dict(succ_locals)))
 
         for flow in tc.flows:
+            # remote destinations grouped by the out-dep's named datatype:
+            # each type is reshaped ONCE before the wire and packed once per
+            # destination set (pre-send remote reshape, parsec/remote_dep.h:117;
+            # remote_multiple_outs_same_pred_flow.jdf)
+            remote_by_dtt: Dict[Optional[str], set] = {}
             null_checked = False
             for dep in flow.deps_out:
                 if dep.cond is not None and not dep.cond(task.locals):
@@ -1259,6 +1317,16 @@ class Context:
                 if isinstance(targets, dict):
                     targets = [targets]
                 for tl in targets:
+                    if distributed:
+                        r = tp.task_rank_of(dep.task_class, tl)
+                        if r != self.my_rank:
+                            # remote successor: ship this flow's output once
+                            # per destination (the remote activation fork of
+                            # parsec_release_dep_fct); [type_remote]
+                            # overrides [type] on the wire
+                            wire = getattr(dep, "wire_datatype", dep.datatype)
+                            remote_by_dtt.setdefault(wire, set()).add(r)
+                            continue
                     visit(dep, tl)
                     if not (flow.access & FLOW_ACCESS_CTL):
                         # CTL consumers never look the entry up (their
@@ -1266,6 +1334,23 @@ class Context:
                         # them in the usage limit would make the entry
                         # unretirable
                         nb_uses += 1
+            if remote_by_dtt:
+                slot = task.data[flow.flow_index]
+                out = slot.data_out if slot.data_out is not None \
+                    else slot.data_in
+                payload = out.payload if hasattr(out, "payload") else out
+                dtt_of = getattr(tp, "_dtt", None)
+                ck = getattr(tc, "_ptg_canonical_key", None)
+                wire_key = ck(task) if ck is not None else task.key
+                for dtt_name, ranks in remote_by_dtt.items():
+                    wire_payload = payload
+                    if dtt_name is not None and dtt_of is not None:
+                        dtt = dtt_of(dtt_name)
+                        if dtt is not None and not dtt.identity:
+                            wire_payload = dtt.extract(payload)
+                    self.comm.ptg_send(tp, tc, wire_key, flow.flow_index,
+                                       wire_payload, sorted(ranks),
+                                       dtt=dtt_name)
         if entry is not None:
             repo.entry_addto_usage_limit(task.key, max(nb_uses, 1))
         # consume source repo entries (one use each)

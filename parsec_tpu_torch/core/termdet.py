@@ -132,7 +132,7 @@ class FourCounterTermdet(TermdetModule):
 
     The actual wave exchange rides the comm engine's termdet tag; this class
     implements the counting logic and is driven by
-    the comm engine (a later slice of the port).
+    :mod:`parsec_tpu_torch.comm.remote_dep`.
     """
 
     name = "fourcounter"

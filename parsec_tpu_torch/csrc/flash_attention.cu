@@ -23,13 +23,14 @@
 //   the loop ends at the last key the block's last row can see.
 // * Ragged tails of sq and sk are masked here (zero-filled tiles, padded
 //   keys scored NEG), so any sq, sk >= 1 runs.
-// * Any head dim 1 <= d <= 256. A launch at d runs the instantiation at the
+// * Any head dim d >= 1. A launch at d <= 256 runs the instantiation at the
 //   smallest built size D >= d of {16, 32, 64, 128, 256} (64 or 128 on the
 //   wgmma route): the loads of q, k and v fill columns d .. D - 1 with zeros
 //   in shared memory or registers (TMA's out-of-bounds fill on the wgmma
 //   route), never in a padded copy in device memory, and the store writes
 //   the d real columns. Zero columns change neither q k^T nor the first d
 //   columns of P V, and the default scale is 1/sqrt(d) from the caller.
+//   A launch at d > 256 takes the chunked route (below).
 //
 // Precision.
 // * float32: every product and sum is a float32 FMA on the SIMT cores, never
@@ -104,11 +105,20 @@
 //   32-key K and V tiles in shared memory (16 at D = 256: 32 KB), FMA on
 //   the SIMT cores.
 // The mma and simt grids are (bh, 64-row q tiles), heaviest first.
+// * chunked (d > 256, bf16 or float32): the mma or simt kernel built at
+//   D = 256 with STEPS, and a third grid axis over the output's 256-column
+//   chunks. A block owns (bh, a 64-row q tile, a chunk c): it computes the
+//   full S = q k^T over all d in 256-column steps, loaded in turn into
+//   shared memory, runs the online softmax per row, and accumulates only
+//   its own chunk of P V. S is recomputed once per chunk: the price of the
+//   TPU kernel's whole-head-dim block on 228 KB of shared memory. Every
+//   chunk of a row computes the same S in the same order, so the rows' max
+//   and sum agree across chunks.
 //
 // C entry point (ctypes): flash_attention(q, k, v, out, bh, sq, sk, d,
 // causal, scale, q_off, k_off, dtype, route, sms, stream) with dtype 0 =
-// float32, 1 = bf16, route 0 = simt, 1 = mma, 2 = wgmma and sms the card's
-// SM count; returns a cudaError_t.
+// float32, 1 = bf16, route 0 = simt, 1 = mma, 2 = wgmma, 3 = chunked and
+// sms the card's SM count; returns a cudaError_t.
 
 #include <cuda.h>
 #include <cuda_runtime.h>
@@ -138,6 +148,7 @@ __device__ __forceinline__ int key_end(int sq, int sk, int causal, int row0,
 
 using bf16 = __nv_bfloat16;
 constexpr int BK = 64;          // keys per shared-memory tile
+constexpr int CW = 256;         // the widest single pass; a step or a chunk
 
 __device__ __forceinline__ void mma_bf16(float c[4], const uint32_t a[4],
                                          uint32_t b0, uint32_t b1) {
@@ -164,18 +175,19 @@ __device__ __forceinline__ uint32_t ld32(const bf16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// Rows [r0, r0 + 64) of a (nrows, d) row-major matrix into shared memory
-// (leading dim D + 8, D >= d), zero-filling rows past nrows and columns d .. D
-// - 1. `vec`: 16-byte loads (aligned base and d % 8 == 0).
+// Rows [r0, r0 + 64) and columns [c0, c0 + D) of a (nrows, d) row-major
+// matrix into shared memory (leading dim D + 8), zero-filling rows past nrows
+// and columns past d. `vec`: 16-byte loads (aligned base and d % 8 == 0; c0
+// is 0 or a multiple of D).
 template <int D>
 __device__ __forceinline__ void stage_bf16(bf16* dst,
                                            const bf16* __restrict__ src,
-                                           int r0, int nrows, int d,
+                                           int r0, int nrows, int d, int c0,
                                            bool vec) {
   constexpr int LD = D + 8, VPR = D / 8;
   for (int i = threadIdx.x; i < 64 * VPR; i += THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 8, gr = r0 + r;
-    bf16* dp = dst + r * LD + c;
+    const int r = i / VPR, c = c0 + (i % VPR) * 8, gr = r0 + r;
+    bf16* dp = dst + r * LD + (c - c0);
     if (gr >= nrows || c >= d) {
       *reinterpret_cast<uint4*>(dp) = make_uint4(0u, 0u, 0u, 0u);
     } else if (vec) {
@@ -199,13 +211,18 @@ struct Mma {
   static constexpr size_t SMEM = sizeof(bf16) * BK * LD * (Q_SHARED ? 3 : 2);
 };
 
-template <int D>
+// STEPS (d > 256, the chunked route, built at D = 256): the grid's third
+// axis picks the output's column chunk [c0, c0 + D), and S = Q K^T sums
+// over all d in D-column steps, Q and K staged a step at a time. Without
+// STEPS there is one step and the chunk is 0.
+template <int D, bool STEPS>
 __global__ void __launch_bounds__(THREADS)
 flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
            const bf16* __restrict__ v, bf16* __restrict__ out, int sq,
            int sk, int d, int causal, float scale, int q_off, int k_off,
            bool vec) {
   using M = Mma<D>;
+  static_assert(!STEPS || M::Q_SHARED, "steps stage Q in shared memory");
   constexpr int LD = M::LD;
   constexpr int KC = D / 16;    // k steps of the q k^T product
   constexpr int NT = D / 8;     // 8-column tiles of the output
@@ -216,6 +233,7 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int c0 = STEPS ? blockIdx.z * D : 0;            // the output chunk
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;   // fragment row, pair within a row
   const int wr = warp * 16;               // the warp's first row in the tile
@@ -224,12 +242,12 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vb = v + (size_t)bh * sk * d;
 
   // the Q tile: into A fragments held for the block (through the K buffer),
-  // or into its own buffer at D = 256
+  // or into its own buffer at D = 256 (a step at a time under STEPS)
   uint32_t qa[M::Q_SHARED ? 1 : KC][4];
   if constexpr (M::Q_SHARED) {
-    stage_bf16<D>(Qs, qb, row0, sq, d, vec);
+    if constexpr (!STEPS) stage_bf16<D>(Qs, qb, row0, sq, d, 0, vec);
   } else {
-    stage_bf16<D>(Ks, qb, row0, sq, d, vec);
+    stage_bf16<D>(Ks, qb, row0, sq, d, 0, vec);
     __syncthreads();
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
@@ -251,37 +269,41 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
   const int kend = key_end(sq, sk, causal, row0, BQ, q_off, k_off);
   for (int k0 = 0; k0 < kend; k0 += BK) {
-    stage_bf16<D>(Ks, kb, k0, sk, d, vec);
-    stage_bf16<D>(Vs, vb, k0, sk, d, vec);
-    __syncthreads();
-
     // S = Q K^T for 16 rows x 64 keys: 8 tiles of 8 keys, each summed over
-    // the k16 steps in order
+    // the k16 steps (and the D-column steps) in order
     float s[8][4];
 #pragma unroll
     for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    if constexpr (M::Q_SHARED) {
-#pragma unroll
-      for (int kc = 0; kc < KC; ++kc) {
-        const bf16* p = Qs + (wr + g) * LD + kc * 16 + 2 * t;
-        const uint32_t a[4] = {ld32(p), ld32(p + 8 * LD), ld32(p + 8),
-                               ld32(p + 8 * LD + 8)};
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const bf16* kp = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
+    for (int d0 = 0; d0 < (STEPS ? d : 1); d0 += D) {
+      if constexpr (STEPS) stage_bf16<D>(Qs, qb, row0, sq, d, d0, vec);
+      stage_bf16<D>(Ks, kb, k0, sk, d, d0, vec);
+      if constexpr (!STEPS) stage_bf16<D>(Vs, vb, k0, sk, d, 0, vec);
+      __syncthreads();
+      if constexpr (M::Q_SHARED) {
 #pragma unroll
         for (int kc = 0; kc < KC; ++kc) {
-          const bf16* p = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
-          mma_bf16(s[j], qa[kc], ld32(p), ld32(p + 8));
+          const bf16* p = Qs + (wr + g) * LD + kc * 16 + 2 * t;
+          const uint32_t a[4] = {ld32(p), ld32(p + 8 * LD), ld32(p + 8),
+                                 ld32(p + 8 * LD + 8)};
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            const bf16* kp = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
+            mma_bf16(s[j], a, ld32(kp), ld32(kp + 8));
+          }
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc) {
+            const bf16* p = Ks + (j * 8 + g) * LD + kc * 16 + 2 * t;
+            mma_bf16(s[j], qa[kc], ld32(p), ld32(p + 8));
+          }
         }
       }
+      if constexpr (STEPS) __syncthreads();
     }
+    if constexpr (STEPS) stage_bf16<D>(Vs, vb, k0, sk, d, c0, vec);
 
     // scale, mask, online softmax; s becomes p
 #pragma unroll
@@ -323,8 +345,10 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
         o[n][2 * h + 1] *= corr;
       }
     }
+    if constexpr (STEPS) __syncthreads();   // V staged
 
-    // O += P V: the S accumulators are the A fragments of P (16 keys each)
+    // O[:, chunk] += P V[:, chunk]: the S accumulators are the A fragments
+    // of P (16 keys each)
 #pragma unroll
     for (int kc = 0; kc < BK / 16; ++kc) {
       const uint32_t pa[4] = {
@@ -342,8 +366,8 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
   }
 
-  // only the d real columns are written: pairs where d is even, else one
-  // element at a time
+  // only the chunk's real columns are written: pairs where d is even, else
+  // one element at a time
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int r = row0 + wr + g + 8 * h;
@@ -352,7 +376,7 @@ flash_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* dst = out + ((size_t)bh * sq + r) * d;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * t;
+      const int col = c0 + n * 8 + 2 * t;
       const float y0 = o[n][2 * h] / den, y1 = o[n][2 * h + 1] / den;
       if (d % 2 == 0) {
         if (col < d)
@@ -379,18 +403,20 @@ struct Simt {
   static constexpr int P = D / (2 * TPR);   // float2 pairs a thread owns
 };
 
-// Rows [r0, r0 + BKF) of a (nrows, d) row-major matrix into shared memory
-// (leading dim D), zero-filling rows past nrows and columns d .. D - 1.
-// `vec`: 16-byte loads (aligned base and d % 4 == 0).
+// Rows [r0, r0 + BKF) and columns [c0, c0 + D) of a (nrows, d) row-major
+// matrix into shared memory (leading dim D), zero-filling rows past nrows
+// and columns past d. `vec`: 16-byte loads (aligned base and d % 4 == 0; c0
+// is 0 or a multiple of D).
 template <int D>
 __device__ __forceinline__ void stage_f32(float* dst,
                                           const float* __restrict__ src,
-                                          int r0, int nrows, int d, bool vec) {
+                                          int r0, int nrows, int d, int c0,
+                                          bool vec) {
   using S = Simt<D>;
   constexpr int VPR = D / 4;
   for (int i = threadIdx.x; i < S::BKF * VPR; i += S::THREADS) {
-    const int r = i / VPR, c = (i % VPR) * 4, gr = r0 + r;
-    float* dp = dst + r * D + c;
+    const int r = i / VPR, c = c0 + (i % VPR) * 4, gr = r0 + r;
+    float* dp = dst + r * D + (c - c0);
     if (gr >= nrows || c >= d) {
       *reinterpret_cast<float4*>(dp) = make_float4(0.f, 0.f, 0.f, 0.f);
     } else if (vec) {
@@ -406,8 +432,11 @@ __device__ __forceinline__ void stage_f32(float* dst,
 
 // Thread part `hf` of a row owns the columns 2 TPR i + 2 hf and
 // 2 TPR i + 2 hf + 1 (i < P), so the parts read neighbouring words of a
-// shared row and each dot is TPR part-sums joined by shuffles.
-template <int D>
+// shared row and each dot is TPR part-sums joined by shuffles. STEPS as in
+// flash_bf16: a thread reads its part of q's step from device memory
+// (scaled in float32, as the TPU kernel scales q) and adds the step's
+// part-dot to its running part-sum; the parts join after the last step.
+template <int D, bool STEPS>
 __global__ void __launch_bounds__(Simt<D>::THREADS)
 flash_f32(const float* __restrict__ q, const float* __restrict__ k,
           const float* __restrict__ v, float* __restrict__ out, int sq,
@@ -420,45 +449,60 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
 
   const int bh = blockIdx.x;
   const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;   // heaviest first
+  const int c0 = STEPS ? blockIdx.z * D : 0;            // the output chunk
   const int hf = threadIdx.x % TPR;
   const int row = row0 + threadIdx.x / TPR;
   const bool live = row < sq;
+  const float* qrow = q + ((size_t)bh * sq + (live ? row : 0)) * d;
   const float* kb = k + (size_t)bh * sk * d;
   const float* vb = v + (size_t)bh * sk * d;
 
+  // q's columns [d0, d0 + D) of this thread's part, scaled
   float2 qr[P], o[P];
-  {
-    const float* qrow = q + ((size_t)bh * sq + (live ? row : 0)) * d;
+  auto load_q = [&](int d0) {
 #pragma unroll
     for (int i = 0; i < P; ++i) {
-      const int c = 2 * TPR * i + 2 * hf;
+      const int c = d0 + 2 * TPR * i + 2 * hf;
       qr[i] = make_float2(live && c < d ? qrow[c] * scale : 0.f,
                           live && c + 1 < d ? qrow[c + 1] * scale : 0.f);
-      o[i] = make_float2(0.f, 0.f);
     }
-  }
+  };
+  if constexpr (!STEPS) load_q(0);
+#pragma unroll
+  for (int i = 0; i < P; ++i) o[i] = make_float2(0.f, 0.f);
   float m = NEG, l = 0.f;
   const int qpos = q_off + row;
 
   const int kend = key_end(sq, sk, causal, row0, BQ, q_off, k_off);
   for (int k0 = 0; k0 < kend; k0 += BKF) {
-    stage_f32<D>(Ks, kb, k0, sk, d, vec);
-    stage_f32<D>(Vs, vb, k0, sk, d, vec);
-    __syncthreads();
-
     float s[BKF];
+#pragma unroll
+    for (int j = 0; j < BKF; ++j) s[j] = 0.f;
+    for (int d0 = 0; d0 < (STEPS ? d : 1); d0 += D) {
+      stage_f32<D>(Ks, kb, k0, sk, d, d0, vec);
+      if constexpr (STEPS) load_q(d0);
+      else stage_f32<D>(Vs, vb, k0, sk, d, 0, vec);
+      __syncthreads();
+#pragma unroll
+      for (int j = 0; j < BKF; ++j) {
+        const float2* kr = reinterpret_cast<const float2*>(Ks + j * D) + hf;
+        float part = s[j];
+#pragma unroll
+        for (int i = 0; i < P; ++i) {
+          const float2 kv = kr[TPR * i];
+          part = fmaf(qr[i].x, kv.x, part);
+          part = fmaf(qr[i].y, kv.y, part);
+        }
+        s[j] = part;
+      }
+      if constexpr (STEPS) __syncthreads();
+    }
+    if constexpr (STEPS) stage_f32<D>(Vs, vb, k0, sk, d, c0, vec);
+
     float mx = m;
 #pragma unroll
     for (int j = 0; j < BKF; ++j) {
-      const float2* kr = reinterpret_cast<const float2*>(Ks + j * D) + hf;
-      float part = 0.f;
-#pragma unroll
-      for (int i = 0; i < P; ++i) {
-        const float2 kv = kr[TPR * i];
-        part = fmaf(qr[i].x, kv.x, part);
-        part = fmaf(qr[i].y, kv.y, part);
-      }
-      float x = part + __shfl_xor_sync(FULL, part, 1);
+      float x = s[j] + __shfl_xor_sync(FULL, s[j], 1);
       if (TPR == 4) x += __shfl_xor_sync(FULL, x, 2);
       const int col = k0 + j;
       const bool keep = col < sk && (!causal || k_off + col <= qpos);
@@ -479,6 +523,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
       o[i].x *= corr;
       o[i].y *= corr;
     }
+    if constexpr (STEPS) __syncthreads();   // V staged
 #pragma unroll
     for (int j = 0; j < BKF; ++j) {
       const float2* vr = reinterpret_cast<const float2*>(Vs + j * D) + hf;
@@ -497,7 +542,7 @@ flash_f32(const float* __restrict__ q, const float* __restrict__ k,
   float* dst = out + ((size_t)bh * sq + row) * d;
 #pragma unroll
   for (int i = 0; i < P; ++i) {
-    const int c = 2 * TPR * i + 2 * hf;
+    const int c = c0 + 2 * TPR * i + 2 * hf;
     if (d % 2 == 0) {
       if (c < d)
         *reinterpret_cast<float2*>(dst + c) =
@@ -901,7 +946,7 @@ flash_bf16_wgmma(const __grid_constant__ CUtensorMap tm_q,
 
 // ------------------------------------------------------------------- host
 
-constexpr int ROUTE_SIMT = 0, ROUTE_MMA = 1, ROUTE_WGMMA = 2;
+constexpr int ROUTE_SIMT = 0, ROUTE_MMA = 1, ROUTE_WGMMA = 2, ROUTE_CHUNKED = 3;
 
 template <int D>
 int launch_wgmma(const void* q, const void* k, const void* v, void* out,
@@ -933,12 +978,12 @@ int launch_wgmma(const void* q, const void* k, const void* v, void* out,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool STEPS = false>
 int launch(const void* q, const void* k, const void* v, void* out, dim3 grid,
            int sq, int sk, int d, int causal, float scale, int q_off,
            int k_off, int dtype, bool vec, cudaStream_t st) {
   if (dtype == 0) {
-    flash_f32<D><<<grid, Simt<D>::THREADS, 0, st>>>(
+    flash_f32<D, STEPS><<<grid, Simt<D>::THREADS, 0, st>>>(
         static_cast<const float*>(q), static_cast<const float*>(k),
         static_cast<const float*>(v), static_cast<float*>(out), sq, sk, d,
         causal, scale, q_off, k_off, vec);
@@ -948,13 +993,13 @@ int launch(const void* q, const void* k, const void* v, void* out, dim3 grid,
       static bool attr = false;
       if (!attr) {
         const cudaError_t e = cudaFuncSetAttribute(
-            flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            flash_bf16<D, STEPS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
             (int)smem);
         if (e != cudaSuccess) return (int)e;
         attr = true;
       }
     }
-    flash_bf16<D><<<grid, THREADS, smem, st>>>(
+    flash_bf16<D, STEPS><<<grid, THREADS, smem, st>>>(
         static_cast<const bf16*>(q), static_cast<const bf16*>(k),
         static_cast<const bf16*>(v), static_cast<bf16*>(out), sq, sk, d,
         causal, scale, q_off, k_off, vec);
@@ -968,14 +1013,22 @@ extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* out, int bh, int sq, int sk, int d,
                                int causal, float scale, int q_off, int k_off,
                                int dtype, int route, int sms, void* stream) {
-  if (bh < 1 || sq < 1 || sk < 1 || d < 1 || d > 256 ||
-      (sq + BQ - 1) / BQ > 65535)
+  if (bh < 1 || sq < 1 || sk < 1 || d < 1 ||
+      (sq + BQ - 1) / BQ > 65535 || (d + CW - 1) / CW > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // 16-byte loads and TMA need every row start aligned: aligned bases and a
   // row of d * 2 or d * 4 bytes that is a multiple of 16
   const bool vec = aligned16(q) && aligned16(k) && aligned16(v) &&
                    d % (dtype == 1 ? 8 : 4) == 0;
+  // the chunked route takes exactly the head dims past one step
+  if ((route == ROUTE_CHUNKED) != (d > CW) || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  if (route == ROUTE_CHUNKED)   // the D = 256 kernels over output chunks
+    return launch<CW, true>(q, k, v, out,
+                            dim3(bh, (sq + BQ - 1) / BQ, (d + CW - 1) / CW),
+                            sq, sk, d, causal, scale, q_off, k_off, dtype,
+                            vec, st);
   if (route == ROUTE_WGMMA) {
     if (dtype != 1 || !vec || d <= 32 || d > 128 || sms < 1 ||
         (long)bh * ((sq + W_BQ - 1) / W_BQ) > 0x7fffffff)

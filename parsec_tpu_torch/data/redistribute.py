@@ -10,8 +10,9 @@ fragment*: every target tile intersects up to four+ source tiles when
 offsets are unaligned; each intersection becomes a copy task reading the
 source tile and writing the slice of the target tile. A fragment copy is a
 clone of the target tile with the slice assigned, on the tiles' device (the
-card on a card context). This is the single-rank half: every task runs
-here, on the target tile's owner.
+card on a card context). Owner-computes places each task on the target
+tile's rank; in a distributed run the cross-rank source reads ride the
+remote-dep machinery (``comm/remote_dep.py``).
 """
 
 from __future__ import annotations

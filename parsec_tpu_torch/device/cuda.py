@@ -223,6 +223,16 @@ class CUDADevice(DeviceModule):
         if victims:
             self._apply_victims(victims)
 
+    def adopt_copy(self, data: Data, copy: DataCopy) -> None:
+        """A copy that arrived already resident on this card (a remote
+        payload the comm layer landed here, ``comm/remote_dep.py``): the
+        residency mirror and the table take it at the datum's version, so
+        the next stage-in of that version is a hit with no transfer. It is
+        taken as owned: the host copy may hold the same tensor, and an
+        eviction then writes it back to host memory."""
+        self._lru_touch(self.res_key(data), copy)
+        self._coh_mark_owned(data, copy)
+
     def _apply_victims(self, victims) -> None:
         """Commit the C table's eviction decisions: write back + invalidate
         each victim ATOMICALLY with its version check (Data.evict_copy),

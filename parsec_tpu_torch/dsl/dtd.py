@@ -1,9 +1,9 @@
 """DTD: dynamic task discovery — the insert-task frontend.
 
 Re-design of parsec/interfaces/dtd (insert_function.c, insert_function.h,
-insert_function_internal.h). The user inserts tasks against *tiles*; the
-runtime builds the DAG on the fly from each tile's access chain and executes
-tasks as their dependencies retire:
+insert_function_internal.h). The user (on every rank, in the same order)
+inserts tasks against *tiles*; the runtime builds the DAG on the fly from
+each tile's access chain and executes tasks as their dependencies retire:
 
 * :class:`DTDTile` — ref: parsec_dtd_tile_t (insert_function_internal.h:174-196)
   with ``last_writer`` / reader lists driving RAW/WAR/WAW chaining
@@ -16,6 +16,11 @@ tasks as their dependencies retire:
   execute until the executed count catches up.
 * ``insert_task`` — ref: parsec_dtd_insert_task (insert_function.c:3617) →
   create/initialize (:2801), param linking (:2896), schedule-if-ready (:2963).
+* distributed mode: every rank runs the same insert sequence; tasks are
+  placed by the affinity tile's rank (owner-computes); remote edges go to the
+  comm layer (rank_sent_to bitmaps, delayed release — wired in
+  :mod:`parsec_tpu_torch.comm.remote_dep`), and ``--mca dtd_audit`` digests
+  every rank's link decisions and compares them at wait().
 
 Two engines link the chains. The native engine (``csrc/ptdtd.cpp``, built
 and loaded by :mod:`parsec_tpu_torch.native`) runs on every context and
@@ -26,7 +31,8 @@ context without a CUDA device, the batched lane (repeat inserts of one
 class buffer their specs, link N at a time, and execute inside the engine's
 ready drain through per-class callbacks, draining through the scheduler
 plane). The all-Python engine below serves ``--mca native_enabled 0`` and
-``--mca pins_paranoid 1``.
+``--mca pins_paranoid 1``, distributed pools and the replay audit (the
+Python engine owns the distributed protocol's bookkeeping).
 
 Bodies are *functional* — ``fn(*args) -> outputs`` returns fresh tensors for
 its WRITE flows instead of mutating in place. The same body runs as the CPU
@@ -38,6 +44,7 @@ natural (every write is a new buffer).
 from __future__ import annotations
 
 import threading
+import zlib
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
@@ -64,12 +71,17 @@ RW = FLOW_ACCESS_RW
 AFFINITY = 0x100          # ref: PARSEC_AFFINITY bit on a dtd param
 NOTRACK = 0x200           # ref: PARSEC_DONT_TRACK (dtd_test_flag_dont_track.c):
                           # the tile's VALUE flows to the body, but the access
-                          # creates no RAW/WAR/WAW edges — ordering w.r.t.
-                          # tracked accesses of the same tile is the caller's
-                          # problem.
+                          # creates no RAW/WAR/WAW edges and no distributed
+                          # version bookkeeping — ordering w.r.t. tracked
+                          # accesses of the same tile is the caller's problem.
+                          # Rank-local by contract (like tile_new scratch).
 
 mca.register("dtd_window_size", 2048,
              "Max in-flight inserted-but-not-executed tasks", type=int)
+mca.register("dtd_audit", False,
+             "Replay auditor: digest every rank's (tile, version, rank) "
+             "link decisions and compare across ranks at wait() (the DTD "
+             "analogue of the PTG iterators_checker)", type=bool)
 mca.register("dtd_threshold_size", 1024,
              "Catch-up target once the window is hit", type=int)
 mca.register("dtd_batch_insert", True,
@@ -130,20 +142,26 @@ class DTDTile:
     """Ref: parsec_dtd_tile_t (insert_function_internal.h:174-196)."""
 
     __slots__ = ("data", "key", "dc", "lock", "last_writer", "readers",
-                 "compact_at", "wcount", "last_writer_version", "nid")
+                 "rank", "new_tile", "compact_at", "wcount", "writer_rank",
+                 "last_writer_version", "nid")
 
-    def __init__(self, data: Data, key: Any,
-                 dc: Optional[DataCollection]) -> None:
+    def __init__(self, data: Data, key: Any, dc: Optional[DataCollection],
+                 rank: int = 0, new_tile: bool = False) -> None:
         self.data = data
         self.key = key
         self.dc = dc
+        self.rank = rank
+        self.new_tile = new_tile
         self.lock = threading.Lock()
         self.last_writer: Optional["DTDTask"] = None
         self.readers: List["DTDTask"] = []
         self.compact_at = 32      # next reader-list compaction watermark
         #: logical write sequence number (one per linked write, on every
-        #: lane: the batched lane syncs its writes in at quiescence)
+        #: lane: the batched lane syncs its writes in at quiescence),
+        #: identical on every rank because all ranks replay the same insert
+        #: sequence (the basis remote transfers are keyed on)
         self.wcount = 0
+        self.writer_rank = rank      # rank holding the newest version
         self.last_writer_version = 0
         #: native-engine tile id (the chains in csrc/ptdtd.cpp), assigned
         #: on the first native link. Tiles are pool-local, so a tile's
@@ -158,7 +176,8 @@ class DTDTask(Task):
     """Task with runtime-discovered deps (ref: parsec_dtd_task_t)."""
 
     __slots__ = ("deps_remaining", "successors", "completed", "lock",
-                 "arg_spec", "tiles", "pending_inputs", "ident", "nid")
+                 "arg_spec", "tiles", "rank", "pending_inputs",
+                 "remote_sends", "ident", "nid")
 
     def __init__(self, taskpool, task_class, priority=0) -> None:
         super().__init__(taskpool, task_class, None, priority)
@@ -176,9 +195,15 @@ class DTDTask(Task):
         self.lock = None
         self.arg_spec: List[Tuple[str, Any]] = []  # ('flow', i) | ('value', v)
         self.tiles: List[Optional[DTDTile]] = []
-        #: flow_index -> payload snapshotted at insert (NOTRACK flows).
-        #: Lazily allocated: a per-task dict is churn on the insert hot path
+        self.rank = 0
+        #: flow_index -> payload snapshotted at insert (NOTRACK flows) or
+        #: delivered by the comm engine (exact-version remote inputs
+        #: override newest_copy resolution). Lazily allocated: a per-task
+        #: dict is churn on the insert hot path
         self.pending_inputs: Optional[Dict[int, Any]] = None
+        #: id(tile) -> (tile, version, {dst ranks}) — the rank_sent_to
+        #: bitmap; lazily allocated for the same reason
+        self.remote_sends: Optional[Dict[int, Tuple]] = None
 
     def dep_satisfied(self) -> bool:
         with self.lock:
@@ -269,8 +294,10 @@ class DTDTaskpool(Taskpool):
 
     def __init__(self, context: Context, name: str = "dtd",
                  capture: Any = False) -> None:
-        # per-context sequence number per base name, so two live pools
-        # never share a name
+        # per-context (i.e. per-rank) sequence number per base name: every
+        # rank constructs its taskpools in the same order, so "dtd#3" means
+        # the same pool on all ranks while two concurrently-live pools never
+        # collide in the remote-dep registry
         seqs = getattr(context, "_dtd_name_seq", None)
         if seqs is None:
             seqs = context._dtd_name_seq = {}
@@ -296,13 +323,16 @@ class DTDTaskpool(Taskpool):
         self._insert_lock = threading.RLock()
         self._stall_lock = threading.Lock()
         self.inserted = 0
-        self.local_inserted = 0   # tasks this process executes
+        self.local_inserted = 0   # tasks this rank executes
         self.window_stalls = 0    # inserter blocked on the task window
         self._executed = 0
         self._exec_lock = threading.Lock()
         self._open = False
         self._touched_tiles: List[DTDTile] = []
         self._new_tile_count = 0
+        self._audit = mca.get("dtd_audit", False)
+        self._audit_digest = 0      # zlib.crc32 chain: process-independent
+        self._audit_count = 0
         #: native dependency engine (csrc/ptdtd.cpp), decided at the first
         #: insert (see _native_engine)
         self._neng = None
@@ -347,8 +377,12 @@ class DTDTaskpool(Taskpool):
         # whole-DAG capture mode (dsl/capture.py): record inserts, execute
         # the pool as ONE program at wait()
         self._capture = None
+        if context.comm is not None:
+            # distributed: global termination detection + name-keyed registry
+            context.comm.fourcounter.monitor_taskpool(self)
+            context.comm.register_taskpool(self)
         if capture:
-            if getattr(context, "nb_ranks", 1) > 1:
+            if context.nb_ranks > 1:
                 output.fatal("graph capture is single-rank "
                              "(a captured pool never leaves the card)")
             from .capture import GraphCapture
@@ -367,7 +401,7 @@ class DTDTaskpool(Taskpool):
             t = self._tiles.get(key)
             if t is None:
                 data = dc.data_of(*indices)
-                t = DTDTile(data, key, dc)
+                t = DTDTile(data, key, dc, rank=dc.rank_of(*indices))
                 self._tiles[key] = t
                 self._touched_tiles.append(t)
             return t
@@ -379,7 +413,7 @@ class DTDTaskpool(Taskpool):
             t = self._tiles.get(tkey)
             if t is None:
                 data = dc.data_of_key(key)
-                t = DTDTile(data, tkey, dc)
+                t = DTDTile(data, tkey, dc, rank=dc.rank_of_key(key))
                 self._tiles[tkey] = t
                 self._touched_tiles.append(t)
             return t
@@ -394,7 +428,8 @@ class DTDTaskpool(Taskpool):
             arr = torch.zeros(array_or_shape, dtype=torch_dtype(dtype))
         data = data_from_array(arr)
         self._new_tile_count += 1
-        t = DTDTile(data, ("new", self.name, self._new_tile_count), None)
+        t = DTDTile(data, ("new", self.name, self._new_tile_count), None,
+                    rank=self.ctx.my_rank, new_tile=True)
         with self._tiles_lock:
             self._tiles[t.key] = t
             self._touched_tiles.append(t)
@@ -429,15 +464,19 @@ class DTDTaskpool(Taskpool):
     def _native_engine(self):
         """The per-context native DTD engine, or None (the Python engine).
 
-        Declined only for ``--mca pins_paranoid 1`` (with PINS callbacks
-        registered) and ``--mca native_enabled 0``; with the engine on, a
-        failed build or load raises. On a context with no CUDA device the
+        Declined for a distributed context (a comm engine attached, or more
+        than one rank), for ``--mca dtd_audit 1`` (the Python engine owns the
+        distributed protocol's bookkeeping and the replay digest, as in the
+        reference), for ``--mca pins_paranoid 1`` (with PINS callbacks
+        registered) and for ``--mca native_enabled 0``; with the engine on,
+        a failed build or load raises. On a context with no CUDA device the
         batched lane arms too."""
         if self._neng_decided:
             return self._neng
         self._neng_decided = True
         ctx = self.ctx
-        if ctx.pins.paranoid or not mca.get("native_enabled", True):
+        if ctx.comm is not None or ctx.nb_ranks > 1 or self._audit \
+                or ctx.pins.paranoid or not mca.get("native_enabled", True):
             return None
         eng = ctx._dtd_neng
         if eng is None:
@@ -934,8 +973,9 @@ class DTDTaskpool(Taskpool):
         ``args``: ``(tile, access)`` tuples become data flows; anything else
         is a by-value parameter. ``access`` may carry the NOTRACK bit to pass
         the tile's value without dependency tracking (ref PARSEC_DONT_TRACK),
-        and the AFFINITY bit, which names the owner-computes tile of a
-        distributed run (accepted here; placement is single-process).
+        and the AFFINITY bit, which picks the task's rank in a distributed
+        run (owner-computes; default: the first tracked WRITE tile's
+        rank).
 
         ``jit=True`` (the default) declares the body a pure tensor function
         that may run as the CUDA chore; ``jit=False`` keeps a side-effectful
@@ -1040,9 +1080,12 @@ class DTDTaskpool(Taskpool):
         flow_accesses: List[int] = []
         arg_spec: List[Tuple[str, Any]] = []
         tiles: List[DTDTile] = []
+        affinity_tile: Optional[DTDTile] = None
         for a in args:
             if isinstance(a, tuple) and len(a) == 2 and isinstance(a[0], DTDTile):
                 tile, acc = a
+                if acc & AFFINITY:
+                    affinity_tile = tile
                 acc &= ~AFFINITY
                 arg_spec.append(("flow", len(flow_accesses)))
                 flow_accesses.append(acc)
@@ -1077,6 +1120,8 @@ class DTDTaskpool(Taskpool):
 
         neng = self._neng if self._neng_decided else self._native_engine()
         if neng is not None:
+            # single-rank: owner-computes placement is the identity
+            task.rank = self.ctx.my_rank
             if self._batch_on:
                 if binfo is _BINFO_UNSET:
                     # register (or refuse) the batch-lane class for this
@@ -1154,10 +1199,37 @@ class DTDTaskpool(Taskpool):
 
         task.lock = threading.Lock()      # Python engine: preds/release lock
         task.successors = []
+        # owner-computes rank (ref: rank from affinity tile's rank_of_key);
+        # untracked flows don't steer placement
+        if affinity_tile is None:
+            for t, acc in zip(tiles, flow_accesses):
+                if acc & WRITE and not acc & NOTRACK:
+                    affinity_tile = t
+                    break
+            if affinity_tile is None:
+                # the fallback prefers tracked flows too: an untracked
+                # scratch tile is rank-local and would diverge owner-computes
+                # placement across the distributed replay
+                tracked = [t for t, acc in zip(tiles, flow_accesses)
+                           if not acc & NOTRACK]
+                if tracked:
+                    affinity_tile = tracked[0]
+                elif tiles:
+                    affinity_tile = tiles[0]
+        task.rank = affinity_tile.rank if affinity_tile is not None \
+            else self.ctx.my_rank
+        distributed = self.ctx.comm is not None and self.ctx.nb_ranks > 1
+        remote = distributed and task.rank != self.ctx.my_rank
         # link against each tile's chain (ref: parsec_dtd_set_params_of_task
-        # insert_function.c:2896; WAR via overlap_strategies.c)
+        # insert_function.c:2896; WAR via overlap_strategies.c). In
+        # distributed mode every rank replays the same sequence, so the
+        # version bookkeeping below is globally consistent without messages
         for fi, (tile, acc) in enumerate(zip(tiles, flow_accesses)):
-            self._link_tile(task, tile, acc, fi)
+            self._link_tile(task, tile, acc, fi, remote, distributed)
+        if remote:
+            # shadow task: executes elsewhere; local role is only data routing
+            self.ctx.comm.dtd_remote_task(self, task)
+            return task
         self.addto_nb_tasks(1)
         self.local_inserted += 1
         if task.dep_satisfied():
@@ -1166,9 +1238,11 @@ class DTDTaskpool(Taskpool):
         return task     # window stall runs after the insert lock drops
 
     def _link_tile(self, task: DTDTask, tile: DTDTile, acc: int,
-                   flow_index: int) -> None:
+                   flow_index: int, remote: bool = False,
+                   distributed: bool = False) -> None:
         if acc & NOTRACK:
-            # untracked access: no chaining and no version bump — and the
+            # untracked access: no chaining, no version bump, no comm
+            # bookkeeping, no audit entry — and the
             # VALUE is snapshotted NOW (ref: insert_function.c:3038 captures
             # tile->data_copy at insert time): an untracked flow has no
             # ordering edges, so resolving newest_copy at execution would let
@@ -1179,31 +1253,47 @@ class DTDTaskpool(Taskpool):
                     task.pending_inputs = {}
                 task.pending_inputs[flow_index] = copy.payload
             return
+        my = self.ctx.my_rank
         preds: List[DTDTask] = []
         with tile.lock:
+            read_version = tile.wcount
+            src_rank = tile.writer_rank
+            # the producer of read_version — captured BEFORE the write side
+            # below replaces last_writer (the consumer must attach its send
+            # to the task that PRODUCES the version it reads, not to itself)
+            prev_writer = tile.last_writer
             if acc & READ or not (acc & WRITE):
-                # RAW: predecessor is the last writer
-                if tile.last_writer is not None:
-                    preds.append(tile.last_writer)
-                readers = tile.readers
-                if len(readers) >= tile.compact_at:
-                    # amortized compaction: completed readers are
-                    # already-satisfied WAR predecessors — pruning them
-                    # keeps long read-chains from growing unboundedly
-                    # between writes. The watermark doubles past the
-                    # survivors so a burst of never-retiring readers costs
-                    # O(n log n) total, not a full rescan per insert
-                    live = [r for r in readers if not r.completed]
-                    live.append(task)
-                    tile.readers = live
-                    tile.compact_at = max(32, 2 * len(live))
-                else:
-                    readers.append(task)
-            if acc & WRITE:
-                # WAR: wait on readers since the previous write; WAW on the
-                # last writer
-                preds.extend(tile.readers)
+                # RAW: predecessor is the last writer (local chain) or a
+                # remote version expectation / outbound send
                 if tile.last_writer is not None and \
+                        (not distributed or tile.last_writer.rank == my):
+                    preds.append(tile.last_writer)
+                if not remote:
+                    readers = tile.readers
+                    if len(readers) >= tile.compact_at:
+                        # amortized compaction: completed readers are
+                        # already-satisfied WAR predecessors — pruning them
+                        # keeps long read-chains from growing unboundedly
+                        # between writes. The watermark doubles past the
+                        # survivors so a burst of never-retiring readers
+                        # costs O(n log n) total, not a full rescan per
+                        # insert
+                        live = [r for r in readers if not r.completed]
+                        live.append(task)
+                        tile.readers = live
+                        tile.compact_at = max(32, 2 * len(live))
+                    else:
+                        readers.append(task)
+            if acc & WRITE:
+                # WAR: wait on local readers since the previous write; WAW
+                # on the local last writer (remote ones are covered by the
+                # version expectation on the READ side of RW, or need no
+                # local ordering at all)
+                for r in tile.readers:
+                    if not distributed or r.rank == my:
+                        preds.append(r)
+                if tile.last_writer is not None and \
+                        (not distributed or tile.last_writer.rank == my) and \
                         tile.last_writer not in preds:
                     preds.append(tile.last_writer)
                 tile.last_writer = task
@@ -1211,6 +1301,39 @@ class DTDTaskpool(Taskpool):
                 tile.compact_at = 32
                 tile.wcount += 1
                 tile.last_writer_version = tile.wcount
+                tile.writer_rank = task.rank
+        if self._audit and not tile.new_tile:
+            # deterministic digest of this link decision (crc32: stable
+            # across processes, unlike str hash under PYTHONHASHSEED): all
+            # ranks replay the same COLLECTION-BACKED inserts, so the
+            # chains must agree (tile_new scratch tiles are rank-local by
+            # contract and excluded). Collection keys are (dc.name,
+            # data_key) with int/str parts, byte-compiled by a %-format;
+            # other keys go through repr
+            key = tile.key
+            if type(key) is tuple and len(key) == 2 and \
+                    isinstance(key[1], (int, str)):
+                item = b"%s\x00%a\x00%d\x00%d\x00%d\x00%d" % (
+                    key[0].encode(), key[1], acc & 0x3, read_version,
+                    src_rank, task.rank)
+            else:
+                item = repr((key, acc & 0x3, read_version, src_rank,
+                             task.rank)).encode()
+            self._audit_digest = zlib.crc32(item, self._audit_digest)
+            self._audit_count += 1
+        if distributed:
+            comm = self.ctx.comm
+            needs_data = bool(acc & READ)   # pure WRITE flows ship nothing
+            if not remote and needs_data and src_rank != my:
+                # local consumer of a remotely-produced version
+                comm.expect(self, task, tile, read_version, src_rank,
+                            flow_index)
+            elif remote and needs_data and src_rank == my:
+                # remote consumer of a locally-held/produced version
+                comm.note_send(self, tile, read_version, task.rank,
+                               writer=prev_writer)
+        if remote:
+            return
         seen = set()
         for p in preds:
             if id(p) in seen or p is task:
@@ -1346,6 +1469,10 @@ class DTDTaskpool(Taskpool):
             task.completed = True
             succs = task.successors
             task.successors = []
+        # ship remote sends FIRST: the payloads must be snapshotted before
+        # any released successor can write the tile again
+        if self.ctx.comm is not None:
+            self.ctx.comm.dtd_task_completed(self, task)
         # retire the task's object graph (the mempool-return moment of
         # parsec_dtd_release_task): dropping the tile/copy references here
         # lets refcounting reclaim payload buffers immediately and keeps
@@ -1372,7 +1499,7 @@ class DTDTaskpool(Taskpool):
             self.data_flush(t)
 
     def wait(self, timeout: Optional[float] = None) -> bool:
-        """parsec_dtd_taskpool_wait: drain everything this process executes
+        """parsec_dtd_taskpool_wait: drain everything this rank executes
         (a captured pool: execute the recorded window as one program)."""
         if self._capture is not None:
             if not self._capture_deferred:
@@ -1383,6 +1510,11 @@ class DTDTaskpool(Taskpool):
             # fast path too must record again, not buffer)
             self._capture_deferred = False
             self._fast = None
+        if self._audit and self.ctx.comm is not None and self.ctx.nb_ranks > 1:
+            # replay audit BEFORE blocking on completion: a divergent insert
+            # sequence surfaces as a fatal here instead of a silent hang
+            self.ctx.comm.audit_check(self, self._audit_digest,
+                                      self._audit_count)
         self._flush_ready()
         self.ctx.start()
         target = self.local_inserted

@@ -290,11 +290,19 @@ class PTGTaskpool(Taskpool):
                    and g not in prologue_names]
         if missing:
             output.fatal(f"PTG taskpool {self.name}: missing globals {missing}")
+        #: (tc_name, pkey, flow_index, wire datatype) -> payload shipped
+        #: from a remote producer (consumed by prepare_input)
+        self._ptg_received: Dict[Tuple, Any] = {}
+        self._ptg_lock = threading.Lock()
         #: native execution lane state (set by _startup when eligible) and
         #: the decline reason ("ineligible" | "fallback" | None = engaged)
         self._ptexec_state: Optional[Dict[str, Any]] = None
         self._ptexec_refusal: Optional[str] = None
         self._build()
+        if ctx.comm is not None and ctx.nb_ranks > 1:
+            # distributed PTG: global termination + name-keyed routing
+            ctx.comm.fourcounter.monitor_taskpool(self)
+            ctx.comm.register_taskpool(self)
 
     # ------------------------------------------------------------------ build
     def _build(self) -> None:
@@ -654,9 +662,33 @@ class PTGTaskpool(Taskpool):
                     pf_idx = next(i for i, f in enumerate(peer_spec.flows)
                                   if f.name == ep["flow"])
                     plocals = dict(zip(peer_spec.params, pkey))
-                    out_dtt_name, _wire = self._producer_out_dtt(
+                    out_dtt_name, wire_dtt_name = self._producer_out_dtt(
                         ep["name"], ep["flow"], my_class, my_flows[fi],
                         plocals, canonical_key)
+                    if (self.ctx.nb_ranks > 1 and self.ctx.comm is not None
+                            and self.task_rank_of(peer, plocals)
+                            != self.ctx.my_rank):
+                        # remote producer: the payload was shipped by its
+                        # rank, ALREADY reshaped to the out-dep type before
+                        # the wire (pre-send reshape); never re-reshape
+                        # with the same type (remote_no_re_reshape.jdf). The
+                        # arrival is keyed by wire datatype so one flow
+                        # fanning out under several types delivers each
+                        # shape intact (remote_multiple_outs_same_pred_flow)
+                        with self._ptg_lock:
+                            got = self._ptg_received.get(
+                                (ep["name"], pkey, pf_idx, wire_dtt_name))
+                        if got is None:
+                            output.fatal(f"{task!r}: remote payload "
+                                         f"{ep['name']}{pkey} missing")
+                        payload, wire_dtt = got
+                        if in_dtt is not None and not in_dtt.identity \
+                                and in_dtt.name != wire_dtt:
+                            slot.data_in = self._typed_payload(payload,
+                                                               in_dtt)
+                        else:
+                            slot.data_in = DataCopy(None, 0, payload)
+                        continue
                     repo = self.repos[peer.task_class_id]
                     # repo entries are stored under the producer's task key,
                     # which may come from a user make_key_fn
@@ -795,13 +827,55 @@ class PTGTaskpool(Taskpool):
                 f"BODY of {tcs.name} does not compile: {e}", body.line_no) from e
         return ns["__ptg_body__"]
 
+    def _ptg_data_arrived(self, tc_name: str, pkey, flow_index: int,
+                          payload, wire_dtt: Optional[str] = None) -> None:
+        """A remote producer's output landed here: credit every local
+        successor it feeds, re-deriving them from the replicated program
+        (the reference's phantom-task iterate-successors,
+        remote_dep_mpi.c:861). ``wire_dtt`` names the datatype the payload
+        was reshaped to BEFORE the wire (pre-send reshape) so consumers
+        never re-reshape with the same type."""
+        pkey = tuple(pkey) if isinstance(pkey, (list, tuple)) else (pkey,)
+        with self._ptg_lock:
+            self._ptg_received[(tc_name, pkey, flow_index, wire_dtt)] = \
+                (payload, wire_dtt)
+        tc = self._classes[tc_name]
+        tcs = self.program.spec.task_class(tc_name)
+        plocals = dict(zip(tcs.params, pkey))
+        my = self.ctx.my_rank
+        ready = []
+        flow = tc.flows[flow_index]
+        for dep in flow.deps_out:
+            if getattr(dep, "wire_datatype", dep.datatype) != wire_dtt:
+                # each typed send credits exactly the successors on edges
+                # of its own wire datatype (one flow may fan out under
+                # several)
+                continue
+            if dep.cond is not None and not dep.cond(plocals):
+                continue
+            targets = dep.target_locals(plocals) if dep.target_locals \
+                else [plocals]
+            for tl in targets:
+                succ_tc = dep.task_class
+                if self.task_rank_of(succ_tc, tl) != my:
+                    continue
+                key = succ_tc.make_key(self, tl)
+                goal = (succ_tc.dependencies_goal_fn(tl)
+                        if succ_tc.dependencies_goal_fn else None)
+                if self.update_deps(succ_tc, key, 1, goal):
+                    ready.append(self.ctx.make_task(self, succ_tc, dict(tl)))
+        if ready:
+            self.ctx.schedule(ready)
+
     def _declare_complete(self) -> None:
         super()._declare_complete()
-        # retire the reshape-promise table: the graph is done, no consumer
-        # can request them again (the reference retires reshape promises
-        # with repo-entry refcounts)
+        # retire the reshape-promise table and parked remote payloads: the
+        # graph is done, no consumer can request them again (the reference
+        # retires reshape promises with repo-entry refcounts)
         with self._typed_lock:
             self._typed_cache.clear()
+        with self._ptg_lock:
+            self._ptg_received.clear()
 
 
     def _enumerate(self):
@@ -870,8 +944,10 @@ class PTGTaskpool(Taskpool):
         """Execute a proven-independent flowless class as one fused sweep;
         returns the instance count (reported executed, never scheduled)."""
         raw = tc._ptg_raw_body
+        my_rank = self.ctx.my_rank
+        distributed = self.ctx.nb_ranks > 1 and self.ctx.comm is not None
         n = 0
-        it = self._enum_class_fast(tc)
+        it = None if distributed else self._enum_class_fast(tc)
         if it is not None:
             for vals in it:
                 raw(*vals)
@@ -879,6 +955,8 @@ class PTGTaskpool(Taskpool):
         else:
             params = tc._ptg_spec.params
             for loc in self._enum_class(tc):
+                if distributed and tc._ptg_rank_of(loc) != my_rank:
+                    continue
                 raw(*[loc[p] for p in params])
                 n += 1
         stream.nb_executed += n
@@ -1317,6 +1395,16 @@ class PTGTaskpool(Taskpool):
                 or not mca.get("native_enabled", True)
                 or ctx.pins.paranoid or ctx.paranoid):
             return None
+        # distributed pools ride the lane when the native COMMUNICATION
+        # lane (comm/native.py) is up: cross-rank release edges surface as
+        # activation frames, payloads move eager/rendezvous, and arrived
+        # activations ingest GIL-free. A distributed context without that
+        # lane (the in-process fabric, --mca comm_native 0) keeps the
+        # interpreted remote_dep path, counted as ineligible-by-design
+        distributed = ctx.nb_ranks > 1 and ctx.comm is not None
+        lane_comm = getattr(ctx.comm, "native", None) if distributed else None
+        if (ctx.comm is not None or ctx.nb_ranks > 1) and lane_comm is None:
+            return None
         classes = [self._classes[tcs.name]
                    for tcs in self.program.spec.task_classes
                    if tcs.name not in agg]
@@ -1333,9 +1421,10 @@ class PTGTaskpool(Taskpool):
             # one, the CPU twin of the same function runs through the
             # ordinary lane dispatch — the chore the interpreted FSM's
             # device selection would pick on that context
-            if not mca.get("device_native", True):
-                # --mca device_native 0 keeps the interpreted device
-                # module: ineligible by design
+            if lane_comm is not None or not mca.get("device_native", True):
+                # the device and cross-rank lanes are not combined (as in
+                # the reference), and --mca device_native 0 keeps the
+                # interpreted device module: both ineligible by design
                 PTDEV_STATS["pools_ineligible"] += 1
                 return None
             use_dev = True
@@ -1375,6 +1464,7 @@ class PTGTaskpool(Taskpool):
               "cuda" if (use_dev and place_dev[ci]) else "cpu")
              for ci in range(len(classes))])
         place = (str(ctx.device), bool(ctx.devices.by_type(DEV_CUDA)),
+                 ctx.nb_ranks, lane_comm is not None,
                  use_dev, device_fingerprint(),
                  bool(mca.get("region_fusion", True)), fus_min, fus_max,
                  tuple(place_dev), tuple(sorted(fus_declined)))
@@ -1386,7 +1476,10 @@ class PTGTaskpool(Taskpool):
             if flat is None:
                 return None
             plan = None
-            if flat["n"] and flat["data"] is not None:
+            if flat["n"] and flat["data"] is not None \
+                    and lane_comm is None:
+                # single-rank data pools only: a fused region must never
+                # hide a cross-rank edge
                 plan = self._ptexec_fuse_plan(
                     flat, classes, place_dev, use_dev,
                     (fus_declined, fus_min, fus_max))
@@ -1394,6 +1487,14 @@ class PTGTaskpool(Taskpool):
             if key is not None:
                 cache[key] = ent
         flat = ent["flat"]
+        owners = None
+        if lane_comm is not None:
+            # per-task owner ranks (owner-computes affinity) — computed per
+            # INSTANTIATION, never cached: rank_of depends on the
+            # collection dict, which is outside the flatten cache key
+            owners = self._ptexec_owners(classes, flat)
+            if owners is None:
+                return None
         self._ptexec_refusal = None
         if flat["n"] == 0:
             return {"n": 0}
@@ -1416,13 +1517,15 @@ class PTGTaskpool(Taskpool):
             lane = {"graph": graph, "callback": callback,
                     "n": flat["n"], "finalized": False}
             self._ptexec_cost_bind(lane, graph, flat, names, bucket)
+            if owners is not None:
+                self._ptexec_bind_comm(lane, lane_comm, owners)
             return lane
         # data-flow pool with a FUSION PLAN: capturable subgraphs collapse
         # into fused super-tasks — one region program each, dispatched
         # through the normal callback (CPU regions) or the device lane
         # (device regions) — and the graph carries only regions + seams,
         # weighted back to original tasks
-        if ent.get("fusion") is not None:
+        if ent.get("fusion") is not None and owners is None:
             return self._ptexec_lane_fused(flat, ent["fusion"], classes,
                                            mod, key, devlane, place_dev,
                                            names, bucket)
@@ -1432,17 +1535,31 @@ class PTGTaskpool(Taskpool):
         # outputs into. Memory endpoints were flattened symbolically
         # (collection name + static index) so the cached CSR stays valid
         # across instantiations with different collection dicts.
+        comm_info = None
+        slot_uses = data["slot_uses"]
+        if owners is not None:
+            # distributed data pool: slot usage limits count LOCAL
+            # consumers only (a remote consumer's use is the one payload
+            # send, done at production time), remote input slots pull
+            # their value from the comm lane's payload store, and produced
+            # slots feeding remote consumers ship once per destination rank
+            comm_info = self._ptexec_comm_data(flat, owners)
+            slot_uses = comm_info["slot_uses"]
         graph = mod.Graph(flat["goals"], flat["off"], flat["succs"],
                           flat["prio"], data["in_off"], data["in_slots"],
-                          data["slot_uses"])
+                          slot_uses)
         slots: List[Any] = [None] * data["n_slots"]
         mem_datas = self._ptexec_mem_datas(data["mem_reads"])
         writebacks = self._ptexec_writebacks(data["writebacks"])
         lane = {"graph": graph, "slots": slots,
                 "n": flat["n"], "finalized": False}
         self._ptexec_cost_bind(lane, graph, flat, names, bucket)
+        if owners is not None:
+            self._ptexec_bind_comm(lane, lane_comm, owners)
         lane["callback"] = self._mk_ptexec_data_callback(
-            flat, classes, slots, mem_datas, writebacks)
+            flat, classes, slots, mem_datas, writebacks,
+            comm=None if comm_info is None else dict(
+                comm_info, lane=lane_comm, pool_id=lane["pool_id"]))
         if use_dev:
             # bind LAST: dev_bind surfaces zero-dep device seeds onto the
             # lane at once, and the manager may dispatch them before this
@@ -2192,6 +2309,89 @@ class PTGTaskpool(Taskpool):
 
         return dispatch, poll, (None if _obs is None else observe)
 
+    def _ptexec_owners(self, classes: List[TaskClass],
+                       flat) -> Optional[List[int]]:
+        """Per-task owner ranks in flattened-id order, or None when any
+        rank is out of range (the lane declines rather than misroute)."""
+        nb = self.ctx.nb_ranks
+        owners: List[int] = []
+        for ci, tc in enumerate(classes):
+            params = tc._ptg_spec.params
+            rank_of = tc._ptg_rank_of
+            for key in flat["params"][ci]:
+                try:
+                    r = int(rank_of(dict(zip(params, key))))
+                except Exception:  # noqa: BLE001 — decline, don't die
+                    return None
+                if not 0 <= r < nb:
+                    return None
+                owners.append(r)
+        return owners
+
+    def _ptexec_bind_comm(self, lane: Dict[str, Any], lane_comm,
+                          owners: List[int]) -> None:
+        """Bind a flattened graph to the native comm lane: allocate the
+        rank-consistent pool id, hand the owner table + send vtable to the
+        graph (remote successors then surface as activation frames from
+        the GIL-free release sweep), and route this pool's inbound frames
+        into the graph's ingest entry points. ``lane['n']`` becomes the
+        LOCAL task count — the pool accounting a rank owns."""
+        pool_id = lane_comm.pool_id_for(self.name)
+        graph = lane["graph"]
+        # the comm lane's EV_COMM_* ring joins the same trace the engines
+        # feed, armed BEFORE the pool registration so a frame that lands
+        # the instant routing opens records its ingest point
+        self.ctx._ntrace_attach("ptcomm", lane_comm.comm)
+        self.ctx._hist_attach("ptcomm", lane_comm.comm)
+        n_local = graph.comm_bind(lane_comm.comm.send_capsule(), pool_id,
+                                  self.ctx.my_rank, owners)
+        lane_comm.register_engine(pool_id, graph)
+        lane["pool_id"] = pool_id
+        lane["comm"] = lane_comm
+        lane["n"] = n_local
+
+    def _ptexec_comm_data(self, flat, owners: List[int]) -> Dict[str, Any]:
+        """Distributed data-pool tables, derived per instantiation:
+
+        * ``slot_uses``: LOCAL consumer count per slot (the retire protocol
+          runs rank-local; a remote consumer's use is satisfied by the
+          payload send at production time);
+        * ``remote_in``: input slots whose producer runs elsewhere — the
+          dispatch callback materializes them from the comm lane's payload
+          store (landed eager or pulled rendezvous);
+        * ``feeds``: produced slot -> destination ranks (payload ships once
+          per rank, before the release sweep's activations — FIFO frame
+          order makes eager payloads race-free)."""
+        data = flat["data"]
+        me = self.ctx.my_rank
+        in_off, in_slots = data["in_off"], data["in_slots"]
+        slot_base, cls_of = data["slot_base"], data["cls_of"]
+        ndflows = data["ndflows"]
+        n = flat["n"]
+        task_of_slot = [0] * data["n_slots"]
+        for tid in range(n):
+            base = slot_base[tid]
+            for dj in range(ndflows[cls_of[tid]]):
+                task_of_slot[base + dj] = tid
+        slot_uses = [0] * data["n_slots"]
+        remote_in = set()
+        feeds: Dict[int, List[int]] = {}
+        for tid in range(n):
+            local = owners[tid] == me
+            for k in range(in_off[tid], in_off[tid + 1]):
+                ref = in_slots[k]
+                producer_local = owners[task_of_slot[ref]] == me
+                if local:
+                    slot_uses[ref] += 1
+                    if not producer_local:
+                        remote_in.add(ref)
+                elif producer_local:
+                    dsts = feeds.setdefault(ref, [])
+                    if owners[tid] not in dsts:
+                        dsts.append(owners[tid])
+        return {"slot_uses": slot_uses, "remote_in": frozenset(remote_in),
+                "feeds": feeds}
+
     def _mk_ptexec_callback(self, bases: List[int], bodies,
                             params_by_class):
         """Batched body dispatch: the engine hands over a list of ready
@@ -2208,8 +2408,8 @@ class PTGTaskpool(Taskpool):
 
     def _mk_ptexec_data_callback(self, flat, classes: List[TaskClass],
                                  slots: List[Any], mem_datas,
-                                 writebacks: Dict[int, List], fusion=None,
-                                 class_fns=None):
+                                 writebacks: Dict[int, List], comm=None,
+                                 fusion=None, class_fns=None):
         """Batched dispatch for data-flow pools — the lane's replacement
         for generic_prepare_input + the body hook + complete_execution +
         the repo side of generic_release_deps, amortized over one Python
@@ -2233,6 +2433,15 @@ class PTGTaskpool(Taskpool):
         held in its slot and handed to the next body as it is, never moved
         through numpy (the CPU flavour of a device class on a card context
         runs on host copies, :func:`_on_host`).
+
+        With ``comm`` set (a distributed pool on the native comm lane), two
+        extra moves happen inside the same batched dispatch: input slots
+        produced on another rank materialize from the comm lane's payload
+        store (landed eager, or rendezvous-pulled — readiness was gated in
+        C until the pull completed), and produced slots feeding remote
+        consumers ship BEFORE the engine's release sweep sends their
+        activations, so the per-link FIFO makes eager data race-free by
+        construction.
 
         With ``fusion`` set, region nodes dispatch through their runners
         and every other compact id maps back to its original task id.
@@ -2259,6 +2468,30 @@ class PTGTaskpool(Taskpool):
         # EMPTY written tuple and the flow forwards the input unchanged
         single = [nd == 1 and w == (0,)
                   for nd, w in zip(ndflows, written_by_class)]
+        if comm is not None:
+            lane, pool = comm["lane"], comm["pool_id"]
+            remote_in, feeds = comm["remote_in"], comm["feeds"]
+        else:
+            lane = pool = None
+            remote_in, feeds = frozenset(), {}
+        has_feeds = bool(feeds)
+        #: remote slots already materialized (so a producer's legitimate
+        #: None payload is not re-fetched); retire clears entries
+        fetched: set = set()
+        _fetch_mu = threading.Lock()
+
+        def _fetch_remote(r):
+            # two workers can dispatch two consumers of the same remote
+            # slot concurrently; take_payload CONSUMES the C-side entry, so
+            # the check-then-fetch must be atomic (rare path: once per
+            # remote slot — the lock never touches local slots)
+            with _fetch_mu:
+                if r in fetched:
+                    return slots[r]
+                v = lane.take_payload(pool, r)
+                slots[r] = v
+                fetched.add(r)
+                return v
 
         def _null_guard(k, i):
             raise RuntimeError(
@@ -2271,6 +2504,9 @@ class PTGTaskpool(Taskpool):
             _base, _cls, _wb = slot_base, cls_of, writebacks
             for j in retired:
                 _slots[j] = None          # the entry-retire moment
+            if fetched:
+                for j in retired:
+                    fetched.discard(j)
             for i in ids:
                 if _forig is not None:
                     rr = _fregions.get(i)
@@ -2290,6 +2526,12 @@ class PTGTaskpool(Taskpool):
                     r = _refs[base]
                     if r >= 0:
                         v = _slots[r]
+                        if v is None and r in remote_in \
+                                and r not in fetched:
+                            # produced on another rank: materialize from
+                            # the comm lane's payload store (consumed once;
+                            # later local readers hit _slots[r])
+                            v = _fetch_remote(r)
                     elif r == -1:
                         v = None
                     else:
@@ -2300,6 +2542,14 @@ class PTGTaskpool(Taskpool):
                     if v is None and _uses[base] > 0:
                         _null_guard(k, i)    # parsec.c:1879 source guard
                     _slots[base] = v
+                    if has_feeds:
+                        dsts = feeds.get(base)
+                        if dsts:
+                            # ship BEFORE the release sweep runs: the
+                            # consumer's activation then trails its data
+                            # on the FIFO link
+                            for dst in dsts:
+                                lane.send_payload(dst, pool, base, v)
                     wbs = _wb.get(i)
                     if wbs is None:
                         continue
@@ -2309,7 +2559,11 @@ class PTGTaskpool(Taskpool):
                     for dj in range(nd):
                         r = _refs[base + dj]
                         if r >= 0:
-                            vals.append(_slots[r])
+                            v = _slots[r]
+                            if v is None and r in remote_in \
+                                    and r not in fetched:
+                                v = _fetch_remote(r)
+                            vals.append(v)
                         elif r == -1:
                             vals.append(None)
                         else:
@@ -2325,6 +2579,13 @@ class PTGTaskpool(Taskpool):
                         if v is None and _uses[base + dj] > 0:
                             _null_guard(k, i)
                         _slots[base + dj] = v
+                    if has_feeds:
+                        for dj in range(nd):
+                            dsts = feeds.get(base + dj)
+                            if dsts:
+                                for dst in dsts:
+                                    lane.send_payload(dst, pool, base + dj,
+                                                      vals[dj])
                     wbs = _wb.get(i)
                     if wbs is None:
                         continue
@@ -2342,6 +2603,10 @@ class PTGTaskpool(Taskpool):
         output.debug_verbose(2, "ptg",
                              f"{self.name}: native lane retired "
                              f"{lane['n']} tasks")
+        if lane.get("pool_id") is not None:
+            # stop routing this pool's frames; parked payloads (already
+            # consumed or unreachable) drop with the registration
+            lane["comm"].unregister_engine(lane["pool_id"])
         if lane.get("dev_pool") is not None:
             # every device task retired (the graph is done), so the lane
             # owes this pool nothing; drop the routing + the engine pin
@@ -2359,6 +2624,8 @@ class PTGTaskpool(Taskpool):
     def _startup(self, stream, tp) -> List[Task]:
         total = 0
         ready: List[Task] = []
+        my_rank = self.ctx.my_rank
+        distributed = self.ctx.nb_ranks > 1 and self.ctx.comm is not None
         agg = {tcs.name for tcs in self.program.spec.task_classes
                if self._agglomerable(self._classes[tcs.name])}
         self._agglomerated = 0
@@ -2371,6 +2638,10 @@ class PTGTaskpool(Taskpool):
         if lane is not None:
             PTEXEC_STATS["pools_engaged"] += 1
             PTEXEC_STATS["tasks_engaged"] += lane["n"]
+            if lane.get("pool_id") is not None:
+                from ...comm.native import PTCOMM_STATS
+                PTCOMM_STATS["pools_engaged"] += 1
+                PTCOMM_STATS["tasks_engaged"] += lane["n"]
             self._ptexec_state = lane
             self.set_nb_tasks(lane["n"])
             if lane["n"]:
@@ -2382,11 +2653,17 @@ class PTGTaskpool(Taskpool):
         if nonagg and mca.get("ptg_native_exec", True):
             PTEXEC_STATS["pools_fallback" if self._ptexec_refusal ==
                          "fallback" else "pools_ineligible"] += 1
+            if distributed:
+                from ...comm.native import PTCOMM_STATS
+                PTCOMM_STATS["pools_fallback" if self._ptexec_refusal ==
+                             "fallback" else "pools_ineligible"] += 1
         for tcs in self.program.spec.task_classes:
             if tcs.name in agg:
                 continue        # executed above, never scheduled/counted
             tc = self._classes[tcs.name]
             for loc in self._enum_class(tc):
+                if distributed and tc._ptg_rank_of(loc) != my_rank:
+                    continue
                 total += 1
                 if getattr(tc, "_ptg_startup_fn", None) is not None:
                     continue    # custom startup seeds this class below
@@ -2401,6 +2678,8 @@ class PTGTaskpool(Taskpool):
                 continue
             for loc in fn(self, tc):
                 loc = dict(loc)
+                if distributed and tc._ptg_rank_of(loc) != my_rank:
+                    continue
                 ready.append(self.ctx.make_task(self, tc, loc))
         self.set_nb_tasks(total)
         output.debug_verbose(2, "ptg",

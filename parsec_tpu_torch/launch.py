@@ -1,0 +1,177 @@
+"""``python -m parsec_tpu_torch.launch -n N script.py [args...]`` — the mpiexec.
+
+Spawns N copies of ``script.py`` as real OS processes, each with
+``PARSEC_TPU_TORCH_RANK`` / ``PARSEC_TPU_TORCH_NPROCS`` /
+``PARSEC_TPU_TORCH_RDV`` set; the script calls
+:func:`parsec_tpu_torch.comm.tcp.init_from_env` to join the TCP mesh (its
+`MPI_Init` moment). Stands where ``mpiexec -n N`` stands in the reference's
+workflow (tests/CMakeLists.txt:1032-1042 oversubscribed-host test mode).
+
+Device binding: ``--virtual-devices N`` binds rank i to device i mod N
+(``PARSEC_TPU_TORCH_LOCAL_DEVICE``), which lands on CUDA device i mod N mod
+the card count — with one card every rank shares ``cuda:0``. ``--cpu`` runs
+every rank on the CPU; with ``--virtual-devices`` too, each rank runs the
+CUDA device module over the CPU (``device_cuda_over_cpu``), a rehearsal of
+the card-per-process shape. Without ``--cpu`` the job needs a card: the
+launcher asks :func:`parsec_tpu_torch.device.probe.decide_backend` (a
+subprocess probe; the launcher itself never initializes CUDA) and raises
+with the probe's reason when there is none.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
+
+from .comm.tcp import ENV_NPROCS, ENV_RANK, ENV_RDV, _free_port
+from .comm.xhost import ENV_LOCAL_DEVICE
+from .device import probe
+from .device.probe import ENV_FORCE_CPU
+
+_MULTIPROC_LOCK_PATH = os.path.join(tempfile.gettempdir(),
+                                    "parsec_tpu_torch_multiproc.lock")
+
+
+@contextlib.contextmanager
+def multiproc_lock(timeout: float = 300.0):
+    """Serialize multiprocess jobs across sessions on one host (a lock file).
+
+    Spawned-rank jobs cannot tolerate a busy host: every rank pays a full
+    interpreter and torch import before it can rendezvous, so two
+    concurrent multiprocess jobs push each other past their deadlines and
+    flap. Taking this advisory flock around each job makes the host run
+    them one at a time; a holder that outlives ``timeout`` degrades to
+    running unserialized (never deadlocks on a dead peer's stale lock —
+    flock dies with its process anyway).
+
+    Ranks themselves (``PARSEC_TPU_TORCH_RANK`` set) skip the lock: the
+    parent job already holds it, and a child blocking on it would
+    self-deadlock.
+    """
+    if os.environ.get(ENV_RANK) is not None:
+        yield
+        return
+    try:
+        f = open(_MULTIPROC_LOCK_PATH, "a+b")
+    except OSError:
+        yield                     # unwritable tmp: run unserialized
+        return
+    try:
+        import fcntl
+        deadline = time.monotonic() + timeout
+        while True:
+            try:
+                fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                break
+            except OSError:
+                if time.monotonic() > deadline:
+                    break         # degrade rather than queue forever
+                time.sleep(0.2)
+        yield
+    finally:
+        try:
+            import fcntl
+            fcntl.flock(f, fcntl.LOCK_UN)
+        except OSError:
+            pass
+        f.close()
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(prog="parsec_tpu_torch.launch",
+                                 description="run a script on N TCP-mesh ranks")
+    ap.add_argument("-n", "--np", type=int, default=2, dest="nprocs")
+    ap.add_argument("--timeout", type=float, default=300.0)
+    ap.add_argument("--cpu", action="store_true",
+                    help="run every rank on the CPU "
+                         f"({ENV_FORCE_CPU}=1)")
+    ap.add_argument("--virtual-devices", type=int, default=0, metavar="N",
+                    help="bind rank i to device i%%N "
+                         f"({ENV_LOCAL_DEVICE}; CUDA device i%%N mod the "
+                         "card count, or with --cpu the CUDA device "
+                         "module over the CPU)")
+    ap.add_argument("--mca", nargs=2, action="append", default=[],
+                    metavar=("PARAM", "VALUE"),
+                    help="set an MCA parameter in every rank (exported as "
+                         "PARSEC_MCA_<param>; the mpirun --mca role)")
+    ap.add_argument("script")
+    ap.add_argument("args", nargs=argparse.REMAINDER)
+    opts = ap.parse_args(argv)
+    with multiproc_lock():
+        return _run_job(opts)
+
+
+def _require_card() -> None:
+    """Raise unless this host has a card (the job runs on it)."""
+    platform, _count = probe.decide_backend()
+    if platform != "cuda":
+        raise RuntimeError(f"no CUDA card for the job: {probe.reason()} "
+                           "(pass --cpu to run the ranks on the CPU)")
+
+
+def _run_job(opts) -> int:
+    rdv = f"127.0.0.1:{_free_port()}"
+    if not opts.cpu:
+        _require_card()
+    procs = []
+    for rank in range(opts.nprocs):
+        env = dict(os.environ)
+        env[ENV_RANK] = str(rank)
+        env[ENV_NPROCS] = str(opts.nprocs)
+        env[ENV_RDV] = rdv
+        for pname, pval in opts.mca:
+            env["PARSEC_MCA_" + pname] = pval
+        if opts.virtual_devices:
+            env[ENV_LOCAL_DEVICE] = str(rank % opts.virtual_devices)
+        if opts.cpu:
+            env[ENV_FORCE_CPU] = "1"
+            if opts.virtual_devices:
+                # rehearse the card-per-process shape on the CPU
+                env["PARSEC_MCA_device_cuda_over_cpu"] = "1"
+        # each rank leads its own process group so cleanup can reach
+        # grandchildren even if the launcher itself is killed mid-wait
+        procs.append(subprocess.Popen(
+            [sys.executable, opts.script, *opts.args], env=env,
+            start_new_session=True))
+    rc = 0
+    deadline = time.monotonic() + opts.timeout   # one job-wide deadline
+    try:
+        for p in procs:
+            try:
+                p.wait(timeout=max(0.1, deadline - time.monotonic()))
+                rc = rc or p.returncode
+            except subprocess.TimeoutExpired:
+                rc = 124
+                break
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                _kill_group(p, signal.SIGTERM)
+        t0 = time.monotonic()
+        for p in procs:
+            if p.poll() is None:
+                try:
+                    p.wait(timeout=max(0.1, 5.0 - (time.monotonic() - t0)))
+                except subprocess.TimeoutExpired:
+                    _kill_group(p, signal.SIGKILL)
+    return rc
+
+
+def _kill_group(p: subprocess.Popen, sig) -> None:
+    try:
+        os.killpg(p.pid, sig)
+    except (ProcessLookupError, PermissionError, OSError):
+        try:
+            p.send_signal(sig)
+        except Exception:  # noqa: BLE001 - already gone
+            pass
+
+
+if __name__ == "__main__":
+    sys.exit(main())

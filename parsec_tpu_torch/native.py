@@ -1,7 +1,7 @@
 """The native host lanes: the DTD engine, the PTG execution lane, the
-scheduler plane and the device lane as CPython extensions built from the
-package's own C++ (``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``,
-``csrc/ptsched.cpp``, ``csrc/ptdev.cpp``), and the
+scheduler plane, the device lane and the comm lane as CPython extensions
+built from the package's own C++ (``csrc/ptdtd.cpp``, ``csrc/ptexec.cpp``,
+``csrc/ptsched.cpp``, ``csrc/ptdev.cpp``, ``csrc/ptcomm.cpp``), and the
 native core (``csrc/ptcore.cpp``: the dependency table and the zone
 allocator) as a plain C library
 bound with ctypes.
@@ -177,6 +177,14 @@ def load_ptexec():
     successor table, with the GIL dropped across the walk; None when
     ``--mca native_enabled 0``."""
     return _load("ptexec")
+
+
+def load_ptcomm():
+    """The native communication lane (``csrc/ptcomm.cpp``): one funneled
+    progress thread over the mesh's TCP fds and same-host shared-memory
+    rings, binary activation/data/rendezvous frames, and GIL-free ingest
+    into the PTG lane's graphs; None when ``--mca native_enabled 0``."""
+    return _load("ptcomm")
 
 
 def load_ptdev():

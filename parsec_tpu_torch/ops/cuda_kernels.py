@@ -546,14 +546,15 @@ stencil1d.launches = 0
 # flash attention
 # ---------------------------------------------------------------------------
 
-#: the widest head dim the kernel takes; it is built at 16, 32, 64, 128 and
-#: 256, and a launch at head dim d runs the smallest of them >= d, with
-#: columns d .. D - 1 zero-filled as they load
+#: the widest head dim of a single-pass launch; it is built at 16, 32, 64,
+#: 128 and 256, and a launch at head dim d runs the smallest of them >= d,
+#: with columns d .. D - 1 zero-filled as they load. A wider head dim takes
+#: the ``chunked`` route
 FLASH_MAX_HEAD_DIM = 256
 #: dtype codes of the C entry point
 _FLASH_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: route codes of the C entry point
-FLASH_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2}
+FLASH_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2, "chunked": 3}
 
 
 def flash_route(dtype, d: int, aligned: bool) -> str:
@@ -562,7 +563,11 @@ def flash_route(dtype, d: int, aligned: bool) -> str:
     so the SIMT cores); ``wgmma`` (TMA and ``wgmma``, built at 64 and 128)
     for bf16 at 32 < d <= 128 with d % 8 == 0 on 16-byte aligned bases, as
     TMA needs 16-byte aligned rows; ``mma`` (``mma.sync``) for the other
-    bf16 launches, d <= 32 and d > 128 included."""
+    bf16 launches up to d = 256, d <= 32 included; ``chunked`` for either
+    dtype at d > 256 (a grid axis over the output's 256-column chunks, S
+    recomputed over all d in 256-column steps in each)."""
+    if d > FLASH_MAX_HEAD_DIM:
+        return "chunked"
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if 32 < d <= 128 and d % 8 == 0 and aligned else "mma"
@@ -656,8 +661,7 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     :func:`flash_route`'s.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (contiguous, head dim up to :data:`FLASH_MAX_HEAD_DIM`) or
-    raise."""
+    kernel (contiguous operands, any head dim) or raise."""
     del block_q, block_k
     _check_flash(q, k, v)
     d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
@@ -668,9 +672,6 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
                                      k_offset)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention has no kernel for {q.device}")
-    if d > FLASH_MAX_HEAD_DIM:
-        raise ValueError(f"flash_attention: head dim {d} is over the "
-                         f"kernel's limit of {FLASH_MAX_HEAD_DIM}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous operands")
     lib = _library("flash_attention")

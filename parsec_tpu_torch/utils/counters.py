@@ -116,11 +116,12 @@ def install_native_counters() -> None:
     """Register the native lanes' engagement stats, their C-side counters,
     the lane-side datarepo retire counter, and the in-lane trace
     drop/landed counters as samplers under canonical names (``ptexec.*``,
-    ``ptdtd.*``, ``ptdev.*``, ``sched.*``, ``capture.*``, ``costmodel.*``,
+    ``ptdtd.*``, ``ptcomm.*``, ``ptdev.*``, ``sched.*``, ``capture.*``, ``costmodel.*``,
     ``watchdog.*``, ``flight.*``, ``trace.*``) so
     :mod:`parsec_tpu_torch.tools.live_view`, ``/metrics`` and the
     SDE-style snapshot export see the lanes. Idempotent."""
-    from ..core import costmodel as _cm           # lazy: avoid import cycles
+    from ..comm import native as _cnative         # lazy: avoid import cycles
+    from ..core import costmodel as _cm
     from ..core import sched_plane as _sp
     from ..core import watchdog as _wd
     from ..device import native as _dnative
@@ -136,6 +137,7 @@ def install_native_counters() -> None:
 
     for stats, prefix in ((_ptg.PTEXEC_STATS, "ptexec"),
                           (_dtd.PTDTD_STATS, "ptdtd"),
+                          (_cnative.PTCOMM_STATS, "ptcomm"),
                           (_dnative.PTDEV_STATS, "ptdev"),
                           (_sp.SCHED_STATS, "sched"),
                           # the program cache: capture.cache_{hits,misses,
@@ -149,6 +151,10 @@ def install_native_counters() -> None:
                           (_fl.FLIGHT_STATS, "flight")):
         for key in stats:
             counters.register(f"{prefix}.{key}", sampler=_sampler(stats, key))
+    # the comm lane's C-side wire counters (summed across live lanes)
+    for key in _cnative.COMM_COUNTER_KEYS:
+        counters.register(f"ptcomm.{key}",
+                          sampler=_cnative.comm_counter_sampler(key))
     # the device lane's C-side counters: dispatch/retire/overlap splits
     # from the Lane, residency/eviction/stage-in from the CohTable
     for key in _dnative.DEV_COUNTER_KEYS:

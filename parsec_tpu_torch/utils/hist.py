@@ -51,6 +51,8 @@ HIST_NAMES: Dict[str, Tuple[str, ...]] = {
     "ptdtd": ("exec_ns", "ready_wait_ns", "pt_ready_to_done_ns"),
     "sched": ("queue_ns",),     # plane push->pop wait
     "ptdev": ("retire_ns",),    # device lane: dispatch -> retire, per task
+    # comm lane: rendezvous round trip, send-queue lag of an activation
+    "ptcomm": ("rdv_rtt_ns", "act_queue_ns"),
 }
 
 #: histograms whose samples grow with the backlog of ready tasks (a DAG's

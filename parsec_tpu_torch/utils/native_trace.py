@@ -69,6 +69,15 @@ NATIVE_KEYWORDS: Dict[str, Dict[int, str]] = {
     # occupancy/overlap in the same Perfetto view as the engines
     # (`ptdev-w*` streams; one ring, the manager is a single thread)
     "ptdev": {1: "ptdev::dispatch", 2: "ptdev::retire"},
+    # the comm lane's EV_COMM_* points (csrc/ptcomm.cpp): one per-rank
+    # progress-thread stream, so compute/comm overlap is measurable in the
+    # same Perfetto view as the execution lanes; frame_tx/frame_rx carry
+    # the flow identity (peer << 40) | seq of one activation frame
+    "ptcomm": {1: "ptcomm::act_tx", 2: "ptcomm::act_rx",
+               3: "ptcomm::data_tx", 4: "ptcomm::data_rx",
+               5: "ptcomm::rdv_get", 6: "ptcomm::rdv_rep",
+               7: "ptcomm::frame_tx", 8: "ptcomm::frame_rx",
+               9: "ptfab::cred_tx", 10: "ptfab::cred_rx"},
 }
 
 #: (kind, native key) of events whose tasks fire the per-task PINS events

@@ -422,13 +422,24 @@ FLASH_CASES = [
     # d = 128: causal, and ragged at both ends
     ((2, 256, 128), (2, 256, 128), True, 0, 0, 0),
     ((2, 200, 128), (2, 333, 128), False, 0, 0, 0),
+    # past one 256-column step: the chunked route, causal and not, with
+    # offsets, and ragged (1000 = 3 full chunks and one of 232)
+    ((2, 130, 257), (2, 150, 257), True, 20, 0, 0),
+    ((1, 100, 320), (1, 190, 320), False, 0, 0, 0),
+    ((1, 128, 320), (1, 128, 320), True, 0, 64, 64),
+    ((2, 200, 512), (2, 260, 512), True, 60, 0, 0),
+    ((1, 64, 512), (1, 100, 512), False, 0, 0, 0),
+    ((1, 70, 1000), (1, 90, 1000), True, 20, 0, 0),
+    ((1, 65, 1000), (1, 65, 1000), False, 0, 0, 0),
 ]
 
 
 def _flash_route_of(dtype, d):
-    """The route each case must take: float32 on the SIMT cores, bf16 on
-    wgmma at head dims 33-128 that are multiples of 8 (every case here is
-    16-byte aligned), else on mma.sync."""
+    """The route each case must take: past 256 the chunked route, float32
+    on the SIMT cores, bf16 on wgmma at head dims 33-128 that are multiples
+    of 8 (every case here is 16-byte aligned), else on mma.sync."""
+    if d > 256:
+        return "chunked"
     if dtype == torch.float32:
         return "simt"
     return "wgmma" if 32 < d <= 128 and d % 8 == 0 else "mma"
@@ -515,13 +526,21 @@ def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
     assert launch(bf[1:], 64, 1, R["wgmma"]) != 0
     assert launch(f32, 64, 0, R["mma"]) != 0
     assert launch(bf, 64, 1, R["simt"]) != 0
+    # the chunked route takes head dims past 256 only, and they no other
+    assert launch(f32, 64, 0, R["chunked"]) != 0
+    wide = torch.zeros(64 * 320, device="cuda")
+    assert launch(wide, 320, 0, R["simt"]) != 0
+    assert launch(wide.to(torch.bfloat16), 320, 1, R["mma"]) != 0
 
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
                                      (torch.bfloat16, 80),
                                      (torch.bfloat16, 200),
                                      (torch.float32, 80),
-                                     (torch.float32, 256)])
+                                     (torch.float32, 256),
+                                     *((dt, d) for d in (257, 320, 512, 1000)
+                                       for dt in (torch.float32,
+                                                  torch.bfloat16))])
 def test_flash_pads_columns_in_its_loads_not_in_memory(dtype, d):
     """A head dim between built sizes: q, k and v end where a buffer of NaN
     begins, so a load that read past column d - 1 of the last row, or a
@@ -628,9 +647,6 @@ def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
 def test_flash_kernel_raises_instead_of_falling_back():
     _need_card()
     q = torch.zeros(2, 64, 64, device="cuda")
-    wide = torch.zeros(2, 64, 257, device="cuda")
-    with pytest.raises(ValueError, match="head dim 257 .*limit of 256"):
-        K.flash_attention(wide, wide, wide)
     with pytest.raises(ValueError, match="contiguous"):
         K.flash_attention(q.transpose(1, 2), q, q)
     with pytest.raises(TypeError):
@@ -1030,6 +1046,22 @@ def test_flash_attention_replays_in_a_cuda_graph():
             return tuple((t.float() * (1 + 0.25 * i)).to(dtype)
                          for t in _flash_inputs((2, 512, 64), (2, 512, 64),
                                                 dtype))
+        _replays_hold(lambda q, k, v: K.flash_attention(q, k, v, causal=True),
+                      inputs, lambda out, x: _flash_holds(out, *x, kw, 0))
+
+
+def test_flash_attention_chunked_replays_in_a_cuda_graph():
+    """The chunked route at d = 512 in a CUDA graph, both dtypes, held as
+    :func:`test_flash_attention_replays_in_a_cuda_graph` holds its route."""
+    _need_card()
+    kw = dict(causal=True, q_offset=0, k_offset=0)
+    for dtype in (torch.bfloat16, torch.float32):
+        def inputs(i):
+            return tuple((t.float() * (1 + 0.25 * i)).to(dtype)
+                         for t in _flash_inputs((2, 256, 512), (2, 256, 512),
+                                                dtype))
+        with _counted_on(K.flash_attention, "chunked"):
+            K.flash_attention(*inputs(0), causal=True)
         _replays_hold(lambda q, k, v: K.flash_attention(q, k, v, causal=True),
                       inputs, lambda out, x: _flash_holds(out, *x, kw, 0))
 

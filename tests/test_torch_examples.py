@@ -1,7 +1,11 @@
-"""The port's single-rank examples (``examples_torch/``: ex00 start/stop,
-ex01 hello world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF),
-ex11 (graph capture) and ex16 (redistribution)) run green on a CPU context, each in its own
-interpreter, and none of them imports JAX or the reference package."""
+"""The port's examples (``examples_torch/``: ex00 start/stop, ex01 hello
+world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF), ex11 (graph
+capture), ex16 (redistribution), and the distributed ex03 (a chain across
+ranks), ex08 (PTG GEMM on 4 ranks), ex09 (the TCP launcher) and ex14
+(device payloads across processes)) run green on the CPU, each in its own
+interpreter (ex09 and ex14 as 2 processes through ``python -m
+parsec_tpu_torch.launch --cpu``), and none of them imports JAX or the
+reference package."""
 
 import ast
 import os
@@ -12,8 +16,10 @@ import sys
 import pytest
 
 EX_DIR = pathlib.Path(__file__).resolve().parent.parent / "examples_torch"
-EXAMPLES = ["ex00", "ex01", "ex02", "ex04", "ex05", "ex06", "ex07",
-            "ex11", "ex16"]
+EXAMPLES = ["ex00", "ex01", "ex02", "ex03", "ex04", "ex05", "ex06", "ex07",
+            "ex08", "ex11", "ex16"]
+#: the examples a user starts through the launcher, with its options
+LAUNCHED = {"ex09": [], "ex14": ["--mca", "comm_device_mem", "1"]}
 
 
 def _script(ex: str) -> pathlib.Path:
@@ -30,7 +36,42 @@ def test_port_example_runs_on_the_cpu(ex):
     assert "expect" in out.stdout or "max err" in out.stdout
 
 
-@pytest.mark.parametrize("ex", EXAMPLES)
+@pytest.mark.parametrize("ex", sorted(LAUNCHED))
+def test_port_example_runs_through_the_launcher_on_the_cpu(ex):
+    """Two OS ranks on the TCP mesh, under the reference's job lock too
+    (the two packages' multiprocess jobs run one at a time)."""
+    import time
+
+    from parsec_tpu.launch import multiproc_lock
+    env = dict(os.environ, EXAMPLES_CPU="1")
+    with multiproc_lock():
+        out = subprocess.run(
+            [sys.executable, "-m", "parsec_tpu_torch.launch", "-n", "2",
+             "--cpu", *LAUNCHED[ex], str(_script(ex))],
+            cwd=EX_DIR.parent, env=env, capture_output=True, text=True,
+            timeout=200)
+    time.sleep(0.5)   # the lock is not fair: let a waiting job in
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert out.stdout.count("rank") >= 2
+
+
+def test_launcher_without_a_card_raises_unless_asked_for_the_cpu():
+    """Without ``--cpu`` a job needs a card: where the probe finds none
+    (here: the probe is told so), the launcher raises with the probe's
+    reason and starts no rank, rather than moving the job to the CPU."""
+    env = dict(os.environ, PARSEC_TPU_TORCH_FORCE_CPU="1")
+    out = subprocess.run(
+        [sys.executable, "-m", "parsec_tpu_torch.launch", "-n", "2",
+         str(_script("ex09"))],
+        cwd=EX_DIR.parent, env=env, capture_output=True, text=True,
+        timeout=100)
+    assert out.returncode != 0
+    assert "no CUDA card for the job: PARSEC_TPU_TORCH_FORCE_CPU=1" \
+        in out.stderr, out.stderr[-2000:]
+    assert "rank" not in out.stdout
+
+
+@pytest.mark.parametrize("ex", EXAMPLES + sorted(LAUNCHED))
 def test_port_example_imports_neither_jax_nor_the_reference(ex):
     roots = set()
     for node in ast.walk(ast.parse(_script(ex).read_text())):

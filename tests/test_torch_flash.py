@@ -83,6 +83,12 @@ CASES = {
                                   "float32", 0),
     "head_dim_1": lambda: (_qkv(46, (1, 40, 1)), dict(causal=True),
                            "float32", 0),
+    # past one 256-column step: the card's chunked route
+    "head_dim_320_causal": lambda: (_qkv(47, (1, 48, 320), (1, 80, 320)),
+                                    dict(causal=True, q_offset=32),
+                                    "float32", 0),
+    "head_dim_320_bf16": lambda: (_qkv(48, (1, 40, 320)), dict(causal=True),
+                                  "bfloat16", 0),
 }
 
 

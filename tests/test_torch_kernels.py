@@ -248,6 +248,9 @@ FLASH_ROUTE_CASES = [
     *(((torch.bfloat16, d, a), "mma") for d in (1, 8, 16, 32, 33, 44, 81,
                                                  136, 200, 256)
       for a in (True, False)),
+    # past one 256-column step, either dtype, ragged or not
+    *(((dt, d, a), "chunked") for dt in (torch.float32, torch.bfloat16)
+      for d in (257, 320, 512, 1000, 1001) for a in (True, False)),
 ]
 
 
