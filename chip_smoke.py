@@ -118,7 +118,24 @@ port's main paths through the entry points a user calls:
   host bounces counted); the reference bench's 2-rank PTG legs through the
   native comm lane (``csrc/ptcomm.cpp``) and through ``remote_dep.py`` in
   turns; and the 2-rank PTG GEMM with a ``[type=CUDA]`` body (f32, N =
-  8192) against ``torch.matmul``.
+  8192) against ``torch.matmul``;
+* training on the card (phase 13, run right after the LM serving phase,
+  before the large traces of phases 9-12): (a) gradients of the GPT-2
+  small LM at depth 2 (B = 4, S = 1024) through the flash kernel, which
+  autograd differentiates through the dense expression's backward, held
+  to the dense core's in f32 (simt route) and with bf16 compute (wgmma
+  route), every block's ``wqkv`` gradient nonzero; (b) all 12 layers (B =
+  8, bf16 compute, f32 masters, remat, clip + AdamW, the flash core) for
+  20 steps fed by ``PrefetchLoader(token_batches(...))`` from a seeded
+  low-entropy Markov corpus (the loss must fall by 1 nat; 24 flash
+  launches a step), then the step's time with the flash, dense and SDPA
+  cores in turns, one profiled step and peak memory; (d) a checkpoint
+  saved after step 10 and restored, one step from each copy bit for bit
+  equal; (e) ``xla_trace`` around 2 steps, the trace holding the flash
+  kernel's device events and the steps' ranges; (c) the MoE-LM (4 layers,
+  8 experts, k = 2) for 5 SGD steps on the dense routed path, and
+  ``moe_forward`` on a one-device expert group at capacity factor 1.0
+  against ``dense_reference``, its drops the host's numbering's.
 
 Every phase that fails ends the run with a nonzero exit code. At its
 end, and when it fails, the script stops every process it started and
@@ -132,7 +149,8 @@ the replays, with each engine's count, PINS on and off, beside it under
 ``launches_by_lane``; flash's entry also its profiled device time, its
 launches by route, the mma route's times in turns with it, a float32
 sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
-include the head-dim-80 LM's; the chain's ``distributed`` lane counts the
+include the head-dim-80 LM's and the training steps' (its ``training``
+sub-entry); the chain's ``distributed`` lane counts the
 2-rank GEMM's launches), and last ``{"ok": true, "device":
 {...}}``.
 
@@ -295,7 +313,10 @@ def device_profile_counts(torch, run) -> tuple:
             if ev.device_type != DeviceType.CUDA:
                 window = (t1 - t0) / 1e3
             continue
-        if ev.device_type != DeviceType.CUDA:
+        # a record_function range on the device's rows (torch.optim's
+        # step is one) spans kernels and the gaps between them: not work
+        if ev.device_type != DeviceType.CUDA or \
+                getattr(ev, "is_user_annotation", False):
             continue
         spans.append((t0, t1))
         by_name[ev.name] = by_name.get(ev.name, 0.0) + (t1 - t0) / 1e3
@@ -4410,6 +4431,371 @@ def distribution(ptt, K, torch, smi, device: str = "cuda") -> dict:
 
 
 
+# ---------------------------------------------------------------------------
+# phase 13: training on the card
+# ---------------------------------------------------------------------------
+#: (a) the gradients' check: GPT-2 small widths at this depth and batch
+TRAIN_GRAD_LAYERS, TRAIN_GRAD_BATCH = 2, 4
+#: (b) the 12-layer training run: batch, steps (the loader's), the step
+#: after which (d) saves, the AdamW rate; the corpus's length and alphabet
+TRAIN_BATCH, TRAIN_STEPS, TRAIN_SAVE_AT, TRAIN_LR = 8, 20, 10, 1e-3
+TRAIN_CORPUS, TRAIN_ALPHABET = 1 << 18, 64
+#: (b) timed steps of each core, in turns, after one warm-up each
+TRAIN_ROUNDS = 4
+#: (c) the MoE-LM: layers, experts, top-k, batch, SGD rate, steps; the
+#: tokens of the one-device expert group's capacity check
+MOE_LAYERS, MOE_EXPERTS, MOE_K, MOE_BATCH, MOE_LR, MOE_STEPS = 4, 8, 2, 4, \
+    0.05, 5
+MOE_TOKENS = 2048
+
+
+def markov_corpus(seed: int, n: int, alphabet: int, vocab: int):
+    """A seeded order-1 Markov chain of ``n`` tokens over ``alphabet`` ids
+    spread over the vocabulary: each state's next token is one of 4
+    successors with probabilities 0.7, 0.1, 0.1, 0.1, so the chain's
+    entropy rate is about 0.94 nats, far below ln(vocab). Returns the
+    corpus and that entropy rate."""
+    rng = np.random.default_rng(seed)
+    ids = rng.choice(vocab, size=alphabet, replace=False)
+    succ = rng.integers(0, alphabet, size=(alphabet, 4))
+    probs = np.array([0.7, 0.1, 0.1, 0.1])
+    pick = rng.choice(4, size=n, p=probs)
+    states = np.empty(n, np.int64)
+    s = 0
+    for i in range(n):
+        s = succ[s, pick[i]]
+        states[i] = s
+    return ids[states], float(-(probs * np.log(probs)).sum())
+
+
+def leaf_errors(torch, got: list, want: list) -> list:
+    """Norm-wise relative error of each gradient leaf."""
+    return [((a.float() - b.float()).norm() / b.float().norm().clamp_min(
+        1e-30)).item() for a, b in zip(got, want)]
+
+
+def train_gradients(K, torch, M, core, device: str) -> None:
+    """(a) Gradients at GPT-2 small width, TRAIN_GRAD_LAYERS layers, B =
+    TRAIN_GRAD_BATCH, S = 1024: the flash core against the dense core in
+    f32 (the simt route) and with bf16 compute (the wgmma route)."""
+    from parsec_tpu_torch.parallel.optim import tree_leaves, value_and_grad
+    from parsec_tpu_torch.parallel.transformer import _dense_attention_core
+    cfg = M.ModelConfig(**dict(GPT2_SMALL, n_layers=TRAIN_GRAD_LAYERS))
+    params = M.params_from_numpy(M.init_lm_params(0, cfg), device)
+    rng = np.random.default_rng(5)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size,
+                                         (TRAIN_GRAD_BATCH, LM_SEQ + 1)))
+    x, y = toks[:, :-1].to(device), toks[:, 1:].to(device)
+    wqkv = [i for i, t in enumerate(tree_leaves(params))
+            if any(t is bp["wqkv"] for bp in params["blocks"])]
+    for cd, route, tol in ((None, "simt", (1e-5, 1e-4)),
+                           (torch.bfloat16, "wgmma", (2e-2, 2e-2))):
+        before = K.flash_attention.launches_by_route[route]
+        lf, _, gf = value_and_grad(
+            lambda p: M.lm_loss(p, x, y, attention=core, compute_dtype=cd),
+            params)
+        launched = K.flash_attention.launches_by_route[route] - before
+        ld, _, gd = value_and_grad(
+            lambda p: M.lm_loss(p, x, y, attention=_dense_attention_core,
+                                compute_dtype=cd), params)
+        loss_err = abs(float(lf) - float(ld)) / abs(float(ld))
+        errs = leaf_errors(torch, gf, gd)
+        wq = [gf[i].norm().item() for i in wqkv]
+        name = "f32" if cd is None else "bf16"
+        log(f"train (a) {name} L={TRAIN_GRAD_LAYERS} B={TRAIN_GRAD_BATCH} "
+            f"S={LM_SEQ}: loss flash {float(lf):.6f} dense {float(ld):.6f} "
+            f"(rel {loss_err:.3e}, limit {tol[0]}); worst leaf norm-wise "
+            f"{max(errs):.3e} (limit {tol[1]}), median "
+            f"{float(np.median(errs)):.3e}; wqkv gradient norms "
+            f"{', '.join(f'{v:.4e}' for v in wq)}; {launched} flash "
+            f"launches on the {route} route")
+        if launched != TRAIN_GRAD_LAYERS:
+            raise AssertionError(f"(a) {name}: {launched} flash launches on "
+                                 f"the {route} route, not "
+                                 f"{TRAIN_GRAD_LAYERS}")
+        if not (loss_err <= tol[0] and max(errs) <= tol[1]):
+            raise AssertionError(f"(a) {name}: flash-core gradients disagree "
+                                 f"with the dense core's")
+        if not all(v > 0 for v in wq):
+            raise AssertionError(f"(a) {name}: a block's wqkv got no "
+                                 f"gradient through the flash core")
+        del gf, gd
+
+
+def moe_capacity_check(torch, MoE, mp, device: str) -> None:
+    """(c) moe_forward on a one-device expert group with capacity_factor
+    1.0 against dense_reference, with the drops numbered independently on
+    the host (choice-major, first come first served) from the router's
+    choices: the same (token, choice) pairs dropped, the rows they touch
+    the only rows that differ from dense_reference, the kept routes equal
+    to it."""
+    gen = torch.Generator(device=device).manual_seed(9)
+    x = torch.randn(MOE_TOKENS, GPT2_SMALL["d_model"], device=device,
+                    generator=gen)
+    out, aux = MoE.moe_forward(mp, x, mesh=torch.device(device), k=MOE_K,
+                               capacity_factor=1.0, return_aux=True)
+    dense = MoE.dense_reference(mp, x, k=MOE_K)
+    gates, eid = MoE._topk_gates(torch.softmax(x @ mp["router"], dim=-1),
+                                 MOE_K)
+    E = mp["w1"].shape[0]
+    cap = math.ceil(1.0 * MOE_K * MOE_TOKENS / E)
+    eid_h = eid.cpu().numpy()
+    keep = np.zeros(eid_h.shape, bool)
+    fill = np.zeros(E, np.int64)
+    for c in range(MOE_K):                       # choice-major
+        for t in range(MOE_TOKENS):
+            e = eid_h[t, c]
+            keep[t, c] = fill[e] < cap
+            fill[e] += 1
+    n_drop = int((~keep).sum())
+    kept = torch.from_numpy(keep).to(device)
+    want = torch.zeros_like(x)
+    for e in range(E):
+        w = (gates * ((eid == e) & kept)).sum(-1)
+        want += MoE._expert_mlp(mp["w1"][e], mp["w2"][e], x) * w[:, None]
+    err = (out - want).abs()
+    bad = int((err > 2e-5 + 2e-4 * want.abs()).sum())
+    differs = ((out - dense).abs() > 2e-5 + 2e-4 * dense.abs()).any(-1)
+    host_rows = ~keep.all(-1)
+    same_rows = bool((differs.cpu().numpy() == host_rows).all())
+    log(f"train (c) moe_forward, one-device expert group, T={MOE_TOKENS}, "
+        f"E={E}, k={MOE_K}, capacity_factor 1.0 ({cap} slots): dropped "
+        f"{float(aux['dropped']):.0f} (host count {n_drop}) in "
+        f"{int(host_rows.sum())} rows; max abs err against the kept routes "
+        f"{err.max().item():.3e} ({bad} beyond rtol 2e-4 atol 2e-5); rows "
+        f"differing from dense_reference {int(differs.sum())}, the dropped "
+        f"rows exactly: {same_rows}; aux loss {float(aux['aux_loss']):.6f}")
+    if not (n_drop > 0 and float(aux["dropped"]) == n_drop and not bad
+            and same_rows):
+        raise AssertionError("(c) moe_forward's drops disagree with the "
+                             "host's numbering or with dense_reference")
+
+
+def train_moe(torch, M, MoE, device: str) -> None:
+    """(c) The MoE-LM at GPT-2 small width: MOE_STEPS SGD steps of
+    make_lm_moe_train_step on the dense routed path (the loss must fall),
+    then the capacity check."""
+    from parsec_tpu_torch.data.loader import token_batches
+    cfg = M.ModelConfig(**dict(GPT2_SMALL, n_layers=MOE_LAYERS))
+    t0 = time.perf_counter()
+    params = M.params_from_numpy(
+        M.init_lm_moe_params(0, cfg, n_experts=MOE_EXPERTS), device)
+    init_s = time.perf_counter() - t0
+    corpus, _ = markov_corpus(3, TRAIN_CORPUS, TRAIN_ALPHABET,
+                              cfg.vocab_size)
+    x, y = next(token_batches(corpus, MOE_BATCH, LM_SEQ, seed=3))
+    x, y = torch.from_numpy(x).to(device), torch.from_numpy(y).to(device)
+    step = M.make_lm_moe_train_step(k=MOE_K, lr=MOE_LR)
+    losses, times = [], []
+    for _ in range(MOE_STEPS):
+        t = time.perf_counter()
+        params, loss = step(params, x, y)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t)
+    log(f"train (c) MoE-LM L={MOE_LAYERS} E={MOE_EXPERTS} k={MOE_K} "
+        f"d_ff={cfg.d_ff} B={MOE_BATCH} S={LM_SEQ}, dense routed path, SGD "
+        f"lr {MOE_LR}: losses {', '.join(f'{v:.4f}' for v in losses)}; "
+        f"step {min(times) * 1e3:.1f}-{max(times) * 1e3:.1f} ms (wall, "
+        f"first included); init {init_s:.1f} s")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError("(c) the MoE-LM's loss did not fall")
+    moe_capacity_check(torch, MoE, params["blocks"][0]["moe"], device)
+
+
+def training(K, torch, smi, device: str = "cuda") -> dict:
+    """Phase 13: training on the card, (a)-(e). Returns the flash kernel's
+    launches on the training steps of (b), (d) and (e) (in all and by
+    route) and the figures of (b) for the kernels line. (a) compares the
+    flash core with the dense core and its launches are not counted."""
+    import shutil
+    import tempfile
+
+    import torch.nn.functional as F
+    from parsec_tpu_torch.data.loader import PrefetchLoader, token_batches
+    from parsec_tpu_torch.parallel import model as M
+    from parsec_tpu_torch.parallel import moe as MoE
+    from parsec_tpu_torch.parallel import optim as O
+    from parsec_tpu_torch.parallel.transformer import (_dense_attention_core,
+                                                       flash_attention_core)
+    from parsec_tpu_torch.utils.model_ckpt import (restore_train_state,
+                                                   save_train_state)
+    from parsec_tpu_torch.utils.xla_trace import annotate, xla_trace
+    t_phase = time.perf_counter()
+    train_gradients(K, torch, M, flash_attention_core, device)
+    log(f"train (a) took {time.perf_counter() - t_phase:.1f} s")
+
+    # ---- (b) GPT-2 small, 12 layers, bf16 compute, remat, clip + AdamW
+    cfg = M.ModelConfig(**GPT2_SMALL)
+    L, B, S = cfg.n_layers, TRAIN_BATCH, LM_SEQ
+    t0 = time.perf_counter()
+    tree = M.init_lm_params(0, cfg)
+    tx = O.chain(O.clip_by_global_norm(1.0), O.adamw(TRAIN_LR))
+
+    def make(core):
+        return M.make_lm_opt_train_step(
+            torch.device(device), tx, params, remat=True,
+            compute_dtype=torch.bfloat16, attention=core)[0]
+    step, opt, place_p, place_t = M.make_lm_opt_train_step(
+        torch.device(device), tx, tree, remat=True,
+        compute_dtype=torch.bfloat16, attention=flash_attention_core)
+    params = place_p(tree)
+    del tree
+    n_params = sum(t.numel() for t in O.tree_leaves(params))
+    corpus, entropy = markov_corpus(1, TRAIN_CORPUS, TRAIN_ALPHABET,
+                                    cfg.vocab_size)
+    log(f"train (b) GPT-2 small {n_params} parameters (f32 masters), "
+        f"bf16 compute, remat, clip 1.0 + AdamW lr {TRAIN_LR}, flash core, "
+        f"B={B} S={S}; corpus {corpus.size} tokens, an order-1 Markov chain "
+        f"over {TRAIN_ALPHABET} ids (entropy rate {entropy:.3f} nats, ln V = "
+        f"{math.log(cfg.vocab_size):.3f}); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    K.flash_attention.launches = 0
+    K.flash_attention.launches_by_route = dict.fromkeys(K.FLASH_ROUTES, 0)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    loader = PrefetchLoader(
+        lambda: token_batches(corpus, B, S, seed=1, n_batches=TRAIN_STEPS),
+        device=device, ahead=2)
+    losses, per_step, walls = [], [], []
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    snap = None
+    try:
+        t_run = time.perf_counter()
+        for i, (x, y) in enumerate(loader):
+            before = K.flash_attention.launches
+            t = time.perf_counter()
+            params, opt, loss = step(params, opt, x, y)
+            losses.append(loss)
+            per_step.append(K.flash_attention.launches - before)
+            walls.append(time.perf_counter() - t)
+            if i + 1 == TRAIN_SAVE_AT:
+                # (d): the live state at this step, kept beside its save
+                snap = (O.tree_map(lambda t: t.clone(), params),
+                        O.tree_map(lambda t: t.clone(), opt))
+                t_save = time.perf_counter()
+                save_train_state(ckpt_dir, params, opt, step=i + 1)
+                save_s = time.perf_counter() - t_save
+        run_s = time.perf_counter() - t_run
+        losses = [float(v) for v in losses]
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if device == "cuda" else 0.0)
+        log(f"train (b) {len(losses)} steps through PrefetchLoader("
+            f"token_batches) in {run_s:.2f} s: loss {losses[0]:.4f} -> "
+            f"{losses[-1]:.4f} (fell {losses[0] - losses[-1]:.4f} nats); "
+            f"losses {', '.join(f'{v:.3f}' for v in losses)}; flash launches "
+            f"a step {sorted(set(per_step))} (expected {2 * L}: the forward "
+            f"and the remat recompute); step wall median "
+            f"{float(np.median(walls)) * 1e3:.1f} ms; peak device memory "
+            f"{peak:.3f} GiB ({smi})")
+        if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all() or \
+                losses[0] - losses[-1] < 1.0:
+            raise AssertionError("(b) the loss is not finite or did not "
+                                 "fall by 1 nat")
+        if set(per_step) != {2 * L}:
+            raise AssertionError(f"(b) flash launches a step {per_step}, "
+                                 f"expected {2 * L}")
+
+        # step time of each core, in turns, on one batch (training goes on)
+        x, y = next(token_batches(corpus, B, S, seed=2))
+        x, y = place_t(x), place_t(y)
+
+        def sdpa_core(q, k, v, causal, scale):
+            return F.scaled_dot_product_attention(
+                q.contiguous(), k.contiguous(), v.contiguous(),
+                is_causal=causal, scale=scale)
+        cores = {"flash": step, "dense": make(_dense_attention_core),
+                 "sdpa": make(sdpa_core)}
+        state = {"p": params, "o": opt}
+
+        def runner(fn):
+            def run():
+                state["p"], state["o"], _ = fn(state["p"], state["o"], x, y)
+            return run
+        before = K.flash_attention.launches
+        ms = medians_in_turns(torch, [runner(f) for f in cores.values()],
+                              rounds=TRAIN_ROUNDS)
+        timed = K.flash_attention.launches - before
+        step_ms = dict(zip(cores, ms))
+        log("train (b) step, medians of " + str(TRAIN_ROUNDS) + " in turns: "
+            + "; ".join(f"{n} core {t:.2f} ms -> {B * S / t * 1e3:.0f} "
+                        f"tokens/s" for n, t in step_ms.items())
+            + f" ({timed} flash launches) ({smi})")
+        if timed != 2 * L * (TRAIN_ROUNDS + 1):
+            raise AssertionError("(b) the timed flash steps did not launch "
+                                 "the kernel 2 L times each")
+        busy, window, by_name = device_profile(torch, runner(step))
+        log(idle_line("train (b) one flash-core step", busy, window))
+        flash_prof = sum(v for n, v in by_name.items() if "flash_bf16" in n)
+        for name, v in sorted(by_name.items(), key=lambda kv: -kv[1])[:8]:
+            log(f"  device {v:8.3f} ms  {name[:100]}")
+        log(f"  the flash kernel's device time in the profiled step: "
+            f"{flash_prof:.3f} ms for {2 * L} launches")
+        del cores
+        params, opt = state["p"], state["o"]
+
+        # ---- (d) checkpoint saved after step TRAIN_SAVE_AT, restored; one
+        # step from each copy
+        t = time.perf_counter()
+        rp, ro, rstep = restore_train_state(ckpt_dir, like=snap)
+        load_s = time.perf_counter() - t
+        a, _, la = step(snap[0], snap[1], x, y)
+        b, _, lb = step(rp, ro, x, y)
+        same = all(torch.equal(s, t) for s, t in
+                   zip(O.tree_leaves(a), O.tree_leaves(b)))
+        size = sum(os.path.getsize(os.path.join(ckpt_dir, f))
+                   for f in os.listdir(ckpt_dir))
+        log(f"train (d) checkpoint after step {TRAIN_SAVE_AT}: {size} B "
+            f"saved in {save_s:.2f} s, restored in {load_s:.2f} s (step "
+            f"{rstep}); one step from the live state and one from the "
+            f"restored: loss {float(la):.6f} / {float(lb):.6f}, parameters "
+            f"{'bit for bit equal' if same else 'DIFFER'}")
+        if not (same and rstep == TRAIN_SAVE_AT and float(la) == float(lb)):
+            raise AssertionError("(d) the restored state does not continue "
+                                 "bit for bit")
+        del a, b, rp, ro, snap
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # ---- (e) a profiler trace of two steps
+    trace_dir = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    try:
+        with xla_trace(trace_dir):
+            for i in range(2):
+                with annotate(f"lm_train::step{i}"):
+                    params, opt, _ = step(params, opt, x, y)
+        files = [os.path.join(trace_dir, f) for f in os.listdir(trace_dir)]
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        flash_ev = sum(1 for e in events if e.get("cat") == "kernel"
+                       and "flash_bf16" in e.get("name", ""))
+        ranges = {e.get("cat") for e in events
+                  if str(e.get("name", "")).startswith("lm_train::step")}
+        log(f"train (e) xla_trace of 2 steps: {len(files)} file(s), "
+            f"{os.path.getsize(files[0])} B, {len(events)} events; flash "
+            f"kernel device events {flash_ev} (of {4 * L} launched); the "
+            f"steps' ranges (NVTX and record_function) as {sorted(ranges)}")
+        if not flash_ev or not {"user_annotation"} <= ranges:
+            raise AssertionError("(e) the trace lacks the flash kernel's "
+                                 "device events or the step ranges")
+    finally:
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    launches = K.flash_attention.launches
+    by_route = dict(K.flash_attention.launches_by_route)
+    del params, opt, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+
+    # ---- (c) the MoE-LM at GPT-2 small width
+    train_moe(torch, M, MoE, device)
+    log(f"training phase wall time {time.perf_counter() - t_phase:.1f} s "
+        f"({smi})")
+    return {"launches": launches, "by_route": by_route,
+            "launches_per_step": 2 * L, "step_ms": step_ms,
+            "tokens_per_s": {n: B * S / t * 1e3 for n, t in step_ms.items()},
+            "busy_ms": busy, "window_ms": window, "peak_gib": peak,
+            "loss_first_last": [losses[0], losses[-1]]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4760,6 +5146,14 @@ def main() -> int:
     # ---- 6. LM serving at GPT-2 small width ----------------------------
     flash_launches, flash_by_route = lm_serving(K, torch)
 
+    # ---- 13. training on the card: run here, after the serving phase and
+    # before the large traces of phases 9-12 (after those, short profiler
+    # sessions lose their device events), so its trace (e) holds them
+    train = training(K, torch, smi)
+    flash_launches += train["launches"]
+    for r, n_r in train["by_route"].items():
+        flash_by_route[r] += n_r
+
     # ---- 7. the stencil and the other tile algorithms, on a new context
     # (after the earlier paths, which so run as they did before them) -----
     ctx = ptt.Context(nb_cores=1)
@@ -4799,7 +5193,7 @@ def main() -> int:
     lane_launches["distributed"] = dist["launches"]
     gemm_by_route["split"] += dist["launches"]
 
-    # ---- 13. kernel line at the main paths' shapes ----------------------
+    # ---- the kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),
                flash_entry(K, torch, gen, flash_launches, flash_by_route,
                            flash_device),
@@ -4807,6 +5201,9 @@ def main() -> int:
                matmul]
     kernels[0]["launches_by_lane"] = lane_launches
     kernels[1]["head_dims"] = flash_rows
+    kernels[1]["training"] = {k: train[k] for k in (
+        "launches", "launches_per_step", "step_ms", "tokens_per_s",
+        "busy_ms", "window_ms", "peak_gib", "loss_first_last")}
     for e in kernels:
         if not e["launches"]:
             raise AssertionError(f"{e['name']} was not launched on its path")

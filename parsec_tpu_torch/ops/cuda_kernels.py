@@ -248,6 +248,20 @@ def _aligned16(*tensors) -> bool:
     return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
+def _requires_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and \
+        any(t is not None and t.requires_grad for t in tensors)
+
+
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise when autograd would differentiate through ``name``'s kernel,
+    which has no backward (its CPU branch, the plain version, has one)."""
+    if _requires_grad(*tensors):
+        raise RuntimeError(
+            f"{name}'s CUDA kernel has no backward: call it under "
+            f"torch.no_grad() or on operands that do not require grad")
+
+
 def _check_gemm_chain(c, a_stack, b_stack) -> None:
     if a_stack.dim() != 3 or b_stack.dim() != 3 or c.dim() != 2:
         raise ValueError("gemm_chain takes C (m, n), A (kt, m, k), "
@@ -318,7 +332,8 @@ def gemm_chain(c, a_stack, b_stack):
 
     CPU tensors take :func:`gemm_chain_plain`; ``meta`` tensors get an
     empty result of C's shape and dtype (shape inference, no launch); CUDA
-    tensors launch the kernel or raise."""
+    tensors launch the kernel or raise; they raise too when autograd would
+    differentiate through the kernel, which has no backward."""
     _check_gemm_chain(c, a_stack, b_stack)
     if c.device.type == "meta":
         return torch.empty_like(c)
@@ -326,6 +341,7 @@ def gemm_chain(c, a_stack, b_stack):
         return gemm_chain_plain(c, a_stack, b_stack)
     if c.device.type != "cuda":
         raise ValueError(f"gemm_chain has no kernel for {c.device}")
+    _refuse_grad("gemm_chain", c, a_stack, b_stack)
     lib = _library("gemm_chain")
     kt, m, k = a_stack.shape
     n = b_stack.shape[2]
@@ -417,7 +433,8 @@ def matmul(a, b, block=(256, 256, 256)):
     the blocks do not divide take the reference's own route, one
     ``torch.matmul`` with float32 accumulation and a single rounding. Else
     CPU tensors take :func:`matmul_plain`, and CUDA tensors launch the
-    kernel (contiguous operands) or raise."""
+    kernel (contiguous operands) or raise, under autograd too (the kernel
+    has no backward)."""
     _check_matmul(a, b)
     bm, bn, bk = _matmul_blocks(a, b, block)
     m, k = a.shape
@@ -431,6 +448,7 @@ def matmul(a, b, block=(256, 256, 256)):
         raise ValueError(f"matmul has no kernel for {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul takes contiguous operands")
+    _refuse_grad("matmul", a, b)
     lib = _library("gemm_chain")
     kt = k // bk
     sms = _sm_count(a.device)
@@ -509,7 +527,8 @@ def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
     Bit for bit the function of :func:`stencil1d_plain` (the kernel rounds
     every product and sum, never fusing them). CPU tensors take the plain
     version; ``meta`` tensors get an empty result (shape inference, no
-    launch); CUDA tensors launch the kernel (contiguous tiles) or raise."""
+    launch); CUDA tensors launch the kernel (contiguous tiles) or raise,
+    under autograd too (the kernel has no backward)."""
     _check_stencil(x, left, right)
     if x.device.type == "meta":
         return torch.empty_like(x)
@@ -519,6 +538,7 @@ def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
         raise ValueError(f"stencil1d has no kernel for {x.device}")
     if not all(t is None or t.is_contiguous() for t in (x, left, right)):
         raise ValueError("stencil1d takes contiguous tiles")
+    _refuse_grad("stencil1d", x, left, right)
     lib = _library("stencil1d")
     rows, cols = x.shape
     out = torch.empty_like(x)
@@ -645,6 +665,59 @@ def flash_attention_bf16_tolerance(q, k, v, causal: bool = False, scale=None,
     return ((1 + u) * (u + 1e-4) * spread + 2 * u * y).reshape(q.shape)
 
 
+def flash_attention_backward(q, k, v, dout, causal: bool = False,
+                             scale=None, q_offset: int = 0,
+                             k_offset: int = 0):
+    """(dq, dk, dv) of the reference's dense flash expression for the
+    upstream gradient ``dout``, written with library calls: P recomputed
+    from q and k in float32 (TF32 off) with the global-offset causal mask
+    and the guarded softmax (a fully masked row's weights, and so its
+    gradients, are 0), then
+
+        dV = Pᵀ·dO,  dP = dO·Vᵀ,  dS = P ⊙ (dP − rowsum(dO ⊙ O)),
+        dQ = scale·dS·K,  dK = scale·dSᵀ·Q,
+
+    with O = P·V in float32; each result cast to its input's dtype. It is
+    the backward of :func:`flash_attention` on every device, the kernel's
+    forward included: the kernel computes the same function, so this is
+    its gradient too."""
+    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    p = _flash_weights(q, k, causal, scale, q_offset, k_offset)
+    q3 = q.reshape(-1, sq, d).float()
+    k3 = k.reshape(-1, sk, d).float()
+    v3 = v.reshape(-1, sk, d).float()
+    do = dout.reshape(-1, sq, d).float()
+    dv = torch.matmul(p.transpose(1, 2), do)
+    dp = torch.matmul(do, v3.transpose(1, 2))
+    delta = (do * torch.matmul(p, v3)).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.matmul(ds, k3) * scale
+    dk = torch.matmul(ds.transpose(1, 2), q3) * scale
+    return (dq.to(q.dtype).reshape(q.shape), dk.to(k.dtype).reshape(k.shape),
+            dv.to(v.dtype).reshape(v.shape))
+
+
+class _FlashAttention(torch.autograd.Function):
+    """:func:`flash_attention` under autograd: the forward is the wrapper's
+    (the kernel on a CUDA tensor, the plain version on the CPU), the
+    backward :func:`flash_attention_backward`. Only q, k and v are saved:
+    the backward recomputes the weights, as a flash backward does."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, q_offset, k_offset):
+        ctx.save_for_backward(q, k, v)
+        ctx.args = (causal, scale, q_offset, k_offset)
+        return _flash_forward(q, k, v, causal, scale, q_offset, k_offset)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = flash_attention_backward(q, k, v, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, causal: bool = False, scale=None,
                     q_offset: int = 0, k_offset: int = 0,
                     block_q: int = 256, block_k: int = 512):
@@ -661,12 +734,24 @@ def flash_attention(q, k, v, causal: bool = False, scale=None,
     :func:`flash_route`'s.
 
     CPU tensors take :func:`flash_attention_plain`; CUDA tensors launch the
-    kernel (contiguous operands, any head dim) or raise."""
+    kernel (contiguous operands, any head dim) or raise. Under autograd
+    (grad mode on and an operand that requires grad) the call goes through
+    :class:`_FlashAttention`: the same forward, and
+    :func:`flash_attention_backward` for the gradients."""
     del block_q, block_k
     _check_flash(q, k, v)
-    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
     if scale is None:
-        scale = 1.0 / math.sqrt(d)
+        scale = 1.0 / math.sqrt(q.shape[-1])
+    if _requires_grad(q, k, v):
+        return _FlashAttention.apply(q, k, v, bool(causal), float(scale),
+                                     int(q_offset), int(k_offset))
+    return _flash_forward(q, k, v, causal, scale, q_offset, k_offset)
+
+
+def _flash_forward(q, k, v, causal, scale, q_offset, k_offset):
+    """:func:`flash_attention`'s forward on checked operands, ``scale``
+    resolved."""
+    d, sq, sk = q.shape[-1], q.shape[-2], k.shape[-2]
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, scale, q_offset,
                                      k_offset)

@@ -1,3 +1,4 @@
-"""The model layer: the GPT-class LM's serving path (forward, loss,
-KV-cached generation) on PyTorch, with attention through the hand-written
-flash kernel."""
+"""The model layer on PyTorch: the GPT-class LM's serving and training
+paths (forward, loss, gradients, remat, bf16 compute, SGD and AdamW steps,
+KV-cached generation), the MoE layer and MoE-LM, with attention through the
+hand-written flash kernel, on one device."""

@@ -4,8 +4,11 @@ The block keeps the reference's head-major parameter layouts, so one numpy
 parameter set drives both packages: ``wqkv`` (3, H, D, d_head), ``wo``
 (H, d_head, D), ``w1`` (D, F), ``w2`` (F, D). The attention core is a hook:
 :func:`_dense_attention_core` (masked softmax) by default, or
-:func:`flash_attention_core`, the hand-written CUDA kernel. The projections
-are ``torch.einsum`` calls, which PyTorch hands to cuBLAS.
+:func:`flash_attention_core`, the hand-written CUDA kernel (differentiable:
+its backward is the dense expression's). The projections are
+``torch.einsum`` calls, which PyTorch hands to cuBLAS.
+:func:`make_train_step` is the reference's SGD step of one block on one
+device; meshes of more than one device wait for the mesh slice.
 """
 
 from __future__ import annotations
@@ -16,8 +19,11 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops import cuda_kernels as K
+from .moe import mesh_device
+from .optim import sgd, tree_map, value_and_grad
 
 
 def init_block_params(seed: int, d_model: int, d_ff: int, n_heads: int,
@@ -104,3 +110,57 @@ def block_apply(params, x, causal: bool = True, attention=None,
     if return_kv:
         return out, qkv[1], qkv[2]
     return out
+
+
+def _run_block(bp, x, remat: bool, **kw):
+    """:func:`block_apply` of ``bp`` on ``x``; with ``remat`` under
+    ``torch.utils.checkpoint`` (non-reentrant), the counterpart of the
+    reference's rematerialization: the block's activations are not kept
+    but recomputed in the backward pass."""
+    if remat:
+        return checkpoint(lambda p, h: block_apply(p, h, **kw), bp, x,
+                          use_reentrant=False)
+    return block_apply(bp, x, **kw)
+
+
+def _placers(device):
+    """(place_params, place_batch) for one device: the placement idiom
+    every ``make_*_train_step`` shares. ``place_params`` copies a tree of
+    numpy arrays or tensors onto ``device`` as float32 (a step updates what
+    it returns in place, never the caller's tree); ``place_batch`` puts an
+    integer batch there."""
+    def place_params(params):
+        def leaf(a):
+            if isinstance(a, torch.Tensor):
+                return a.detach().to(device, torch.float32, copy=True)
+            return torch.from_numpy(np.array(a, np.float32)).to(device)
+        return tree_map(leaf, params)
+
+    def place_batch(x):
+        return torch.as_tensor(np.asarray(x) if not isinstance(
+            x, torch.Tensor) else x).to(device)
+
+    return place_params, place_batch
+
+
+def make_train_step(mesh=None, dp: str = "dp", tp: str = "tp",
+                    lr: float = 1e-2, causal: bool = True):
+    """An SGD training step of one block on the one device ``mesh`` names
+    (the card when None; ``dp``/``tp`` name the reference's mesh axes and
+    change nothing on one device).
+
+    Returns ``(step, place_params, place_batch)``: call
+    ``params = place_params(params)`` / ``x = place_batch(x)`` once, then
+    ``params, loss = step(params, x, y)`` per iteration, the loss the mean
+    squared error of the block's output against ``y`` before the step (the
+    parameters are updated in place)."""
+    device = mesh_device(mesh)
+
+    def step(params, x, y):
+        loss, leaves, grads = value_and_grad(
+            lambda p: torch.mean((block_apply(p, x, causal=causal) - y) ** 2),
+            params)
+        sgd(leaves, grads, lr)
+        return params, loss
+
+    return (step,) + _placers(device)

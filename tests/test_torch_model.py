@@ -263,21 +263,29 @@ def test_lm_generate_sampling_reproducible_and_bounded():
 
 
 def test_moe_params_and_remat_raise_not_implemented():
+    """MoE parameters and remat=True, which raised NotImplementedError
+    before the training slice, now run: lm_apply and lm_generate take MoE
+    parameters (the FFNs routed top-2, as the reference's generate), and
+    remat gives the plain loss. What still raises NotImplementedError is a
+    mesh of more than one device (ROADMAP's mesh item)."""
     tree = JM.init_lm_moe_params(0, JM.ModelConfig(
         vocab_size=32, d_model=16, d_ff=32, n_heads=2, n_layers=1,
         max_seq=8), n_experts=4)
     tree = jax.tree_util.tree_map(np.asarray, tree)
     moe = TM.params_from_numpy(tree, device="cpu")
     toks = np.zeros((2, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_apply(moe, toks)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_generate(moe, toks, 2)
+    np.testing.assert_allclose(
+        TM.lm_apply(moe, toks).numpy(),
+        np.asarray(JM.lm_moe_apply(tree, toks, k=2)), rtol=2e-4, atol=2e-5)
+    np.testing.assert_array_equal(
+        TM.lm_generate(moe, toks[:, :4], 2).numpy(),
+        np.asarray(JM.lm_generate(tree, toks[:, :4], 2)))
     _, tp = _params(0, **CFG)
+    x, y = _batch(np.random.default_rng(0))
+    assert float(TM.lm_loss(tp, x, y, remat=True)) == \
+        float(TM.lm_loss(tp, x, y))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_apply(tp, toks, remat=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.lm_loss(tp, toks, toks, remat=True)
+        TM.make_lm_train_step([torch.device("cpu")] * 2, params=tree)
 
 
 def test_language_model_module_is_the_functional_api():
