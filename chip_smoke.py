@@ -135,7 +135,16 @@ port's main paths through the entry points a user calls:
   kernel's device events and the steps' ranges; (c) the MoE-LM (4 layers,
   8 experts, k = 2) for 5 SGD steps on the dense routed path, and
   ``moe_forward`` on a one-device expert group at capacity factor 1.0
-  against ``dense_reference``, its drops the host's numbering's.
+  against ``dense_reference``, its drops the host's numbering's;
+* the serving fabric (phase 14, last): (a) the credit wire, the plane's
+  remote window and a 3-rank gateway in process; (b) the reference's
+  acceptance program on two OS processes with CPU rank contexts (victim
+  p99 within 2x of unloaded over at most three attempts, shares within
+  25% of 2:1, no frame error); (c) a serving rank's death mid-window; (d)
+  a serving rank whose control context is a card context, each request a
+  bf16 GEMM_K task (C 512², kt = 32) on the card through a fabric-owned
+  KIND_EXT plane pool: one ``gemm_chain`` launch a request, every C tile
+  the plain chain's bit for bit.
 
 Every phase that fails ends the run with a nonzero exit code. At its
 end, and when it fails, the script stops every process it started and
@@ -151,7 +160,7 @@ launches by route, the mma route's times in turns with it, a float32
 sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
 include the head-dim-80 LM's and the training steps' (its ``training``
 sub-entry); the chain's ``distributed`` lane counts the
-2-rank GEMM's launches), and last ``{"ok": true, "device":
+2-rank GEMM's launches, its ``serving`` lane phase 14 (d)'s), and last ``{"ok": true, "device":
 {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
@@ -2219,8 +2228,8 @@ def ptg_lane(ptt, torch, ctx, smi, device: str = "cuda") -> None:
     from parsec_tpu_torch.device.cuda import CUDADevice
     from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
     t_phase = time.perf_counter()
-    if ctx.sched_plane is not None:
-        raise AssertionError("a card context must have no scheduler plane")
+    if ctx.sched_plane is None:
+        raise AssertionError("the card context has no scheduler plane")
     dev = next(d for d in ctx.devices.devices if isinstance(d, CUDADevice))
 
     def timed(prog, globals_, collections, n_tasks, native, agglomerate=True,
@@ -2500,6 +2509,9 @@ def ptg_gemm_modes(ptt, torch, ctx, dev, smi, device: str) -> None:
     ntask = T ** 3
     placements = {m: [] for m in GEMM_MODES}
     placements["explore"] = []
+    #: (mode, pools run together) -> pools the scheduler plane bound, per
+    #: run: a lane pool binds once a second one runs beside it
+    plane_bound = {}
     last = {}
     split = [None]
     pool_bucket = [0]
@@ -2532,6 +2544,7 @@ def ptg_gemm_modes(ptt, torch, ctx, dev, smi, device: str) -> None:
         s0, d0, e0 = (PTEXEC_STATS.snapshot(), PTDEV_STATS.snapshot(),
                       dev.executed_tasks)
         g0 = gc_pause[0]
+        p0 = ctx.sched_plane.stats()["pools_registered"]
         sync()
         t0 = time.perf_counter()
         with mca_set(ptt, GEMM_MODES[mode][1]):
@@ -2551,14 +2564,18 @@ def ptg_gemm_modes(ptt, torch, ctx, dev, smi, device: str) -> None:
         # and the first dispatches) and the wait
         split[0] = (t1 - t0, t2 - t1, time.perf_counter() - t2)
         d, dd = PTEXEC_STATS.delta(s0), PTDEV_STATS.delta(d0)
+        bound = ctx.sched_plane.stats()["pools_registered"] - p0
+        plane_bound.setdefault((mode, n_dags), []).append(bound)
         lane = mode != "c"
         on_dev = 0 if cpu_twin else ntask * n_dags
         ok = (dev.executed_tasks - e0 == on_dev
               and dd["pools_fallback"] == 0 and d["pools_fallback"] == 0)
         if lane:
+            # pools that run together drain through the plane's DRR
             ok &= (d["pools_engaged"] == n_dags
                    and dd["pools_engaged"] == (0 if cpu_twin else n_dags)
-                   and dd["pools_ineligible"] == 0)
+                   and dd["pools_ineligible"] == 0
+                   and bound == (n_dags if n_dags > 1 else 0))
         else:
             ok &= (dd["pools_ineligible"] == n_dags
                    and d["pools_engaged"] == 0)
@@ -2652,6 +2669,9 @@ def ptg_gemm_modes(ptt, torch, ctx, dev, smi, device: str) -> None:
             f"{s_ / ntask * 1e6:.1f} us a task, "
             f"{2 * N ** 3 / 1e9 / s_:.1f} GFLOP/s ({smi})")
     log(f"yardstick torch.matmul f32 {N}^3: {mm_ms:.3f} ms")
+    log("PTG GEMM pools the card context's scheduler plane bound, per run "
+        "(mode, pools run together): " + ", ".join(
+            f"({m}) x{n}: {b}" for (m, n), b in sorted(plane_bound.items())))
     lane = ctx._ptdev
     for mode in GEMM_MODES:
         s0, d0, c0 = (PTDEV_STATS.snapshot(), COSTMODEL_STATS.snapshot(),
@@ -4796,6 +4816,283 @@ def training(K, torch, smi, device: str = "cuda") -> dict:
             "loss_first_last": [losses[0], losses[-1]]}
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the serving fabric
+# ---------------------------------------------------------------------------
+
+#: keyword arguments of the 2-rank acceptance program: the reference's
+#: defaults (a rehearsal on the CPU cuts the durations)
+FAB_KW: dict = {}
+#: the card leg: requests, admission window, C tile size (kt = 32)
+FAB_CARD_KW = {"requests": 64, "window": 16, "ts": 512}
+#: the p99 leg's attempts (the reference test's bounded retry)
+FAB_ATTEMPTS = 3
+
+
+def fabric_units(ptt) -> None:
+    """Phase 14 (a): the wire and plane units in process — credits granted,
+    spent locally and returned over a socketpair of two native comm
+    objects, with no frame for a spend; the plane's remote-window budget
+    and its set_weight; and a 3-rank in-process mesh (ranks 0 and 1 serve,
+    rank 2 routes) whose gateway follows the credit balances and raises
+    AdmissionBackpressure once every balance is spent."""
+    import functools
+    import socket
+    from parsec_tpu_torch import native as NATIVE
+    from parsec_tpu_torch.core.sched_plane import SchedPlane
+    from parsec_tpu_torch.dsl.dtd import AdmissionBackpressure
+    from parsec_tpu_torch.serving import IngestGateway, ServingFabric
+    pc, ps = NATIVE.load_ptcomm(), NATIVE.load_ptsched()
+    a, b = socket.socketpair()
+    c0, c1 = pc.Comm(0, 2), pc.Comm(1, 2)
+    c0.add_peer_fd(1, a.fileno())
+    c1.add_peer_fd(0, b.fileno())
+
+    def pump(*comms):
+        for _ in range(3):
+            for c in comms:
+                c.pump(2)
+    c0.cred_grant(1, 42, 7, 16)
+    pump(c0, c1)
+    frames = c0.stats()["cred_frames_tx"]
+    ok = c1.cred_avail(0, 42, 7) == 16 and c1.cred_take(0, 42, 7, 10)
+    pump(c0, c1)
+    ok &= c0.stats()["cred_frames_tx"] == frames
+    ok &= c1.cred_return(0, 42, 7, 100) == 6
+    pump(c1, c0)
+    ok &= c0.cred_outstanding(1, 42, 7) == 10
+    wire = c1.stats()
+    c0.stop(); c1.stop(); a.close(); b.close()
+    pl = ps.Plane(nworkers=1)
+    h = pl.register_pool(ext_id=1, kind=ps.KIND_EXT, window=10)
+    pl.admit(h, 4)
+    pl.remote_grant(h, 3)
+    ok &= pl.headroom(h) == 3 and not pl.over_window(h)
+    pl.set_weight(h, 3)
+    ok &= pl.pool_stats(h)["weight"] == 3
+    comms = [pc.Comm(r, 3) for r in range(3)]
+    socks = []
+    for i in range(3):
+        for j in range(i + 1, 3):
+            x, y = socket.socketpair()
+            comms[i].add_peer_fd(j, x.fileno())
+            comms[j].add_peer_fd(i, y.fileno())
+            socks += [x, y]
+    fabs = [ServingFabric(comms[r], SchedPlane(ps, 1, "wdrr"), r, 3,
+                          replenish=False) for r in range(3)]
+    landed = []
+    for r, fab in enumerate(fabs):
+        fab.insert_transport = functools.partial(
+            lambda dst, hdr, payload, _src: fabs[dst].on_fab(
+                _src, hdr, payload), _src=r)
+        if r < 2:
+            fab.serve("T", handler=lambda p, src, r=r: landed.append(r),
+                      window=(4, 64)[r])
+
+    def rounds():
+        for _ in range(3):
+            for fab in fabs:
+                fab.step()
+            pump(*comms)
+    rounds()
+    gw = IngestGateway(fabs[2], ranks=[0, 1])
+    heads = gw.headrooms("T")
+    for i in range(sum(heads.values())):
+        gw.submit("T", {"i": i}, nowait=True)
+    try:
+        gw.submit("T", {"i": -1}, nowait=True)
+        ok = False
+    except AdmissionBackpressure:
+        pass
+    rounds()
+    ok &= len(landed) == sum(heads.values()) and \
+        landed.count(1) > landed.count(0) > 0
+    for fab in fabs:
+        fab.fini()
+    for c in comms:
+        c.stop()
+    for x in socks:
+        x.close()
+    log(f"serving fabric (a) units: credits on a socketpair (granted "
+        f"{wire['creds_granted_rx']}, spent {wire['creds_spent']} with no "
+        f"frame, returned {wire['creds_returned_tx']}); plane remote window "
+        f"and set_weight; 3-rank gateway: headrooms {heads}, landed "
+        f"{landed.count(0)} on rank 0 and {landed.count(1)} on rank 1, then "
+        f"AdmissionBackpressure: {'ok' if ok else 'FAILED'}")
+    if not ok:
+        raise AssertionError("serving fabric wire/plane units failed")
+
+
+def fabric_acceptance(smi) -> dict:
+    """Phase 14 (b): ``fabric_2rank_program`` as two OS processes (CPU
+    rank contexts, one BLAS thread a rank), held to the reference's own
+    bounds: on every attempt the antagonist was rejected and served, spends
+    dwarf credit frames, no frame error, the reconciled cross-rank shares
+    within 25% of 2:1 with reconcile rounds and weight nudges on both
+    ranks; and the victim's merged p99 loaded within 2x of unloaded on one
+    of at most :data:`FAB_ATTEMPTS` attempts."""
+    import functools
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.serving.harness import fabric_2rank_program
+    attempts = []
+    for attempt in range(FAB_ATTEMPTS):
+        t0 = time.perf_counter()
+        res = run_distributed_procs(
+            2, functools.partial(fabric_2rank_program, **FAB_KW),
+            timeout=300)
+        wall = time.perf_counter() - t0
+        if not all(r.get("fabric") for r in res):
+            raise AssertionError(f"serving fabric down: {res}")
+        wire = {k: [r["wire"][k] for r in res] for k in (
+            "creds_granted_tx", "creds_spent", "cred_frames_rx",
+            "frame_errors")}
+        sv = sum(r["shares_window"]["sv"] for r in res)
+        sa = sum(r["shares_window"]["sa"] for r in res)
+        base = [x for r in res for x in r["victim_lats_base_ns"]]
+        load = [x for r in res for x in r["victim_lats_load_ns"]]
+        p99b = float(np.percentile(np.asarray(base), 99)) / 1e3
+        p99l = float(np.percentile(np.asarray(load), 99)) / 1e3
+        rejects = sum(r["antagonist_rejects"] for r in res)
+        served = sum(r["antagonist_served"] for r in res)
+        ratio = sv / max(1, sa)
+        bodies = [r["victim_body_ms"] for r in res]
+        log(f"serving fabric (b) attempt {attempt + 1}: victim p99 "
+            f"unloaded {p99b:.1f} us ({len(base)} probes), loaded "
+            f"{p99l:.1f} us ({len(load)} probes), {p99l / p99b:.2f}x; "
+            f"antagonist rejects {rejects}, served {served}; credit "
+            f"counters by rank {wire}; shares sv:sa {sv}:{sa} = {ratio:.3f} "
+            f"(weights 2:1), reconcile rounds {res[0]['reconcile_rounds']}, "
+            f"weight adjusts {[r['weight_adjusts'] for r in res]}; rank CPU "
+            f"s {[r['cpu_s'] for r in res]}, BLAS threads pinned by "
+            f"{res[0]['blas_threads_set']}; the victim's body alone (both "
+            f"ranks at once), this harness's product / the reference's "
+            f"passes, ms by rank: at the default BLAS thread count "
+            + ", ".join(f"{b['default_threads']['product']} / "
+                        f"{b['default_threads']['passes']}" for b in bodies)
+            + "; on one thread "
+            + ", ".join(f"{b['one_thread']['product']} / "
+                        f"{b['one_thread']['passes']}" for b in bodies)
+            + f"; job wall {wall:.1f} s ({smi})")
+        engaged = (rejects > 0 and served > 0
+                   and sum(wire["creds_granted_tx"]) > 0
+                   and all(r["wire"]["creds_spent"] > 0
+                           and r["wire"]["cred_frames_rx"]
+                           < r["wire"]["creds_spent"]
+                           + r["wire"]["creds_granted_rx"]
+                           and r["wire"]["frame_errors"] == 0
+                           and r["weight_adjusts"] > 0 for r in res)
+                   and res[0]["reconcile_rounds"] > 0
+                   and sv > 0 and sa > 0 and abs(ratio - 2.0) / 2.0 < 0.25
+                   and len(base) > 40 and len(load) > 40)
+        if not engaged:
+            raise AssertionError(f"serving fabric (b): engagement or shares "
+                                 f"failed on attempt {attempt + 1}")
+        attempts.append({"p99_us_unloaded": round(p99b, 1),
+                         "p99_us_loaded": round(p99l, 1),
+                         "rejects": rejects, "served": served,
+                         "shares": [sv, sa], "wire": wire,
+                         "victim_body_ms": bodies,
+                         "reconcile_rounds": res[0]["reconcile_rounds"]})
+        if p99l <= 2.0 * p99b:
+            return {"attempts": attempts}
+    raise AssertionError(f"serving fabric (b): the victim's p99 moved past "
+                         f"2x of unloaded on every attempt: {attempts}")
+
+
+def fabric_reclaim(smi) -> dict:
+    """Phase 14 (c): ``reclaim_2rank_program``: the serving rank dies
+    mid-window; the inserter's blocking acquire must raise in under 30 s
+    with its balance reclaimed."""
+    import functools
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.serving.harness import reclaim_2rank_program
+    target, ins = run_distributed_procs(
+        2, functools.partial(reclaim_2rank_program), timeout=240)
+    log(f"serving fabric (c) peer death: target granted "
+        f"{target.get('granted')}, inserter balance {ins.get('avail_before')}"
+        f" -> {ins.get('avail_after')}, blocking acquire {ins.get('outcome')}"
+        f" after {ins.get('waited_s')} s, dead {ins.get('dead')} ({smi})")
+    if not (target.get("granted", 0) > 0 and ins.get("outcome") == "raised"
+            and ins["waited_s"] < 30 and ins["avail_after"] == 0
+            and 0 in ins["dead"]):
+        raise AssertionError(f"serving fabric (c): {target}, {ins}")
+    return ins
+
+
+def fabric_card(smi, device: str = "cuda") -> dict:
+    """Phase 14 (d): ``card_serving_2rank_program``: rank 0's control
+    context is a card context (its plane up), attached through
+    ``ServingFabric.attach``; it serves tenant ``gemm`` through a KIND_EXT
+    fabric pool, each request inserting one bf16 GEMM_K task (C 512², kt =
+    32) into a card context's DTD pool and retired through
+    ``ServingFabric.done``; rank 1 sends the requests through an
+    IngestGateway. Every request served, one ``gemm_chain`` launch each,
+    one credit spent each; every served C tile equal to the plain chain of
+    the same (small-integer) tiles bit for bit, and within 1e-2 of
+    ``torch.matmul`` of them in float32 norm-wise (the chain rounds C to
+    bf16 at each of its 32 steps: its own max error / max |ref| is printed
+    beside)."""
+    import functools
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.serving.harness import card_serving_2rank_program
+    kw = dict(FAB_CARD_KW)
+    t0 = time.perf_counter()
+    server, client = run_distributed_procs(
+        2, functools.partial(card_serving_2rank_program, device=device,
+                             **kw), timeout=300)
+    wall = time.perf_counter() - t0
+    n = kw["requests"]
+    log(f"serving fabric (d) card leg: rank 0 control context a card "
+        f"context {server['card_context']}, plane {server['plane']}, fabric "
+        f"{server['fabric']}; {server['served']} of {n} requests served "
+        f"through a KIND_EXT pool (window {server['pool_window']}, inflight "
+        f"{server['pool_inflight']} after), {server['served_per_s']} "
+        f"requests/s from the first arrival to the last retire; gemm_chain "
+        f"launches {server['launches']} (by route "
+        f"{server['launches_by_route']}); credits spent "
+        f"{client['wire']['creds_spent']}, gateway stalls "
+        f"{client['fab_stats']['remote_stalls']}, rejects "
+        f"{client['fab_stats']['remote_rejects']}, routed "
+        f"{client['routed']}, submit wall {client['submit_s']} s; C tiles "
+        f"the plain chain's bit for bit {server['tiles_equal_plain']}; "
+        f"against torch.matmul f32: max err / max |ref| "
+        f"{server['max_err_rel']:.3e} (the plain chain's "
+        f"{server['plain_max_err_rel']:.3e}), norm-wise "
+        f"{server['norm_err_rel']:.3e}; job wall {wall:.1f} s ({smi})")
+    ok = (server["card_context"] and server["plane"] and server["fabric"]
+          and client["fabric"] and server["served"] == n
+          and client["wire"]["creds_spent"] == n
+          and server["pool_inflight"] == 0
+          and server["tiles_equal_plain"] and server["norm_err_rel"] < 1e-2
+          and server["wire"]["frame_errors"] == 0
+          and client["wire"]["frame_errors"] == 0)
+    if device == "cuda":
+        ok &= server["launches"] == n
+    if not ok:
+        raise AssertionError(f"serving fabric (d): {server}, {client}")
+    server["wall_s"] = wall
+    return server
+
+
+def serving_fabric(ptt, smi, device: str = "cuda") -> dict:
+    """Phase 14: the serving fabric, in four legs (a)-(d). Returns the
+    card leg's result (its ``gemm_chain`` launches and their routes)."""
+    t0 = time.perf_counter()
+    walls = {}
+    fabric_units(ptt)
+    walls["a"] = time.perf_counter() - t0
+    fabric_acceptance(smi)
+    walls["b"] = time.perf_counter() - t0 - sum(walls.values())
+    fabric_reclaim(smi)
+    walls["c"] = time.perf_counter() - t0 - sum(walls.values())
+    card = fabric_card(smi, device)
+    walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    log("serving fabric: wall seconds by leg " + "; ".join(
+        f"({k}) {v:.1f}" for k, v in walls.items())
+        + f"; phase {time.perf_counter() - t0:.1f} s ({smi})")
+    return card
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5192,6 +5489,13 @@ def main() -> int:
     launches += dist["launches"]
     lane_launches["distributed"] = dist["launches"]
     gemm_by_route["split"] += dist["launches"]
+
+    # ---- 14. the serving fabric: CPU ranks, then card work served -------
+    card = serving_fabric(ptt, smi)
+    launches += card["launches"]
+    lane_launches["serving"] = card["launches"]
+    for r, n_r in card["launches_by_route"].items():
+        gemm_by_route[r] += n_r
 
     # ---- the kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),

@@ -48,7 +48,10 @@ TAG_PTCOMM_BOOT = 8       # native comm lane bootstrap (comm/native.py)
 TAG_CLOCKSYNC = 9         # rank-0 clock-offset ping-pong (remote_dep.py)
 TAG_CNT_AGG = 10          # cross-rank counter aggregation at fini
 TAG_DTD_AUDIT = 11        # DTD replay-consistency auditor exchange
-TAG_PTFAB = 12            # serving-fabric control plane (not ported yet)
+TAG_PTFAB = 12            # serving-fabric control plane (serving/):
+                          # gateway-routed inserts + reconciliation
+                          # weight nudges; admission credits themselves
+                          # ride the native wire (ptcomm K_CRED)
 TAG_PTTEL = 13            # mesh telemetry plane (not ported yet)
 
 # capability flags (ref: parsec_comm_engine capabilities)

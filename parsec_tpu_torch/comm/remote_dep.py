@@ -44,8 +44,8 @@ from ..core import termdet as termdet_mod
 from ..utils import mca, output
 from .engine import (CAP_STREAMING, CommEngine, TAG_CLOCKSYNC, TAG_CNT_AGG,
                      TAG_DTD_AUDIT, TAG_INTERNAL_GET, TAG_INTERNAL_PUT,
-                     TAG_PTCOMM_BOOT, TAG_REMOTE_DEP_ACTIVATE, TAG_TERMDET,
-                     ready_event, snapshot)
+                     TAG_PTCOMM_BOOT, TAG_PTFAB, TAG_REMOTE_DEP_ACTIVATE,
+                     TAG_TERMDET, ready_event, snapshot)
 
 mca.register("comm_eager_limit", 65536,
              "Payloads up to this many bytes ride inside the activate AM", type=int)
@@ -131,6 +131,16 @@ class RemoteDepEngine:
         self._cnt_snaps: Dict[int, Dict[int, Dict[str, Any]]] = {}  # epoch->rank->snap
         self._cnt_epoch = 0
         self._cnt_closed = -1   # highest epoch already merged/abandoned
+        #: the serving fabric (serving/fabric.py), attached by the app or
+        #: harness via fab_attach; control AMs arriving earlier park.
+        #: _fab_lock closes the park-vs-attach race: without it the comm
+        #: thread could read fabric=None, lose the CPU, and append to a
+        #: box fab_attach already swapped out — dropping a routed insert
+        #: whose credit was already spent (a leaked window reservation)
+        self.fabric = None
+        self._fab_lock = threading.Lock()
+        self._fab_box: List[Tuple[int, Any, Any]] = []
+        ce.tag_register(TAG_PTFAB, self._on_fab)
         #: the native communication lane (comm/native.py): built HERE —
         #: at protocol-engine construction, when every rank is known to
         #: be standing up its mesh symmetrically — so taskpools created
@@ -397,6 +407,26 @@ class RemoteDepEngine:
     def _on_ptcomm_boot(self, ce, src, hdr, payload) -> None:
         """Park native-lane bootstrap AMs (consumed by comm/native.py)."""
         self._ptcomm_box.setdefault(src, []).append(hdr)
+
+    def _on_fab(self, ce, src, hdr, payload) -> None:
+        """Serving-fabric control AMs: dispatch to the attached fabric,
+        or park until one attaches (a gateway insert racing the serving
+        rank's fabric construction must not drop — the spent credit
+        would leak a window reservation)."""
+        with self._fab_lock:
+            fab = self.fabric
+            if fab is None:
+                self._fab_box.append((src, hdr, payload))
+                return
+        fab.on_fab(src, hdr, payload)
+
+    def fab_attach(self, fabric) -> None:
+        """Attach the serving fabric and replay parked control AMs."""
+        with self._fab_lock:
+            self.fabric = fabric
+            box, self._fab_box = self._fab_box, []
+        for src, hdr, payload in box:
+            fabric.on_fab(src, hdr, payload)
 
     def fini(self) -> None:
         # clock-sync finalization (the bounded collective pump) already

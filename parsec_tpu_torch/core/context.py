@@ -176,12 +176,12 @@ class Context:
         from ..device.device import DeviceRegistry
         self.devices = DeviceRegistry(self)
         #: native multi-pool scheduler plane (core/sched_plane.py): the
-        #: shared ready plane the DTD batched lane drains through —
-        #: per-worker hot queues, work stealing, weighted DRR across
-        #: taskpools, admission windows. None when --mca sched_native 0,
-        #: --mca native_enabled 0, the context has a CUDA device (its pools
-        #: stay off the batched lane), or the selected scheduler policy has
-        #: no native flavor (counted fallback)
+        #: shared ready plane the DTD batched lane, the PTG lane's pools and
+        #: the serving fabric's pools drain through — per-worker hot
+        #: queues, work stealing, weighted DRR across taskpools, admission
+        #: windows. None when --mca sched_native 0, --mca native_enabled 0,
+        #: or the selected scheduler policy has no native flavor (counted
+        #: fallback)
         from .sched_plane import SchedPlane
         self.sched_plane = SchedPlane.maybe_create(self)
         #: process tracer (the :attr:`profiling` property): attach one
@@ -700,9 +700,7 @@ class Context:
             # vector. The moment a SECOND pool runs concurrently (or a pool
             # carries explicit QoS config), every queued lane binds: ready
             # structures migrate into the plane mid-run (safe hand-off,
-            # see ptexec.cpp sched_bind) and the drain arbitrates by DRR.
-            # A context with a CUDA device has no plane (sched_plane.py),
-            # so its lanes keep their private vectors
+            # see ptexec.cpp sched_bind) and the drain arbitrates by DRR
             if self.sched_plane is not None and (
                     len(self._ptexec_q) > 1
                     or getattr(tp, "qos_weight", None)

@@ -4,7 +4,7 @@ The runtime measures what its lanes do (the execution lane's batch-
 amortized exec clock, the device lane's dispatch→retire windows, the
 coherency table's stage-ins, the program cache's hit accounting).
 :class:`CostModel` turns those measurements into per-``(task class, shape
-bucket, device)`` EWMA execute-cost estimates and feeds two consumers:
+bucket, device)`` EWMA execute-cost estimates and feeds three consumers:
 
 * **device placement** (``dsl/ptg/compiler.py _ptexec_place_classes``): a
   CUDA-bodied class with a CPU twin is placed per instantiation by measured
@@ -16,9 +16,8 @@ bucket, device)`` EWMA execute-cost estimates and feeds two consumers:
   class only while its measured per-task dispatch cost exceeds the fused
   region's per-task cost, and split oversized regions at the measured
   break-even band instead of the static ``region_fusion_max``.
-
-(The reference's third consumer, the serving reconciler's gain, comes with
-the serving layer.)
+* **reconciler gain** (``serving/reconcile.py``): the clamped share
+  multiplier's exponent adapts to measured convergence error.
 
 Feeding discipline: **no new hot-path instrumentation**. CPU-lane
 observations ride the execution lane's batch clock — ``csrc/ptexec.cpp``
@@ -61,7 +60,8 @@ mca.register("costmodel", True,
              "Arm the online cost models: per-(class, shape-bucket, "
              "device) EWMA execute costs folded from the native lanes' "
              "measurements when a lane graph finishes. 0 disables every "
-             "adaptive consumer at once (placement, fusion sizing) and "
+             "adaptive consumer at once (placement, fusion sizing, "
+             "reconciler gain) and "
              "skips the C-side row accumulator", type=bool)
 mca.register("costmodel_alpha", 0.25,
              "EWMA smoothing factor per FOLD batch (not per task): "
@@ -84,6 +84,10 @@ mca.register("costmodel_fusion", True,
              "region's marginal cost; split at the measured break-even "
              "band instead of region_fusion_max. 0 restores the static "
              "knobs", type=bool)
+mca.register("costmodel_reconcile", True,
+             "Consumer (c): the share reconciler's gain adapts to "
+             "measured convergence error (damp on overshoot, boost on "
+             "slow convergence) instead of the fixed exponent", type=bool)
 mca.register("costmodel_persist", "",
              "Persist the learned cost model to this JSON path at "
              "Context.fini and load it on first use — keyed by "
@@ -107,6 +111,7 @@ COSTMODEL_STATS = LaneStats(
     fusion_sized=0,          # fusion passes with model-derived limits
     fusion_declined=0,       # classes un-fused by measured break-even
     priors_seeded=0,         # time_estimate hooks folded as priors
+    gain_adapted=0,          # reconciler gain nudges
     persist_loads=0, persist_saves=0, persist_stale=0)
 
 

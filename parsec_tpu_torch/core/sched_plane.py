@@ -6,8 +6,8 @@ deficit-round-robin arbitration, admission windows); this module owns the
 plane per :class:`~parsec_tpu_torch.core.context.Context`:
 
 * **creation** — :meth:`SchedPlane.maybe_create` arms one plane per
-  context without a CUDA device when the native module loads AND the
-  selected scheduler module maps to a native arbitration flavor
+  context when the native module loads AND the selected scheduler module
+  maps to a native arbitration flavor
   (:attr:`~parsec_tpu_torch.core.scheduler.SchedulerModule.native_policy`);
   a policy without a native analogue (``ip``) counts an honest
   ``policy_fallback`` and every pool stays on its private ready structure;
@@ -17,9 +17,12 @@ plane per :class:`~parsec_tpu_torch.core.context.Context`:
   the handle routes their ready tasks through the plane (DTD:
   ``Engine.register_class(..., pool=h)``; PTG: ``Graph.sched_bind``, armed
   when a second lane pool runs beside the first, and served by weighted
-  DRR through :meth:`next_ptexec`);
+  DRR through :meth:`next_ptexec`; the serving fabric: ``KIND_EXT`` pools
+  it admits and retires itself);
 * **admission** — :meth:`over_window` / :meth:`count_stall` back the DTD
-  insert path's backpressure (``insert_task(..., nowait=)``);
+  insert path's backpressure (``insert_task(..., nowait=)``); the fabric's
+  remote-window entries (:meth:`headroom`, :meth:`remote_grant`, ...)
+  share one window between local and remote inserters;
 * **counters** — the live planes' C-side stats as ``sched.*`` samplers of
   the counter registry (:func:`plane_counter_sampler`).
 """
@@ -52,21 +55,22 @@ mca.register("sched_admission_window", 0,
              "nowait=True. 0 = unlimited; per-pool override via "
              "tp.admission_window", type=int)
 
-#: DRR credit unit of the plane (tasks per weight point per round):
-#: weights only bind on pools whose backlog exceeds weight * quantum
-QUANTUM = 256
+mca.register("sched_quantum", 256,
+             "DRR credit unit of the scheduler plane (tasks per weight "
+             "point per round). Weights only bind on pools whose backlog "
+             "exceeds weight*quantum, so serving meshes with tight "
+             "admission windows (the serving fabric) want a SMALL quantum",
+             type=int)
 
 #: engagement counters: ``pools_engaged`` counts pools registered on a
 #: plane, ``pools_retired`` the ones that completed and freed their slot,
 #: ``policy_fallback`` contexts whose --mca sched flavor has no native
 #: analogue, ``plane_unavailable`` contexts whose module did not load
-#: (``--mca native_enabled 0``), ``card_context`` contexts with a CUDA
-#: device (whose DTD pools never take the batched lane the plane drains),
-#: ``admission_stalls``/``admission_rejects`` the backpressure outcomes
+#: (``--mca native_enabled 0``), ``admission_stalls``/
+#: ``admission_rejects`` the backpressure outcomes
 SCHED_STATS = Counters(pools_engaged=0, pools_retired=0,
                        policy_fallback=0, plane_unavailable=0,
-                       card_context=0, admission_stalls=0,
-                       admission_rejects=0)
+                       admission_stalls=0, admission_rejects=0)
 
 #: the plane's C-side counters exported into the counter registry
 #: (``sched.<key>``, summed across live planes). ``admission_stalls`` is
@@ -107,11 +111,12 @@ class SchedPlane:
         self.plane = mod.Plane(
             nworkers=nworkers,
             policy=getattr(mod, f"POLICY_{policy_name.upper()}"),
-            quantum=QUANTUM)
+            quantum=max(1, int(mca.get("sched_quantum", 256))))
         #: the capsule the engines bind through (owns a plane ref)
         self.capsule = self.plane.plane_capsule()
         self.KIND_PTEXEC = mod.KIND_PTEXEC
         self.KIND_PTDTD = mod.KIND_PTDTD
+        self.KIND_EXT = mod.KIND_EXT
         self._pools: Dict[int, str] = {}       # handle -> pool name
         self._lock = threading.Lock()
         self._stats_cache: tuple = (0.0, None)  # (stamp, snapshot)
@@ -122,14 +127,10 @@ class SchedPlane:
     @classmethod
     def maybe_create(cls, context) -> Optional["SchedPlane"]:
         """The context-init gate: native module + native-eligible policy,
-        on a context without a CUDA device (only the batched lane of such
-        a context drains through the plane). Declines are COUNTED
-        (SCHED_STATS), never silent."""
+        on every context, a card's included (its DTD pools stay off the
+        batched lane, but its PTG pools and the serving fabric's pools use
+        the plane). Declines are COUNTED (SCHED_STATS), never silent."""
         if not mca.get("sched_native", True):
-            return None
-        from .task import DEV_CUDA
-        if any(d.type & DEV_CUDA for d in context.devices.devices):
-            SCHED_STATS["card_context"] += 1
             return None
         policy = getattr(context.sched, "native_policy", None)
         if policy is None:
@@ -210,6 +211,31 @@ class SchedPlane:
     def count_stall(self, h: int) -> None:
         self.plane.stall(h)
         SCHED_STATS["admission_stalls"] += 1
+
+    # ------------------------------------------------- serving fabric
+    # remote-window reservations and the mid-run QoS weight nudge of the
+    # share reconciler (serving/): thin passthroughs to the native plane;
+    # the fabric holds handles, not pool names
+    def headroom(self, h: Optional[int]) -> int:
+        """Grantable window room of pool h (-1 = unlimited)."""
+        if h is None or h < 0:
+            return 0
+        return self.plane.headroom(h)
+
+    def remote_grant(self, h: int, n: int = 1) -> None:
+        self.plane.remote_grant(h, n)
+
+    def remote_release(self, h: int, n: int = 1) -> None:
+        self.plane.remote_release(h, n)
+
+    def set_weight(self, h: int, weight: int) -> None:
+        self.plane.set_weight(h, max(1, int(weight)))
+
+    def admit(self, h: int, n: int = 1) -> None:
+        self.plane.admit(h, n)
+
+    def retired(self, h: int, n: int = 1) -> None:
+        self.plane.retired(h, n)
 
     # ------------------------------------------------------------- stats
     def stats(self) -> Dict[str, int]:

@@ -36,6 +36,10 @@ from .device.probe import ENV_FORCE_CPU
 
 _MULTIPROC_LOCK_PATH = os.path.join(tempfile.gettempdir(),
                                     "parsec_tpu_torch_multiproc.lock")
+#: set in the environment while a process holds the job lock: the
+#: processes it starts (a launcher it runs, that launcher's ranks) are part
+#: of its job and run inside the held lock instead of queueing behind it
+ENV_LOCK_HELD = "PARSEC_TPU_TORCH_JOB_LOCK_HELD"
 
 
 @contextlib.contextmanager
@@ -52,9 +56,13 @@ def multiproc_lock(timeout: float = 300.0):
 
     Ranks themselves (``PARSEC_TPU_TORCH_RANK`` set) skip the lock: the
     parent job already holds it, and a child blocking on it would
-    self-deadlock.
+    self-deadlock. So does every process started while the lock is held
+    (:data:`ENV_LOCK_HELD`, set by the holder): a job that runs the
+    launcher as a subprocess takes the lock first, and its time limit
+    then covers the job alone, not a wait behind other jobs.
     """
-    if os.environ.get(ENV_RANK) is not None:
+    if os.environ.get(ENV_RANK) is not None or \
+            os.environ.get(ENV_LOCK_HELD):
         yield
         return
     try:
@@ -65,16 +73,21 @@ def multiproc_lock(timeout: float = 300.0):
     try:
         import fcntl
         deadline = time.monotonic() + timeout
+        held = False
         while True:
             try:
                 fcntl.flock(f, fcntl.LOCK_EX | fcntl.LOCK_NB)
+                held = True
                 break
             except OSError:
                 if time.monotonic() > deadline:
                     break         # degrade rather than queue forever
                 time.sleep(0.2)
+        if held:
+            os.environ[ENV_LOCK_HELD] = str(os.getpid())
         yield
     finally:
+        os.environ.pop(ENV_LOCK_HELD, None)
         try:
             import fcntl
             fcntl.flock(f, fcntl.LOCK_UN)

@@ -253,15 +253,6 @@ def _requires_grad(*tensors) -> bool:
         any(t is not None and t.requires_grad for t in tensors)
 
 
-def _refuse_grad(name: str, *tensors) -> None:
-    """Raise when autograd would differentiate through ``name``'s kernel,
-    which has no backward (its CPU branch, the plain version, has one)."""
-    if _requires_grad(*tensors):
-        raise RuntimeError(
-            f"{name}'s CUDA kernel has no backward: call it under "
-            f"torch.no_grad() or on operands that do not require grad")
-
-
 def _check_gemm_chain(c, a_stack, b_stack) -> None:
     if a_stack.dim() != 3 or b_stack.dim() != 3 or c.dim() != 2:
         raise ValueError("gemm_chain takes C (m, n), A (kt, m, k), "
@@ -317,6 +308,38 @@ def gemm_chain_bf16_tolerance(c, a_stack, b_stack):
     return 2.0 * torch.ldexp(torch.ones_like(peak), exp - 8)
 
 
+def gemm_chain_backward(c, a_stack, b_stack, g):
+    """(dC, dA, dB) of :func:`gemm_chain` for the upstream gradient ``g``,
+    the gradient of the reference's chain expression written with library
+    calls: every step's product is added to C, so each step sees ``g``, cast
+    from C's dtype to float32 as the reference's per-step cast back to C's
+    dtype has it, and
+
+        dC = g,  dA[s] = g·B[s]ᵀ,  dB[s] = A[s]ᵀ·g,
+
+    summed in float32 (TF32 off) and returned in the operands' dtypes."""
+    dot_precision()
+    gf = g.to(c.dtype).float()
+    da = torch.matmul(gf, b_stack.float().transpose(1, 2))
+    db = torch.matmul(a_stack.float().transpose(1, 2), gf)
+    return g.to(c.dtype), da.to(a_stack.dtype), db.to(b_stack.dtype)
+
+
+class _GemmChain(torch.autograd.Function):
+    """:func:`gemm_chain` under autograd: the wrapper's forward (the kernel
+    on CUDA tensors, the plain version on the CPU), the backward
+    :func:`gemm_chain_backward`."""
+
+    @staticmethod
+    def forward(ctx, c, a_stack, b_stack):
+        ctx.save_for_backward(c, a_stack, b_stack)
+        return _gemm_chain_forward(c, a_stack, b_stack)
+
+    @staticmethod
+    def backward(ctx, g):
+        return gemm_chain_backward(*ctx.saved_tensors, g)
+
+
 def gemm_chain(c, a_stack, b_stack):
     """C + Σ_k A[k] @ B[k], returned as a new tensor, computed on the
     current CUDA stream by the route :func:`chain_route` picks: ``tile`` and
@@ -332,16 +355,23 @@ def gemm_chain(c, a_stack, b_stack):
 
     CPU tensors take :func:`gemm_chain_plain`; ``meta`` tensors get an
     empty result of C's shape and dtype (shape inference, no launch); CUDA
-    tensors launch the kernel or raise; they raise too when autograd would
-    differentiate through the kernel, which has no backward."""
+    tensors launch the kernel or raise. Under autograd (grad mode on and an
+    operand that requires grad) the call goes through :class:`_GemmChain`:
+    the same forward, and :func:`gemm_chain_backward` for the gradients."""
     _check_gemm_chain(c, a_stack, b_stack)
     if c.device.type == "meta":
         return torch.empty_like(c)
+    if _requires_grad(c, a_stack, b_stack):
+        return _GemmChain.apply(c, a_stack, b_stack)
+    return _gemm_chain_forward(c, a_stack, b_stack)
+
+
+def _gemm_chain_forward(c, a_stack, b_stack):
+    """:func:`gemm_chain`'s forward on checked operands."""
     if c.device.type == "cpu":
         return gemm_chain_plain(c, a_stack, b_stack)
     if c.device.type != "cuda":
         raise ValueError(f"gemm_chain has no kernel for {c.device}")
-    _refuse_grad("gemm_chain", c, a_stack, b_stack)
     lib = _library("gemm_chain")
     kt, m, k = a_stack.shape
     n = b_stack.shape[2]
@@ -422,6 +452,33 @@ def matmul_plain(a, b, block=(256, 256, 256)):
     return out
 
 
+def matmul_backward(a, b, g):
+    """(dA, dB) of :func:`matmul` for the upstream gradient ``g``: the
+    gradient of the reference's blocked expression (each bk block's product
+    added to the output, so every block sees ``g``), with library calls:
+    dA = g·Bᵀ, dB = Aᵀ·g, summed in float32 (TF32 off) and returned in
+    the operands' dtype."""
+    dot_precision()
+    gf = g.to(a.dtype).float()
+    return (torch.matmul(gf, b.float().t()).to(a.dtype),
+            torch.matmul(a.float().t(), gf).to(b.dtype))
+
+
+class _Matmul(torch.autograd.Function):
+    """:func:`matmul` under autograd on shapes its blocks divide: the
+    wrapper's forward (the kernel on CUDA tensors, the plain version on the
+    CPU), the backward :func:`matmul_backward`."""
+
+    @staticmethod
+    def forward(ctx, a, b, block):
+        ctx.save_for_backward(a, b)
+        return _matmul_forward(a, b, block)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*matmul_backward(*ctx.saved_tensors, g), None)
+
+
 def matmul(a, b, block=(256, 256, 256)):
     """Blocked A @ B with (bm, bn, bk) = ``block`` clipped to the shape,
     computed on the current CUDA stream by :func:`gemm_chain`'s kernels.
@@ -433,8 +490,9 @@ def matmul(a, b, block=(256, 256, 256)):
     the blocks do not divide take the reference's own route, one
     ``torch.matmul`` with float32 accumulation and a single rounding. Else
     CPU tensors take :func:`matmul_plain`, and CUDA tensors launch the
-    kernel (contiguous operands) or raise, under autograd too (the kernel
-    has no backward)."""
+    kernel (contiguous operands) or raise. Under autograd the kernel's
+    route goes through :class:`_Matmul`: the same forward, and
+    :func:`matmul_backward` for the gradients."""
     _check_matmul(a, b)
     bm, bn, bk = _matmul_blocks(a, b, block)
     m, k = a.shape
@@ -442,13 +500,22 @@ def matmul(a, b, block=(256, 256, 256)):
     if m % bm or n % bn or k % bk:
         dot_precision()
         return torch.matmul(a.float(), b.float()).to(a.dtype)
+    if _requires_grad(a, b):
+        return _Matmul.apply(a, b, block)
+    return _matmul_forward(a, b, block)
+
+
+def _matmul_forward(a, b, block):
+    """:func:`matmul`'s forward on checked operands its blocks divide."""
     if a.device.type == "cpu":
         return matmul_plain(a, b, block)
     if a.device.type != "cuda":
         raise ValueError(f"matmul has no kernel for {a.device}")
     if not (a.is_contiguous() and b.is_contiguous()):
         raise ValueError("matmul takes contiguous operands")
-    _refuse_grad("matmul", a, b)
+    _, _, bk = _matmul_blocks(a, b, block)
+    m, k = a.shape
+    n = b.shape[1]
     lib = _library("gemm_chain")
     kt = k // bk
     sms = _sm_count(a.device)
@@ -518,6 +585,48 @@ def stencil1d_plain(x, left, right, weights=(0.25, 0.5, 0.25)):
     return (w0 * xm + w1 * x) + w2 * xp
 
 
+def stencil1d_backward(x, left, right, g, weights=(0.25, 0.5, 0.25)):
+    """(dx, dleft, dright) of :func:`stencil1d` for the upstream gradient
+    ``g``: the transposed 3-point stencil in x's dtype, the weights rounded
+    to it as the forward has them,
+
+        dx[:, j] = w1·g[:, j] + w0·g[:, j+1] + w2·g[:, j-1]
+
+    (the terms past either end dropped), and the halo columns the forward
+    read get theirs: dleft[:, -1] = w0·g[:, 0], dright[:, 0] = w2·g[:, -1],
+    every other halo column 0. A ``None`` halo gets ``None``."""
+    w0, w1, w2 = torch.tensor(weights, dtype=x.dtype, device=x.device)
+    g = g.to(x.dtype)
+    dx = w1 * g
+    dx[:, :-1] += w0 * g[:, 1:]
+    dx[:, 1:] += w2 * g[:, :-1]
+    dleft = dright = None
+    if left is not None:
+        dleft = torch.zeros_like(left)
+        dleft[:, -1] = w0 * g[:, 0]
+    if right is not None:
+        dright = torch.zeros_like(right)
+        dright[:, 0] = w2 * g[:, -1]
+    return dx, dleft, dright
+
+
+class _Stencil1d(torch.autograd.Function):
+    """:func:`stencil1d` under autograd: the wrapper's forward (the kernel
+    on CUDA tensors, the plain version on the CPU), the backward
+    :func:`stencil1d_backward`."""
+
+    @staticmethod
+    def forward(ctx, x, left, right, weights):
+        ctx.save_for_backward(x, left, right)
+        ctx.weights = weights
+        return _stencil1d_forward(x, left, right, weights)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, left, right = ctx.saved_tensors
+        return (*stencil1d_backward(x, left, right, g, ctx.weights), None)
+
+
 def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
     """out = w0·xm + w1·x + w2·xp over a (rows, cols) tile, xm/xp the tile
     shifted right/left by one column with the halo columns ``left[:, -1]``
@@ -527,22 +636,30 @@ def stencil1d(x, left, right, weights=(0.25, 0.5, 0.25)):
     Bit for bit the function of :func:`stencil1d_plain` (the kernel rounds
     every product and sum, never fusing them). CPU tensors take the plain
     version; ``meta`` tensors get an empty result (shape inference, no
-    launch); CUDA tensors launch the kernel (contiguous tiles) or raise,
-    under autograd too (the kernel has no backward)."""
+    launch); CUDA tensors launch the kernel (contiguous tiles) or raise.
+    Under autograd the call goes through :class:`_Stencil1d`: the same
+    forward, and :func:`stencil1d_backward` for the gradients."""
     _check_stencil(x, left, right)
     if x.device.type == "meta":
         return torch.empty_like(x)
+    weights = tuple(float(w) for w in weights)
+    if _requires_grad(x, left, right):
+        return _Stencil1d.apply(x, left, right, weights)
+    return _stencil1d_forward(x, left, right, weights)
+
+
+def _stencil1d_forward(x, left, right, weights):
+    """:func:`stencil1d`'s forward on checked tiles."""
     if x.device.type == "cpu":
         return stencil1d_plain(x, left, right, weights)
     if x.device.type != "cuda":
         raise ValueError(f"stencil1d has no kernel for {x.device}")
     if not all(t is None or t.is_contiguous() for t in (x, left, right)):
         raise ValueError("stencil1d takes contiguous tiles")
-    _refuse_grad("stencil1d", x, left, right)
     lib = _library("stencil1d")
     rows, cols = x.shape
     out = torch.empty_like(x)
-    w0, w1, w2 = (float(w) for w in weights)
+    w0, w1, w2 = weights
     err = lib.stencil1d(
         x.data_ptr(), None if left is None else left.data_ptr(),
         None if right is None else right.data_ptr(), out.data_ptr(),

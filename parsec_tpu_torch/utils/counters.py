@@ -116,8 +116,9 @@ def install_native_counters() -> None:
     """Register the native lanes' engagement stats, their C-side counters,
     the lane-side datarepo retire counter, and the in-lane trace
     drop/landed counters as samplers under canonical names (``ptexec.*``,
-    ``ptdtd.*``, ``ptcomm.*``, ``ptdev.*``, ``sched.*``, ``capture.*``, ``costmodel.*``,
-    ``watchdog.*``, ``flight.*``, ``trace.*``) so
+    ``ptdtd.*``, ``ptcomm.*``, ``ptdev.*``, ``ptfab.*``, ``sched.*``,
+    ``capture.*``, ``costmodel.*``, ``watchdog.*``, ``flight.*``,
+    ``reconcile.*``, ``trace.*``) so
     :mod:`parsec_tpu_torch.tools.live_view`, ``/metrics`` and the
     SDE-style snapshot export see the lanes. Idempotent."""
     from ..comm import native as _cnative         # lazy: avoid import cycles
@@ -128,6 +129,8 @@ def install_native_counters() -> None:
     from ..dsl import dtd as _dtd
     from ..dsl import fusion as _fus
     from ..dsl.ptg import compiler as _ptg
+    from ..serving import fabric as _fab
+    from ..serving import reconcile as _rec
     from ..tools import flight as _fl
     from . import native_trace as _nt
     from .hist import install_hist_counters
@@ -139,6 +142,7 @@ def install_native_counters() -> None:
                           (_dtd.PTDTD_STATS, "ptdtd"),
                           (_cnative.PTCOMM_STATS, "ptcomm"),
                           (_dnative.PTDEV_STATS, "ptdev"),
+                          (_fab.FAB_STATS, "ptfab"),
                           (_sp.SCHED_STATS, "sched"),
                           # the program cache: capture.cache_{hits,misses,
                           # evictions} — the warm-pool contract on /metrics
@@ -148,7 +152,9 @@ def install_native_counters() -> None:
                           (_cm.COSTMODEL_STATS, "costmodel"),
                           # the lane stall watchdog + flight recorder
                           (_wd.WATCHDOG_STATS, "watchdog"),
-                          (_fl.FLIGHT_STATS, "flight")):
+                          (_fl.FLIGHT_STATS, "flight"),
+                          # the serving fabric's share reconciler
+                          (_rec.RECONCILE_STATS, "reconcile")):
         for key in stats:
             counters.register(f"{prefix}.{key}", sampler=_sampler(stats, key))
     # the comm lane's C-side wire counters (summed across live lanes)
@@ -168,6 +174,12 @@ def install_native_counters() -> None:
     for key in _sp.PLANE_COUNTER_KEYS:
         counters.register(f"sched.{key}",
                           sampler=_sp.plane_counter_sampler(key))
+    # the serving fabric's wire counters (credit grants/spends/reclaims
+    # summed across live fabrics); ptfab.served.<tenant> registers per
+    # served tenant (ServingFabric.serve)
+    for name, ckey in _fab.FAB_WIRE_KEYS.items():
+        counters.register(f"ptfab.{name}",
+                          sampler=_fab.fab_wire_sampler(ckey))
     counters.register(TRACE_EVENTS_DROPPED, sampler=_nt.total_dropped)
     counters.register(TRACE_EVENTS_NATIVE, sampler=_nt.total_landed)
     counters.register(PTEXEC_SLOTS_RETIRED)   # accumulator: lane finalize adds

@@ -15,12 +15,14 @@ Layers:
   declining the lane;
 * consumer (b) fusion sizing: a measured fused per-task cost >= unfused
   declines the class; a measured first-call cost above the per-member
-  saving shrinks the region cap to break-even.
+  saving shrinks the region cap to break-even;
+* consumer (c) the serving reconciler's gain: damped when the share error
+  grows, boosted while it stalls, frozen by ``--mca costmodel_reconcile 0``.
 
-(The reference's reconciler-gain tests wait for the serving layer.) A
-cross-check feeds one sequence of observations to both packages' models:
-the same placements and the same persisted entries, with ``tpu`` read as
-``cuda``.
+Cross-checks feed one sequence of observations to both packages' models
+(the same placements and the same persisted entries, with ``tpu`` read as
+``cuda``) and one sequence of share errors to both packages' reconcilers
+(the same gains round by round).
 """
 
 import json
@@ -489,3 +491,100 @@ def test_cross_check_same_observations_same_placements(tmp_path):
     assert sorted([c, b, _ref_dev(d), e, n, p]
                   for c, b, d, e, n, p in pblob["entries"]) == \
         sorted(rblob["entries"])
+
+
+# ------------------------------------------ consumer (c): reconciler gain
+class _StubFabric:
+    nb_ranks = 1
+    my_rank = 0
+    rde = None
+    _dead: set = set()
+
+    def __init__(self):
+        self.weights = {}
+
+    def set_weight(self, t, w):
+        self.weights[t] = w
+
+
+def _stepped_reconciler(monkeypatch, errs, package="parsec_tpu_torch"):
+    """A reconciler (of ``package``) whose scrape yields windows with the
+    given max share errors (two tenants, weights 1:1 — tenant 'b'
+    under-serves)."""
+    import importlib
+    reconcile = importlib.import_module(f"{package}.serving.reconcile")
+    rec = reconcile.ShareReconciler(_StubFabric(), [], {"a": 1.0, "b": 1.0})
+    served = {"a": 0, "b": 0}
+    feed = iter(errs)
+
+    def scrape():
+        try:
+            err = next(feed)
+        except StopIteration:
+            return None
+        # share error e% with two 1:1 tenants: a gets (50+e/2)% of 1000
+        n_a = int(1000 * (0.5 + err / 200.0))
+        served["a"] += n_a
+        served["b"] += 1000 - n_a
+        return {0: dict(served)}, set()     # one rank, none missing
+
+    monkeypatch.setattr(rec, "_scrape", scrape)
+    rec.step()                  # baseline window (no delta yet)
+    return rec
+
+
+def test_reconciler_gain_damps_on_overshoot(monkeypatch):
+    rec = _stepped_reconciler(monkeypatch, [10.0, 10.0, 30.0])
+    snap = COSTMODEL_STATS.snapshot()
+    assert rec.step() == pytest.approx(10.0, abs=0.5)
+    g0 = rec.gain
+    assert rec.step() == pytest.approx(30.0, abs=0.5)  # error GREW
+    assert rec.gain < g0
+    assert COSTMODEL_STATS.delta(snap)["gain_adapted"] >= 1
+
+
+def test_reconciler_gain_boosts_on_stall(monkeypatch):
+    rec = _stepped_reconciler(monkeypatch, [40.0, 40.0, 38.0])
+    rec.step()
+    g0 = rec.gain
+    rec.step()                  # error large and barely shrinking
+    assert rec.gain > g0
+    assert rec.gain <= 1.5
+
+
+def test_reconciler_gain_frozen_by_knob(monkeypatch):
+    mca.set("costmodel_reconcile", False)
+    try:
+        rec = _stepped_reconciler(monkeypatch, [10.0, 10.0, 30.0])
+        rec.step()
+        g0 = rec.gain
+        rec.step()
+        assert rec.gain == g0
+    finally:
+        mca.params.unset("costmodel_reconcile")
+
+
+@pytest.mark.parametrize("errs", [[10.0, 10.0, 30.0, 12.0, 4.0],
+                                  [40.0, 40.0, 38.0, 37.0, 36.0, 20.0]])
+@pytest.mark.parametrize("adapt", [True, False])
+def test_reconciler_gain_matches_the_reference(monkeypatch, errs, adapt):
+    """One sequence of share errors through both packages' reconcilers,
+    with the gain's consumer on and off: the same error, gain and weights
+    every round."""
+    from parsec_tpu.utils import mca as ref_mca
+    mca.set("costmodel_reconcile", adapt)
+    ref_mca.set("costmodel_reconcile", adapt)
+    try:
+        port = _stepped_reconciler(monkeypatch, errs)
+        ref = _stepped_reconciler(monkeypatch, errs, "parsec_tpu")
+        trail = []
+        for _ in errs:
+            e_port, e_ref = port.step(), ref.step()
+            assert e_port == e_ref
+            assert port.gain == ref.gain
+            assert port.fabric.weights == ref.fabric.weights
+            trail.append(port.gain)
+        assert (len(set(trail)) > 1) == adapt
+    finally:
+        mca.params.unset("costmodel_reconcile")
+        ref_mca.params.unset("costmodel_reconcile")

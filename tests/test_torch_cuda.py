@@ -341,7 +341,8 @@ def test_traced_dtd_gemm_on_the_card(gctx, tmp_path):
 
 def test_batched_lane_off_on_a_card_context(gctx):
     """Repeat inserts of one body on a card context stay on the per-task
-    lane: each returns its task, and the context arms no batched pool."""
+    lane: each returns its task, and the context arms no batched pool (its
+    scheduler plane is up all the same)."""
     tp = DTDTaskpool(gctx, "nobatch")
     t = tp.tile_new((4, 4))
     t.data.create_copy(0, torch.zeros(4, 4))
@@ -352,7 +353,8 @@ def test_batched_lane_off_on_a_card_context(gctx):
     tasks = [tp.insert_task(inc, (t, RW)) for _ in range(8)]
     assert all(task is not None and task.nid >= 0 for task in tasks)
     assert tp._neng is not None and not tp._batch_on
-    assert gctx._dtd_batch_pools == 0 and gctx.sched_plane is None
+    assert gctx._dtd_batch_pools == 0 and gctx.sched_plane is not None
+    assert tp._sched_pool is None
     _drain(gctx, tp)
     assert float(t.data.newest_copy().payload.cpu()[0, 0]) == 8.0
 
@@ -1353,15 +1355,15 @@ def test_ptg_cuda_gemm_matches_the_cpu_context(gctx):
 
 
 def test_ptg_ctl_chain_engages_the_lane_on_the_card(gctx):
-    """A CTL chain pool on a card context runs on the native lane (the
-    card context has no scheduler plane: the lane keeps its private ready
-    vector)."""
+    """A CTL chain pool on a card context runs on the native lane; a lone
+    pool with no QoS setting keeps its private ready vector beside the
+    context's scheduler plane."""
     from parsec_tpu_torch.dsl.ptg.compiler import PTEXEC_STATS, compile_ptg
     src = ("%global NT\n%global DEPTH\n"
            "T(i, l)\n  i = 0 .. NT-1\n  l = 0 .. DEPTH-1\n"
            "  CTL S <- (l > 0) ? S T(i, l-1)\n"
            "        -> (l < DEPTH-1) ? S T(i, l+1)\nBODY\n  pass\nEND\n")
-    assert gctx.sched_plane is None
+    assert gctx.sched_plane is not None
     s0 = PTEXEC_STATS.snapshot()
     tp = compile_ptg(src, "card-chain").instantiate(
         gctx, globals={"NT": 64, "DEPTH": 8}, collections={})
@@ -1370,6 +1372,7 @@ def test_ptg_ctl_chain_engages_the_lane_on_the_card(gctx):
     d = PTEXEC_STATS.delta(s0)
     assert d["pools_engaged"] == 1 and d["tasks_engaged"] == 512
     assert tp._ptexec_state["graph"].done()
+    assert tp._ptexec_state.get("sched_pool") is None
 
 
 def test_ptg_device_pool_runs_on_the_lane_on_the_card(gctx):

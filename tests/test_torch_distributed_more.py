@@ -1097,10 +1097,9 @@ def test_chip_smoke_distribution_phase_rehearses_on_the_cpu(monkeypatch):
     plane on and off and the same factor, the PTG legs through the native
     comm lane and remote_dep.py with the lane engaged on both ranks, the
     2-rank PTG GEMM) with every gate that does not need the card, on CPU
-    contexts, at sizes cut to a few tiles. Its multiprocess steps hold the
-    reference's job lock."""
+    contexts, at sizes cut to a few tiles. Its multiprocess steps take the
+    port's job lock."""
     import chip_smoke as CS
-    from parsec_tpu.launch import multiproc_lock
 
     from parsec_tpu_torch.ops import cuda_kernels as K
     monkeypatch.setattr(CS, "DIST_GEMM_N", 64)
@@ -1116,7 +1115,6 @@ def test_chip_smoke_distribution_phase_rehearses_on_the_cpu(monkeypatch):
     monkeypatch.setattr(CS, "DIST_TURNS", (True, False))
     monkeypatch.setattr(CS, "DIST_PTG_T", 2)
     monkeypatch.setattr(CS, "DIST_PTG_TS", 8)
-    with multiproc_lock():
-        out = CS.distribution(pt, K, torch, "cpu", device="cpu")
+    out = CS.distribution(pt, K, torch, "cpu", device="cpu")
     assert out["launches"] == 0            # the CPU runs the plain chain
     assert len(out["walls"]) == 4

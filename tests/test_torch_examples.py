@@ -1,11 +1,12 @@
 """The port's examples (``examples_torch/``: ex00 start/stop, ex01 hello
 world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF), ex11 (graph
 capture), ex16 (redistribution), and the distributed ex03 (a chain across
-ranks), ex08 (PTG GEMM on 4 ranks), ex09 (the TCP launcher) and ex14
-(device payloads across processes)) run green on the CPU, each in its own
-interpreter (ex09 and ex14 as 2 processes through ``python -m
-parsec_tpu_torch.launch --cpu``), and none of them imports JAX or the
-reference package."""
+ranks), ex08 (PTG GEMM on 4 ranks), ex09 (the TCP launcher), ex14
+(device payloads across processes) and ex17 (the serving fabric)) run
+green on the CPU, each in its own interpreter (ex09 and ex14 as 2
+processes through ``python -m parsec_tpu_torch.launch --cpu``, ex17 as
+the 2 processes it starts), and none of them imports JAX or the reference
+package."""
 
 import ast
 import os
@@ -20,6 +21,8 @@ EXAMPLES = ["ex00", "ex01", "ex02", "ex03", "ex04", "ex05", "ex06", "ex07",
             "ex08", "ex11", "ex16"]
 #: the examples a user starts through the launcher, with its options
 LAUNCHED = {"ex09": [], "ex14": ["--mca", "comm_device_mem", "1"]}
+#: the examples that start their own ranks (``run_distributed_procs``)
+SELF_LAUNCHED = ["ex17"]
 
 
 def _script(ex: str) -> pathlib.Path:
@@ -38,13 +41,14 @@ def test_port_example_runs_on_the_cpu(ex):
 
 @pytest.mark.parametrize("ex", sorted(LAUNCHED))
 def test_port_example_runs_through_the_launcher_on_the_cpu(ex):
-    """Two OS ranks on the TCP mesh, under the reference's job lock too
-    (the two packages' multiprocess jobs run one at a time)."""
+    """Two OS ranks on the TCP mesh, under the port's job lock."""
     import time
 
-    from parsec_tpu.launch import multiproc_lock
-    env = dict(os.environ, EXAMPLES_CPU="1")
-    with multiproc_lock():
+    from parsec_tpu_torch.launch import multiproc_lock as port_lock
+    # the port's lock is taken before the launcher starts, which then runs
+    # inside it instead of queueing on it within the subprocess's limit
+    with port_lock():
+        env = dict(os.environ, EXAMPLES_CPU="1")
         out = subprocess.run(
             [sys.executable, "-m", "parsec_tpu_torch.launch", "-n", "2",
              "--cpu", *LAUNCHED[ex], str(_script(ex))],
@@ -53,6 +57,23 @@ def test_port_example_runs_through_the_launcher_on_the_cpu(ex):
     time.sleep(0.5)   # the lock is not fair: let a waiting job in
     assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
     assert out.stdout.count("rank") >= 2
+
+
+@pytest.mark.parametrize("ex", SELF_LAUNCHED)
+def test_port_example_starts_its_own_ranks_on_the_cpu(ex):
+    """Two OS ranks the example starts itself, under the port's job lock
+    (its own ranks then run inside the held lock)."""
+    import time
+
+    from parsec_tpu_torch.launch import multiproc_lock as port_lock
+    with port_lock():
+        env = dict(os.environ, EXAMPLES_CPU="1")
+        out = subprocess.run([sys.executable, _script(ex).name],
+                             cwd=EX_DIR, env=env, capture_output=True,
+                             text=True, timeout=200)
+    time.sleep(0.5)   # the lock is not fair: let a waiting job in
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert f"{ex} OK" in out.stdout
 
 
 def test_launcher_without_a_card_raises_unless_asked_for_the_cpu():
@@ -71,7 +92,7 @@ def test_launcher_without_a_card_raises_unless_asked_for_the_cpu():
     assert "rank" not in out.stdout
 
 
-@pytest.mark.parametrize("ex", EXAMPLES + sorted(LAUNCHED))
+@pytest.mark.parametrize("ex", EXAMPLES + sorted(LAUNCHED) + SELF_LAUNCHED)
 def test_port_example_imports_neither_jax_nor_the_reference(ex):
     roots = set()
     for node in ast.walk(ast.parse(_script(ex).read_text())):

@@ -19,9 +19,9 @@ Three layers, mirroring how the lane is built:
   shared zero-copy payload codec.
 
 Program functions live at module top level so a forkserver rank can
-import them. Every multiprocess job also holds the reference package's
-host-wide job lock (``parsec_tpu.launch.multiproc_lock``), so the port's
-jobs and the reference's run one at a time under a parallel test run.
+import them. Every multiprocess job holds the port's job lock; none takes
+the reference package's, whose own jobs wait for it inside their time
+limits.
 """
 
 import functools
@@ -40,15 +40,13 @@ from parsec_tpu_torch.utils import mca
 
 
 def run_distributed_procs(*args, **kw):
-    """The port's process launcher under the reference's job lock. The
+    """The port's process launcher, which takes the port's job lock. The
     lock is not fair: a pause after each job lets a job waiting on it (it
     polls every 0.2 s) in before this file's next job."""
     import time
 
-    from parsec_tpu.launch import multiproc_lock
     try:
-        with multiproc_lock():
-            return _run_procs(*args, **kw)
+        return _run_procs(*args, **kw)
     finally:
         time.sleep(0.5)
 

@@ -362,16 +362,19 @@ def _inc(a):
 
 
 def test_no_plane_on_a_context_with_a_cuda_device():
-    """A context with a CUDA device keeps its DTD pools off the batched
-    lane, the plane's only client: it creates no plane, and the decline
-    is counted. Shown on the CPU with the CUDA device module over it."""
+    """On a context with a CUDA device the DTD pools take no plane pool:
+    they stay off the batched lane, as the reference keeps an accelerator
+    context's DTD pools. The context itself has its scheduler plane, as
+    every context has, and its PTG pools bind to it with their weights.
+    Shown on the CPU with the CUDA device module over it."""
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
     mca.set("device_cuda_over_cpu", True)
     try:
         before = SCHED_STATS.snapshot()
         ctx = Context(nb_cores=1, device="cpu")
         try:
-            assert ctx.sched_plane is None
-            assert SCHED_STATS.delta(before)["card_context"] == 1
+            assert ctx.sched_plane is not None
+            assert "card_context" not in SCHED_STATS
             tp = DTDTaskpool(ctx, "card")
             t = tp.tile_new((2, 2), torch.float32)
             t.data.create_copy(0, torch.zeros(2, 2))
@@ -383,6 +386,20 @@ def test_no_plane_on_a_context_with_a_cuda_device():
             tp.close()
             ctx.wait(timeout=30)
             assert float(t.data.newest_copy().payload[0, 0]) == 4.0
+            # a weighted PTG pool registers on the plane with its weight
+            prog = compile_ptg(
+                "%global NT\nT(i)\n  i = 0 .. NT-1\n"
+                "  CTL S <- (i > 0) ? S T(i-1)\n"
+                "        -> (i < NT-1) ? S T(i+1)\nBODY\n  pass\nEND\n",
+                "card-ptg")
+            ptg = prog.instantiate(ctx, globals={"NT": 8}, collections={},
+                                   name="card-ptg")
+            ptg.qos_weight = 3
+            ctx.add_taskpool(ptg)
+            h = ptg._ptexec_state["sched_pool"]
+            assert ctx.sched_plane.pool_stats(h)["weight"] == 3
+            ctx.wait(timeout=30)
+            assert SCHED_STATS.delta(before)["pools_engaged"] == 1
         finally:
             ctx.fini()
     finally:

@@ -9,9 +9,9 @@ CUDA tensors, so its cases run on the card (``cuda`` marker); the
 shared-memory half of the plane is tested in ``test_torch_xhost.py``.
 
 Program functions live at module top level so a forkserver rank can
-import them. Every multiprocess job holds the reference package's host-wide
-job lock (``parsec_tpu.launch.multiproc_lock``) besides the port's own, so
-the two packages' jobs run one at a time under a parallel test run.
+import them. Every multiprocess job holds the port's job lock; none takes
+the reference package's, whose own jobs wait for it inside their time
+limits.
 """
 
 import os
@@ -38,15 +38,13 @@ def _card(fn):
 
 
 def run_distributed_procs(*args, **kw):
-    """The port's process launcher under the reference's job lock. The
+    """The port's process launcher, which takes the port's job lock. The
     lock is not fair: a pause after each job lets a job waiting on it (it
     polls every 0.2 s) in before this file's next job."""
     import time
 
-    from parsec_tpu.launch import multiproc_lock
     try:
-        with multiproc_lock():
-            return _run_procs(*args, **kw)
+        return _run_procs(*args, **kw)
     finally:
         time.sleep(0.5)
 
@@ -303,10 +301,13 @@ def test_launcher_virtual_device_binding():
     import re
     import subprocess
     import sys as _sys
-    from parsec_tpu.launch import multiproc_lock
+    from parsec_tpu_torch.launch import multiproc_lock as port_lock
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     import time
-    with multiproc_lock():
+    # the port's job lock is taken HERE, before the launcher starts: the
+    # launcher runs inside it (ENV_LOCK_HELD) instead of queueing on it
+    # within the subprocess's time limit
+    with port_lock():
         out = subprocess.run(
             [_sys.executable, "-m", "parsec_tpu_torch.launch", "-n", "2",
              "--cpu", "--virtual-devices", "2",
@@ -349,14 +350,15 @@ def test_a_program_that_ran_a_job_leaves_no_process_behind(tmp_path):
     import subprocess
     import sys as _sys
     import time
-    from parsec_tpu.launch import multiproc_lock
+
+    from parsec_tpu_torch.launch import multiproc_lock as port_lock
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     script = tmp_path / "job.py"
     script.write_text(_JOB_SCRIPT.format(repo=repo))
     out_path = tmp_path / "out.txt"
     # the output goes to a file: a pipe would also wait for every process
-    # that inherited it
-    with multiproc_lock(), open(out_path, "w") as out:
+    # that inherited it; the job runs inside the port's lock taken here
+    with port_lock(), open(out_path, "w") as out:
         rc = subprocess.run([_sys.executable, str(script)], cwd=tmp_path,
                             stdout=out, stderr=subprocess.STDOUT,
                             timeout=120).returncode
