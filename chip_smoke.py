@@ -136,7 +136,7 @@ port's main paths through the entry points a user calls:
   8 experts, k = 2) for 5 SGD steps on the dense routed path, and
   ``moe_forward`` on a one-device expert group at capacity factor 1.0
   against ``dense_reference``, its drops the host's numbering's;
-* the serving fabric (phase 14, last): (a) the credit wire, the plane's
+* the serving fabric (phase 14): (a) the credit wire, the plane's
   remote window and a 3-rank gateway in process; (b) the reference's
   acceptance program on two OS processes with CPU rank contexts (victim
   p99 within 2x of unloaded over at most three attempts, shares within
@@ -144,7 +144,21 @@ port's main paths through the entry points a user calls:
   a serving rank whose control context is a card context, each request a
   bf16 GEMM_K task (C 512², kt = 32) on the card through a fabric-owned
   KIND_EXT plane pool: one ``gemm_chain`` launch a request, every C tile
-  the plain chain's bit for bit.
+  the plain chain's bit for bit; then the mesh telemetry plane over the
+  fabric: (e) its acceptance program on two OS processes (CPU rank
+  contexts, ``--mca tel_interval_ms 25``), held to the reference test's
+  assertions: rank 0's pushed rollup equal to each rank's own served
+  counters, the reconciler in push mode with no HTTP fetch, one flight
+  record ``flight-r1-*`` for a stall forced on rank 1 and rank 0's
+  watchdog clean; (f) (d)'s card leg with the plane pushing every 25 ms,
+  in turns with it off: every tile bit for bit, the rollup equal to each
+  rank's own counts, no HTTP fetch, requests a second on and off;
+* the package's entry points (phase 15): ``python -m parsec_tpu_torch
+  --devices`` (the CUDA device module on ``cuda:0``) and ``--help-mca``
+  (``tel_interval_ms`` listed), and the EP scaling row
+  (``launch.ep_scaling_rates``) at P = 1, 2, 4 OS processes with card rank
+  contexts beside ``cpu_budget()``, then P = 1 on a CPU context and on a
+  card context in turns.
 
 Every phase that fails ends the run with a nonzero exit code. At its
 end, and when it fails, the script stops every process it started and
@@ -160,7 +174,8 @@ launches by route, the mma route's times in turns with it, a float32
 sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
 include the head-dim-80 LM's and the training steps' (its ``training``
 sub-entry); the chain's ``distributed`` lane counts the
-2-rank GEMM's launches, its ``serving`` lane phase 14 (d)'s), and last ``{"ok": true, "device":
+2-rank GEMM's launches, its ``serving`` lane phase 14 (d)'s and
+(f)'s), and last ``{"ok": true, "device":
 {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
@@ -5074,9 +5089,190 @@ def fabric_card(smi, device: str = "cuda") -> dict:
     return server
 
 
+#: phase 14 (f): ``tel_interval_ms`` of each card-leg run, in turns (the
+#: plane up at the reference program's 25 ms, and down)
+TEL_CARD_TURNS = (25, 0, 0, 25)
+
+
+def telemetry_gate(res, bodies) -> bool:
+    """Phase 14 (e)'s gate, the reference test's own assertions on the two
+    ranks' results of ``pttel_2rank_program(stall=True)`` and the bodies of
+    the flight records ``flight-r1-*.json``: rank 0's pushed rollup of
+    every ``ptfab.served.*`` counter equal to each rank's own registry
+    value and summed to their total, staleness under 30 s, the leaf pushed
+    and the root folded and sent no frame, no tx or frame error, the
+    reconciler in push mode with push rounds and no HTTP fetch, and exactly
+    one flight record (trigger ``watchdog_stall``, lane
+    ``pool:stall-inject``) detected within 1000 ms while rank 0's watchdog
+    stays clean."""
+    r0, r1 = res
+    stall = r1["stall"]
+    tel = [r["tel_stats"] for r in res]
+    return (sorted(r0["ranks_seen"]) == [0, 1]
+            and all(r["served_local"] and r0["per_rank_served"][rank]
+                    == r["served_local"] for rank, r in enumerate(res))
+            and all(r0["rollup_served"][k] == sum(
+                r0["per_rank_served"][r].get(k, 0) for r in (0, 1))
+                for k in r0["per_rank_served"][0])
+            and all(v < 30 for v in r0["staleness_s"].values())
+            and tel[1]["frames_tx"] > 0 and tel[0]["frames_rx"] > 0
+            and tel[0]["frames_tx"] == 0
+            and all(t["rounds"] > 0 and t["tx_errors"] == 0 for t in tel)
+            and all(r["frame_errors"] == 0 for r in res)
+            and r0["reconcile_mode"] == "push"
+            and r0["reconcile"]["push_rounds"] > 0
+            and r0["reconcile"]["http_fetches"] == 0
+            and r0["watchdog_armed"] and r1["watchdog_armed"]
+            and stall["watchdog"]["pool_stalls"] == 1
+            and stall["detected_ms"] <= 2 * 500
+            and stall["flight_records"] == 1
+            and r0["watchdog_stats"]["pool_stalls"] == 0
+            and r0["watchdog_stats"]["device_stalls"] == 0
+            and len(bodies) == 1 and bodies[0]["trigger"] == "watchdog_stall"
+            and bodies[0]["detail"]["lane"] == "pool:stall-inject")
+
+
+def telemetry_acceptance(smi) -> dict:
+    """Phase 14 (e): ``pttel_2rank_program(stall=True)`` as two OS
+    processes (CPU rank contexts), held to :func:`telemetry_gate`. Returns
+    the frames a round and the staleness."""
+    import functools
+    import glob
+    import tempfile
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.serving.harness import pttel_2rank_program
+    with tempfile.TemporaryDirectory() as flight_dir:
+        t0 = time.perf_counter()
+        res = run_distributed_procs(
+            2, functools.partial(pttel_2rank_program, stall=True,
+                                 flight_dir=flight_dir),
+            timeout=300)
+        wall = time.perf_counter() - t0
+        records = glob.glob(os.path.join(flight_dir, "flight-r1-*.json"))
+        bodies = [json.load(open(p)) for p in records]
+    if not all(r.get("telemetry") for r in res):
+        raise AssertionError(f"telemetry plane down: "
+                             f"{[r.get('reason') for r in res]}")
+    r0, r1 = res
+    stall = r1["stall"]
+    tel = [r["tel_stats"] for r in res]
+    frames = {"leaf_tx_per_round": tel[1]["frames_tx"] / tel[1]["rounds"],
+              "root_rx_per_round": tel[0]["frames_rx"] / tel[0]["rounds"]}
+    log(f"telemetry plane (e) 2 OS ranks: rollup ptfab.served.* by rank "
+        f"{r0['per_rank_served']} against each rank's own "
+        f"{[r['served_local'] for r in res]}, mesh sums "
+        f"{r0['rollup_served']}; staleness s {r0['staleness_s']}, depth "
+        f"{r0['depth']}; rounds {[t['rounds'] for t in tel]}, frames tx "
+        f"{[t['frames_tx'] for t in tel]}, rx {[t['frames_rx'] for t in tel]}"
+        f" ({frames['leaf_tx_per_round']:.3f} sent a round by the leaf, "
+        f"{frames['root_rx_per_round']:.3f} received a round by the root), "
+        f"folds {[t['folds'] for t in tel]}, late drops "
+        f"{[t['late_drops'] for t in tel]}, tx errors "
+        f"{[t['tx_errors'] for t in tel]}, frame errors "
+        f"{[r['frame_errors'] for r in res]}; reconciler "
+        f"{r0['reconcile_mode']}: push rounds "
+        f"{r0['reconcile']['push_rounds']}, HTTP fetches "
+        f"{r0['reconcile']['http_fetches']}; stall on rank 1 detected in "
+        f"{stall['detected_ms']} ms (pool stalls "
+        f"{stall['watchdog']['pool_stalls']}), flight records "
+        f"{len(records)} ({[b['trigger'] for b in bodies]}), rank 0's "
+        f"watchdog pool/device stalls {r0['watchdog_stats']['pool_stalls']}"
+        f"/{r0['watchdog_stats']['device_stalls']}; job wall {wall:.1f} s "
+        f"({smi})")
+    if not telemetry_gate(res, bodies):
+        raise AssertionError(f"telemetry plane (e): {res}")
+    return {"frames": frames, "staleness_s": r0["staleness_s"],
+            "wall_s": wall}
+
+
+def telemetry_card_gate(server, client, interval, n,
+                        device: str = "cuda") -> bool:
+    """Phase 14 (f)'s gate on one run of ``card_serving_2rank_program`` at
+    ``tel_interval_ms=interval`` with ``n`` requests: every request served,
+    one ``gemm_chain`` launch each on the card, every C tile the plain
+    chain's bit for bit, no frame error, the plane up on both ranks exactly
+    when ``interval`` is not 0. With the plane up: rank 0's settled rollup
+    of the served and routed-insert counters (``harness.CARD_SERVED_KEYS``:
+    the tenant's fabric-owned pool is never popped, so
+    ``ptfab.served.gemm`` stays 0 and sends nothing) equal to each rank's
+    own nonzero values after the requests retired, rank 0's received and
+    rank 1's sent inserts each ``n``, and the reconciler's rounds read from
+    it with no HTTP fetch."""
+    res = (server, client)
+    ok = (server["fabric"] and client["fabric"] and server["served"] == n
+          and server["tiles_equal_plain"]
+          and server["wire"]["frame_errors"] == 0
+          and client["wire"]["frame_errors"] == 0
+          and all(r["telemetry"] == bool(interval) for r in res))
+    if device == "cuda":
+        ok &= server["card_context"] and server["launches"] == n
+    if interval:
+        ok &= (sorted(server["ranks_seen"]) == [0, 1]
+               and all(server["per_rank_served"][rank] == r["served_local"]
+                       for rank, r in enumerate(res))
+               and server["per_rank_served"][0].get(
+                   "ptfab.remote_inserts_rx") == n
+               and server["per_rank_served"][1].get(
+                   "ptfab.remote_inserts_tx") == n
+               and all(server["rollup_served"][k] == sum(
+                   server["per_rank_served"][r].get(k, 0) for r in (0, 1))
+                   for k in server["rollup_served"])
+               and server["reconcile_mode"] == "push"
+               and server["reconcile"]["push_rounds"] > 0
+               and server["reconcile"]["http_fetches"] == 0)
+    return ok
+
+
+def telemetry_card(smi, device: str = "cuda") -> dict:
+    """Phase 14 (f): ``card_serving_2rank_program`` (phase 14 (d)'s card
+    leg) with the telemetry plane pushing every 25 ms, in turns with the
+    plane down (:data:`TEL_CARD_TURNS`), each run held to
+    :func:`telemetry_card_gate`. Returns the launches of every run and the
+    requests a second on and off."""
+    import functools
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.serving.harness import card_serving_2rank_program
+    kw = dict(FAB_CARD_KW)
+    n = kw["requests"]
+    launches, by_route = 0, {}
+    rates = {"on": [], "off": []}
+    for interval in TEL_CARD_TURNS:
+        t0 = time.perf_counter()
+        server, client = run_distributed_procs(
+            2, functools.partial(card_serving_2rank_program, device=device,
+                                 tel_interval_ms=interval, **kw),
+            timeout=300)
+        wall = time.perf_counter() - t0
+        line = (f"telemetry plane (f) card leg, tel_interval_ms {interval}: "
+                f"{server['served']} of {n} served at "
+                f"{server['served_per_s']} requests/s, gemm_chain launches "
+                f"{server['launches']}, C tiles the plain chain's bit for bit "
+                f"{server['tiles_equal_plain']}")
+        if interval:
+            line += (f"; rollup by rank {server['per_rank_served']} against "
+                     f"each rank's own "
+                     f"{[server['served_local'], client['served_local']]}, "
+                     f"staleness s {server['staleness_s']}; reconciler "
+                     f"{server['reconcile_mode']}: push rounds "
+                     f"{server['reconcile']['push_rounds']}, HTTP fetches "
+                     f"{server['reconcile']['http_fetches']}")
+        log(line + f"; job wall {wall:.1f} s ({smi})")
+        if not telemetry_card_gate(server, client, interval, n, device):
+            raise AssertionError(f"telemetry plane (f): {server}, {client}")
+        rates["on" if interval else "off"].append(server["served_per_s"])
+        launches += server["launches"]
+        for r, n_r in server["launches_by_route"].items():
+            by_route[r] = by_route.get(r, 0) + n_r
+    log(f"telemetry plane (f): requests/s with the plane up {rates['on']}, "
+        f"down {rates['off']}, in turns {list(TEL_CARD_TURNS)} ms ({smi})")
+    return {"launches": launches, "launches_by_route": by_route,
+            "served_per_s": rates}
+
+
 def serving_fabric(ptt, smi, device: str = "cuda") -> dict:
-    """Phase 14: the serving fabric, in four legs (a)-(d). Returns the
-    card leg's result (its ``gemm_chain`` launches and their routes)."""
+    """Phase 14: the serving fabric, in four legs (a)-(d), and the mesh
+    telemetry plane over it, (e) and (f). Returns the card legs' result:
+    the ``gemm_chain`` launches of (d) and (f) and their routes."""
     t0 = time.perf_counter()
     walls = {}
     fabric_units(ptt)
@@ -5087,10 +5283,87 @@ def serving_fabric(ptt, smi, device: str = "cuda") -> dict:
     walls["c"] = time.perf_counter() - t0 - sum(walls.values())
     card = fabric_card(smi, device)
     walls["d"] = time.perf_counter() - t0 - sum(walls.values())
+    card["telemetry"] = telemetry_acceptance(smi)
+    walls["e"] = time.perf_counter() - t0 - sum(walls.values())
+    tel_card = telemetry_card(smi, device)
+    walls["f"] = time.perf_counter() - t0 - sum(walls.values())
+    card["launches"] += tel_card["launches"]
+    for r, n_r in tel_card["launches_by_route"].items():
+        card["launches_by_route"][r] = \
+            card["launches_by_route"].get(r, 0) + n_r
+    card["telemetry_card"] = tel_card
     log("serving fabric: wall seconds by leg " + "; ".join(
         f"({k}) {v:.1f}" for k, v in walls.items())
         + f"; phase {time.perf_counter() - t0:.1f} s ({smi})")
     return card
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the package's entry points
+# ---------------------------------------------------------------------------
+
+#: the EP scaling row: process counts and tasks a rank (the reference
+#: benchmark's EP leg, ``bench.py:929-945``)
+EP_PROCS, EP_NTASKS = (1, 2, 4), 20000
+#: P = 1 on a CPU context and on a card context, in turns
+EP_TURNS = ("cpu", "cuda", "cuda", "cpu")
+
+
+def entry_points(smi, device: str = "cuda") -> dict:
+    """Phase 15: ``python -m parsec_tpu_torch --devices`` (a card context:
+    the CUDA device module on ``cuda:0``; ``--cpu`` added for a CPU
+    rehearsal) and ``--help-mca`` (``tel_interval_ms`` listed); then
+    ``launch.ep_scaling_rates`` at P = 1, 2, 4 with card rank contexts
+    (each P's rank walls and aggregate tasks/s beside ``cpu_budget()``),
+    and P = 1 on a CPU context and on a card context in turns."""
+    from parsec_tpu_torch.launch import ep_scaling_rates
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    dev_args = ["--devices"] + (["--cpu"] if device == "cpu" else [])
+    out = {}
+    for name, args in (("devices", dev_args), ("help_mca", ["--help-mca"])):
+        out[name] = subprocess.run(
+            [sys.executable, "-m", "parsec_tpu_torch", *args], cwd=root,
+            capture_output=True, text=True, timeout=180)
+    devices = out["devices"].stdout.strip().splitlines()
+    want = "on cuda:0" if device == "cuda" else "cpu type="
+    ok = (out["devices"].returncode == 0 and any(
+        want in line and (device != "cuda" or "cuda(0)" in line)
+        for line in devices)
+        and out["help_mca"].returncode == 0
+        and "--mca tel_interval_ms" in out["help_mca"].stdout)
+    log(f"entry points: python -m parsec_tpu_torch {' '.join(dev_args)}: "
+        f"{devices} (rc {out['devices'].returncode}); --help-mca lists "
+        f"tel_interval_ms "
+        f"{'--mca tel_interval_ms' in out['help_mca'].stdout} (rc "
+        f"{out['help_mca'].returncode}; "
+        f"{len(out['help_mca'].stdout.splitlines())} lines)")
+    if not ok:
+        raise AssertionError(f"entry points: {out['devices'].stderr[-2000:]}"
+                             f"{out['help_mca'].stderr[-2000:]}")
+    detail = {}
+    rates = ep_scaling_rates(EP_PROCS, ntasks=EP_NTASKS, device=device,
+                             detail=detail)
+    for p in EP_PROCS:
+        log(f"EP scaling row P={p} ({device} rank contexts, {EP_NTASKS} "
+            f"tasks a rank, best of 2 after a warm run of 2000): rank walls "
+            f"{detail[p]['walls_s']} s, aggregate {rates[p]} tasks/s "
+            f"({smi})")
+    log(f"EP scaling row: cpu_budget {detail['cpu_budget']}")
+    turns = []
+    for dev in EP_TURNS:
+        dev = dev if device == "cuda" else "cpu"
+        d = {}
+        rate = ep_scaling_rates((1,), ntasks=EP_NTASKS, device=dev,
+                                detail=d)[1]
+        turns.append((dev, rate, d[1]["walls_s"][0]))
+    log("EP P=1 in turns, rank context: " + ", ".join(
+        f"{dev} {rate} tasks/s ({wall} s)" for dev, rate, wall in turns)
+        + f" ({smi})")
+    if not all(rates[p] > 0 for p in EP_PROCS):
+        raise AssertionError(f"EP scaling row: {rates}")
+    log(f"entry points phase {time.perf_counter() - t0:.1f} s ({smi})")
+    return {"ep": rates, "ep_detail": detail, "ep_turns": turns}
 
 
 def main() -> int:
@@ -5490,12 +5763,16 @@ def main() -> int:
     lane_launches["distributed"] = dist["launches"]
     gemm_by_route["split"] += dist["launches"]
 
-    # ---- 14. the serving fabric: CPU ranks, then card work served -------
+    # ---- 14. the serving fabric: CPU ranks, then card work served, then
+    # the mesh telemetry plane over both ----------------------------------
     card = serving_fabric(ptt, smi)
     launches += card["launches"]
     lane_launches["serving"] = card["launches"]
     for r, n_r in card["launches_by_route"].items():
         gemm_by_route[r] += n_r
+
+    # ---- 15. the package's entry points: the CLI, the EP scaling row ----
+    entry_points(smi)
 
     # ---- the kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),

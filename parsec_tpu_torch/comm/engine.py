@@ -52,7 +52,10 @@ TAG_PTFAB = 12            # serving-fabric control plane (serving/):
                           # gateway-routed inserts + reconciliation
                           # weight nudges; admission credits themselves
                           # ride the native wire (ptcomm K_CRED)
-TAG_PTTEL = 13            # mesh telemetry plane (not ported yet)
+TAG_PTTEL = 13            # mesh telemetry plane (comm/pttel.py):
+                          # counter deltas + sparse histogram buckets
+                          # pushed up the fanout reduction tree every
+                          # --mca tel_interval_ms; rank 0 serves /mesh
 
 # capability flags (ref: parsec_comm_engine capabilities)
 CAP_ONESIDED = 0x1

@@ -44,7 +44,8 @@ from ..core import termdet as termdet_mod
 from ..utils import mca, output
 from .engine import (CAP_STREAMING, CommEngine, TAG_CLOCKSYNC, TAG_CNT_AGG,
                      TAG_DTD_AUDIT, TAG_INTERNAL_GET, TAG_INTERNAL_PUT,
-                     TAG_PTCOMM_BOOT, TAG_PTFAB, TAG_REMOTE_DEP_ACTIVATE,
+                     TAG_PTCOMM_BOOT, TAG_PTFAB, TAG_PTTEL,
+                     TAG_REMOTE_DEP_ACTIVATE,
                      TAG_TERMDET, ready_event, snapshot)
 
 mca.register("comm_eager_limit", 65536,
@@ -141,6 +142,22 @@ class RemoteDepEngine:
         self._fab_lock = threading.Lock()
         self._fab_box: List[Tuple[int, Any, Any]] = []
         ce.tag_register(TAG_PTFAB, self._on_fab)
+        #: the mesh telemetry plane (comm/pttel.py): built here when --mca
+        #: tel_interval_ms > 0 (the whole mesh shares mca, so every rank
+        #: decides the same way); the handler registers unconditionally and
+        #: PARKS early frames — a child's first push racing this rank's
+        #: construction must fold, not drop (the dropped deltas would be
+        #: missing from the rollup forever)
+        self.telemetry = None
+        self._tel_lock = threading.Lock()
+        self._tel_box: List[Tuple[int, Any]] = []
+        ce.tag_register(TAG_PTTEL, self._on_tel)
+        try:
+            from .pttel import TelemetryPlane
+            if TelemetryPlane.configured():
+                self.tel_attach(TelemetryPlane(self))
+        except Exception as e:  # noqa: BLE001 — telemetry is advisory
+            output.debug_verbose(1, "pttel", f"telemetry plane off: {e}")
         #: the native communication lane (comm/native.py): built HERE —
         #: at protocol-engine construction, when every rank is known to
         #: be standing up its mesh symmetrically — so taskpools created
@@ -370,6 +387,8 @@ class RemoteDepEngine:
             return
         self._enabled = True
         self._clk_ping()        # kick the clock-offset estimate
+        if self.telemetry is not None:
+            self.telemetry.start()
         if mca.get("comm_thread", False):
             self._comm_thread = threading.Thread(
                 target=self._comm_main, name="parsec-comm", daemon=True)
@@ -428,6 +447,30 @@ class RemoteDepEngine:
         for src, hdr, payload in box:
             fabric.on_fab(src, hdr, payload)
 
+    def _on_tel(self, ce, src, hdr, payload) -> None:
+        """Telemetry frames: fold into the plane, or park until one
+        attaches (the _on_fab pattern; the box is bounded — an unarmed
+        rank in an armed mesh is a config error, counted not grown)."""
+        with self._tel_lock:
+            tel = self.telemetry
+            if tel is None:
+                from .pttel import TEL_STATS
+                if len(self._tel_box) < 256:
+                    self._tel_box.append((src, hdr))
+                    TEL_STATS["parked"] += 1
+                else:
+                    TEL_STATS["late_drops"] += 1
+                return
+        tel.on_frame(src, hdr)
+
+    def tel_attach(self, tel) -> None:
+        """Attach the telemetry plane and replay parked frames."""
+        with self._tel_lock:
+            self.telemetry = tel
+            box, self._tel_box = self._tel_box, []
+        for src, hdr in box:
+            tel.on_frame(src, hdr)
+
     def fini(self) -> None:
         # clock-sync finalization (the bounded collective pump) already
         # ran from Context.fini BEFORE the trace was stamped/dumped;
@@ -441,6 +484,10 @@ class RemoteDepEngine:
                     self._print_counter_table(table)
             except Exception as e:  # noqa: BLE001 - teardown must proceed
                 output.warning(f"counter aggregation at fini failed: {e}")
+        if self.telemetry is not None:
+            # final flush BEFORE the progress machinery stops: the last
+            # deltas ride one more hop while peers still pump AMs
+            self.telemetry.stop(flush=True)
         self._enabled = False
         if self._comm_thread is not None:
             self._comm_event.set()       # unpark for a prompt exit

@@ -109,6 +109,17 @@ class StallWatchdog:
         self.stall_ms = int(stall_ms if stall_ms is not None
                             else mca.get("watchdog_stall_ms", 0))
         self.rank = getattr(ctx, "my_rank", 0)
+        if not self.rank:
+            # a single-rank LOCAL context (the serving-tier shape) still
+            # lives in a mesh process: attribute dumps to the process's
+            # distributed rank when the telemetry plane knows it
+            try:
+                from ..comm.pttel import current_plane
+                tel = current_plane()
+                if tel is not None:
+                    self.rank = tel.my_rank
+            except Exception:  # noqa: BLE001 — attribution, not function
+                pass
         self.interval_s = max(0.005, self.stall_ms / 1e3 / 4)
         self._watch: Dict[str, _LaneWatch] = {}
         self._mu = threading.Lock()

@@ -16,6 +16,10 @@ the card-per-process shape. Without ``--cpu`` the job needs a card: the
 launcher asks :func:`parsec_tpu_torch.device.probe.decide_backend` (a
 subprocess probe; the launcher itself never initializes CUDA) and raises
 with the probe's reason when there is none.
+
+:func:`ep_scaling_rates` runs the EP scaling row the same way: P OS
+processes of :mod:`parsec_tpu_torch._bench_ep_worker` under the job lock,
+aggregate tasks/s = P·ntasks / max(rank wall), beside :func:`cpu_budget`.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 from .comm.tcp import ENV_NPROCS, ENV_RANK, ENV_RDV, _free_port
 from .comm.xhost import ENV_LOCAL_DEVICE
@@ -174,6 +179,104 @@ def _run_job(opts) -> int:
                 except subprocess.TimeoutExpired:
                     _kill_group(p, signal.SIGKILL)
     return rc
+
+
+def cpu_budget() -> dict:
+    """The host's real CPU allowance — cgroup quota + affinity mask — so
+    scaling rows are reproducible from logged inputs (an aggregate above
+    the nominal core count must be explainable)."""
+    quota = None
+    try:
+        with open("/sys/fs/cgroup/cpu.max") as f:
+            raw = f.read().split()
+        if raw and raw[0] != "max":
+            quota = float(raw[0]) / float(raw[1])
+    except OSError:
+        try:
+            with open("/sys/fs/cgroup/cpu/cpu.cfs_quota_us") as f:
+                q = int(f.read())
+            with open("/sys/fs/cgroup/cpu/cpu.cfs_period_us") as f:
+                p = int(f.read())
+            if q > 0:
+                quota = q / p
+        except OSError:
+            pass
+    try:
+        allowed = len(os.sched_getaffinity(0))
+    except (AttributeError, OSError):
+        allowed = os.cpu_count()
+    return {"cgroup_cpu_quota_cores": quota, "cpus_allowed": allowed,
+            "nproc": os.cpu_count()}
+
+
+def ep_scaling_rates(proc_counts=(1, 2, 4), ntasks: int = 20000,
+                     timeout: float = 240.0, device: str = "cuda",
+                     detail: Optional[dict] = None) -> dict:
+    """Aggregate EP task throughput at P OS processes — the framework's
+    scaling row.
+
+    Process-per-card is the architecture (one host process drives one
+    card's task graph; ranks mesh over TCP — the reference's one-MPI-rank-
+    per-GPU shape). Thread counts beyond one measure only the GIL, so
+    scale-out is measured the way it is deployed: real OS processes
+    (:mod:`parsec_tpu_torch._bench_ep_worker`), barrier-aligned, aggregate
+    = P·ntasks / max(rank wall). Each rank's context is a card context;
+    ``device="cpu"`` runs them on the CPU (``PARSEC_TPU_TORCH_FORCE_CPU``).
+    The job holds :func:`multiproc_lock`, as the launcher's jobs do.
+
+    Returns {P: aggregate tasks/s}; ``detail`` gets each P's rank walls and
+    aggregate, and the host's :func:`cpu_budget`.
+    """
+    import re
+
+    if device not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device!r}")
+    pkg_parent = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    rates = {}
+    with multiproc_lock():
+        if device == "cuda":
+            _require_card()
+        for nprocs in proc_counts:
+            rdv = f"127.0.0.1:{_free_port()}"
+            procs = []
+            for rank in range(nprocs):
+                env = dict(os.environ)
+                env[ENV_RANK] = str(rank)
+                env[ENV_NPROCS] = str(nprocs)
+                env[ENV_RDV] = rdv
+                if device == "cpu":
+                    env[ENV_FORCE_CPU] = "1"
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "parsec_tpu_torch._bench_ep_worker",
+                     str(ntasks)],
+                    env=env, cwd=pkg_parent, stdout=subprocess.PIPE,
+                    stderr=subprocess.PIPE, text=True,
+                    start_new_session=True))
+            walls = []
+            try:
+                deadline = time.monotonic() + timeout
+                for p in procs:
+                    out, err = p.communicate(
+                        timeout=max(1.0, deadline - time.monotonic()))
+                    m = re.search(r"wall=([0-9.]+)", out or "")
+                    if p.returncode != 0 or not m:
+                        raise RuntimeError(
+                            f"EP worker failed (rc={p.returncode}): "
+                            f"{(out or '').strip()[-200:]} "
+                            f"{(err or '').strip()[-400:]}")
+                    walls.append(float(m.group(1)))
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        _kill_group(p, signal.SIGKILL)
+                        p.wait()
+            rates[nprocs] = round(nprocs * ntasks / max(walls))
+            if detail is not None:
+                detail[nprocs] = {"walls_s": [round(w, 6) for w in walls],
+                                  "aggregate_tasks_per_sec": rates[nprocs]}
+    if detail is not None:
+        detail["cpu_budget"] = cpu_budget()
+    return rates
 
 
 def _kill_group(p: subprocess.Popen, sig) -> None:

@@ -1,11 +1,13 @@
 """2-rank serving-fabric harness programs.
 
-Shared by ``tests/test_torch_ptfab.py``, ``examples_torch/ex17`` and
-``chip_smoke.py`` phase 14, so the acceptance scenario — credits on the
-wire, an antagonist tenant flooding every rank while a victim tenant's p99
-holds, cross-rank shares reconciled to global weights — is measured by ONE
-program however it is launched. Lives in the package (not the test file)
-because a forked rank must import the program by module path.
+Shared by ``tests/test_torch_ptfab.py``, ``tests/test_torch_pttel.py``,
+``examples_torch/ex17`` and ``chip_smoke.py`` phase 14, so the acceptance
+scenarios — credits on the wire, an antagonist tenant flooding every rank
+while a victim tenant's p99 holds, cross-rank shares reconciled to global
+weights, the mesh telemetry plane's pushed rollup against each rank's own
+counters — are measured by ONE program however they are launched. Lives in
+the package (not the test file) because a forked rank must import the
+program by module path.
 
 Topology per rank process: a **distributed control context** (the CE mesh
 + native comm lane + TAG_PTFAB plane — what the fabric's credits and
@@ -13,7 +15,8 @@ control AMs ride) and a **local serving context** (single-rank, 2 workers)
 hosting one plane-bound DTD taskpool per tenant — the serving-tier shape
 where each rank runs its own pool instances and the GATEWAY, not a
 distributed task graph, spreads the requests. Both are CPU contexts in
-:func:`fabric_2rank_program` and :func:`reclaim_2rank_program`;
+:func:`fabric_2rank_program`, :func:`pttel_2rank_program` and
+:func:`reclaim_2rank_program`;
 :func:`card_serving_2rank_program` serves card work from a card context.
 
 Latency is measured on the SERVING rank per tenant: the ingest handler
@@ -434,6 +437,232 @@ def fabric_2rank_program(rank, ce, *, isolation_s: float = 2.0,
     return out
 
 
+#: the counters the 2-rank acceptance program compares, rollup against
+#: each rank's own registry: what every tenant's plane pool served
+SERVED_KEYS = ("ptfab.served.",)
+#: the card leg's: its tenant is a fabric-owned KIND_EXT pool whose
+#: requests run in the handler and retire through ``done``, never popped
+#: from the plane, so its ``ptfab.served.gemm`` stays 0 (as in the
+#: reference); the routed inserts each rank sent and received count them
+CARD_SERVED_KEYS = ("ptfab.served.", "ptfab.remote_inserts_")
+
+
+def _served_counters(keys=SERVED_KEYS,
+                     nonzero: bool = False) -> Dict[str, float]:
+    """This process's registry values of the ``keys`` families (its own
+    truth); with ``nonzero``, only the cells that ever left 0 (a counter
+    that never moved sends no delta, so the rollup has no cell for it)."""
+    from ..utils.counters import counters
+    return {k: v for k, v in counters.snapshot().items()
+            if k.startswith(keys) and (v or not nonzero)}
+
+
+def _settled_rollup(tel, nb_ranks: int, interval_ms: int,
+                    keys=SERVED_KEYS, timeout: float = 15.0) -> Dict:
+    """Rank 0, every rank quiesced and flushed: wait until the pushed
+    rollup's columns of the ``keys`` families cover every rank and stop
+    moving (the background pusher keeps folding), then report both the
+    per-rank columns and the gauge-safe mesh sums."""
+    def served_view():
+        roll = tel.rollup()
+        return {r: {k: v for k, v in ent["counters"].items()
+                    if k.startswith(keys)}
+                for r, ent in roll["ranks"].items()}
+    deadline = time.monotonic() + timeout
+    prev = None
+    while time.monotonic() < deadline:
+        cur = served_view()
+        if len(cur) == nb_ranks and cur == prev:
+            break
+        prev = cur
+        time.sleep(max(0.1, 3 * interval_ms / 1e3))
+    roll = tel.rollup()
+    return {"rollup_served": {k: v for k, v in roll["rollup"].items()
+                              if k.startswith(keys)},
+            "per_rank_served": served_view(),
+            "staleness_s": {r: ent["staleness_s"]
+                            for r, ent in roll["ranks"].items()},
+            "ranks_seen": sorted(roll["ranks"]),
+            "depth": roll["depth"]}
+
+
+def pttel_2rank_program(rank, ce, *, load_s: float = 1.2,
+                        tel_interval_ms: int = 25,
+                        watchdog_stall_ms: int = 500,
+                        stall: bool = False,
+                        flight_dir: str = "") -> Dict:
+    """The mesh telemetry plane's acceptance program (2 OS ranks): the
+    pttel push plane under real serving load.
+
+    Both ranks serve two tenants and feed them through the gateway for
+    ``load_s``; the telemetry plane pushes counter deltas up the tree the
+    whole time. After quiescing, rank 0 waits for the pushed rollup to
+    settle and reports BOTH views of every ``ptfab.served.*`` counter — the
+    rolled-up value and each rank's own registry value travels back in the
+    per-rank results — so the caller can assert the tree-aggregated numbers
+    equal the per-rank truth exactly. Rank 0 also runs push-mode reconciler
+    rounds and reports the ``reconcile.*`` deltas (the zero-HTTP-fetch
+    contract).
+
+    With ``stall=True`` rank 1 injects a never-drained KIND_EXT plane pool
+    under its (already armed) watchdog and waits for detection: exactly
+    one attributed flight record must land in ``flight_dir``. Rank 0's
+    watchdog runs the whole time WITHOUT an injected stall — its clean
+    ``watchdog.*`` counters are the zero-false-positive evidence under real
+    load. Both contexts of a rank are CPU contexts; bodies are one
+    ``np.dot`` on one BLAS thread (:func:`pin_blas_threads`)."""
+    import glob
+
+    pin_blas_threads(1)
+    from ..comm.pttel import TEL_STATS
+    from ..comm.remote_dep import RemoteDepEngine
+    from ..core.context import Context
+    from ..core.watchdog import WATCHDOG_STATS
+    from ..dsl.dtd import AdmissionBackpressure
+    from ..serving.fabric import ServingFabric
+    from ..serving.gateway import IngestGateway
+    from ..serving.reconcile import RECONCILE_STATS, ShareReconciler
+    from ..tools.metrics_server import MetricsServer
+    from ..utils import mca
+
+    mca.set("dtd_window_size", 64)
+    mca.set("sched_quantum", 4)
+    mca.set("comm_thread", True)
+    mca.set("tel_interval_ms", tel_interval_ms)
+    mca.set("tel_fanout", 2)
+    mca.set("watchdog_stall_ms", watchdog_stall_ms)
+    if flight_dir:
+        mca.set("flight_dir", flight_dir)
+    nb_ranks = ce.nb_ranks
+    ctx_d = Context(nb_cores=1, device="cpu", my_rank=rank,
+                    nb_ranks=nb_ranks)
+    rde = RemoteDepEngine(ctx_d, ce)
+    lane = rde.native
+    tel = rde.telemetry
+    if lane is None or tel is None:
+        ce.sync()
+        ctx_d.fini()
+        ce.fini()
+        return {"telemetry": False,
+                "reason": "native comm lane down" if lane is None
+                else "telemetry plane not built"}
+    ctx_d.start()                       # rde progress + telemetry pusher up
+    ctx_l = Context(nb_cores=2, device="cpu")   # watchdog arms (mca above)
+    plane = ctx_l.sched_plane
+    if plane is None:
+        ce.sync()
+        ctx_l.fini()
+        ctx_d.fini()
+        ce.fini()
+        return {"telemetry": False, "reason": "scheduler plane down"}
+    fab = ServingFabric(lane.comm, plane, rank, nb_ranks, rde=rde,
+                        lane=lane)
+    tv = _TenantHost(ctx_l, "tv", 256, 1_000_000, weight=2)
+    ta = _TenantHost(ctx_l, "ta", 256, 500_000)
+    fab.serve("tv", handler=tv.ingest, taskpool=tv.tp)
+    fab.serve("ta", handler=ta.ingest, taskpool=ta.tp)
+    ctx_l.start()
+    ms = MetricsServer(rank=rank, nb_ranks=nb_ranks, port=0).start()
+    fab.announce_endpoint(ms.endpoint)
+    gw = IngestGateway(fab)
+    rec_before = RECONCILE_STATS.snapshot()
+    ce.sync()
+
+    out: Dict = {"telemetry": True, "rank": rank}
+
+    # ---- load phase: both tenants, modest rate, every rank ----------
+    t_end = time.monotonic() + load_s
+    n = 0
+    while time.monotonic() < t_end:
+        for t in ("tv", "ta"):
+            try:
+                gw.submit(t, {"n": n}, nowait=True)
+            except AdmissionBackpressure:
+                pass
+            except (RuntimeError, TimeoutError):
+                break
+        n += 1
+        time.sleep(2e-3)
+    ce.sync()
+    for host in (tv, ta):
+        host.tp.wait(timeout=120)
+
+    # ---- push-mode reconciler rounds (rank 0) -----------------------
+    # the serve counters are frozen now (load done), so the interesting
+    # assertions are mechanical: rounds ran off the pushed rollup with
+    # ZERO per-round HTTP fetches
+    if rank == 0:
+        deadline = time.monotonic() + 15
+        while len(fab.endpoints) < nb_ranks and \
+                time.monotonic() < deadline:
+            time.sleep(5e-3)
+        eps = [fab.endpoints[r] for r in sorted(fab.endpoints)]
+        rec = ShareReconciler(fab, eps, {"tv": 2.0, "ta": 1.0},
+                              period=0.05, tel="auto")
+        for _ in range(6):
+            rec.step()
+            time.sleep(max(0.06, 2 * tel_interval_ms / 1e3))
+        out["reconcile"] = RECONCILE_STATS.delta(rec_before)
+        out["reconcile_mode"] = rec.last_mode
+    ce.sync()
+
+    # ---- quiesced rollup-vs-truth comparison ------------------------
+    out["served_local"] = _served_counters()
+    tel.flush()
+    if rank == 0:
+        out.update(_settled_rollup(tel, nb_ranks, tel_interval_ms))
+    ce.sync()
+
+    # ---- forced stall (rank 1 only, when asked) ---------------------
+    wd = ctx_l.watchdog
+    out["watchdog_armed"] = wd is not None
+    if stall and rank == 1 and wd is not None:
+        before = WATCHDOG_STATS.snapshot()
+        h = plane.register_pool("stall-inject", plane.KIND_EXT,
+                                weight=1, window=0)
+        if h >= 0:
+            plane.admit(h, 4)           # held work that never drains
+        t0 = time.monotonic()
+        deadline = t0 + 4 * watchdog_stall_ms / 1e3
+        while WATCHDOG_STATS["pool_stalls"] <= before["pool_stalls"] \
+                and time.monotonic() < deadline:
+            time.sleep(watchdog_stall_ms / 1e3 / 20)
+        detected_ms = round((time.monotonic() - t0) * 1e3, 1)
+        # the counter ticks BEFORE the watchdog thread finishes writing
+        # the dump: give the file its own (bounded) wait
+        nrec = 0
+        while flight_dir and time.monotonic() < deadline + 2.0:
+            nrec = len(glob.glob(f"{flight_dir}/flight-r*-*.json"))
+            if nrec:
+                break
+            time.sleep(0.02)
+        out["stall"] = {
+            "detected_ms": detected_ms,
+            "watchdog": WATCHDOG_STATS.delta(before),
+            "flight_records": nrec,
+        }
+        if h >= 0:
+            plane.unregister_pool(h)
+    ce.sync()
+
+    # ---- teardown + evidence ----------------------------------------
+    fab.fini()
+    for host in (tv, ta):
+        host.tp.wait(timeout=120)
+        host.tp.close()
+    ctx_l.wait(timeout=120)
+    s = lane.comm.stats()
+    out["frame_errors"] = s["frame_errors"]
+    out["tel_stats"] = TEL_STATS.snapshot()
+    out["watchdog_stats"] = WATCHDOG_STATS.snapshot()
+    ce.sync()
+    ms.stop()
+    ctx_l.fini()
+    ctx_d.fini()
+    ce.fini()
+    return out
+
+
 def reclaim_2rank_program(rank, ce, *, window: int = 32) -> Dict:
     """Peer-death containment, with REAL processes: rank 0 serves a
     windowed tenant, grants credits, then dies mid-window (hard
@@ -516,7 +745,8 @@ def reclaim_2rank_program(rank, ce, *, window: int = 32) -> Dict:
 def card_serving_2rank_program(rank, ce, *, requests: int = 64,
                                window: int = 16, ts: int = 512,
                                kt: int = 32, device: str = "cuda",
-                               seed: int = 0) -> Dict:
+                               seed: int = 0,
+                               tel_interval_ms: int = 0) -> Dict:
     """The fabric serving card work: rank 0 serves tenant ``gemm`` from a
     CARD control context (a context with the CUDA device module, whose
     scheduler plane is up), rank 1 sends ``requests`` requests through an
@@ -532,6 +762,13 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
     window the replenisher grants credits from. Rank 1 spends one credit a
     request and stalls (counted) when the balance runs out.
 
+    With ``tel_interval_ms`` > 0 the mesh telemetry plane pushes while the
+    requests are served: once every request is retired, each rank reports
+    its own nonzero :data:`CARD_SERVED_KEYS` values (``served_local``),
+    rank 0 waits for the pushed rollup to settle and reports it beside them,
+    and runs reconciler rounds off the rollup (``reconcile``,
+    ``reconcile_mode``), which must make no HTTP fetch.
+
     ``device="cpu"`` rehearses it on the CPU with the CUDA device module
     over the CPU (``--mca device_cuda_over_cpu``), at cut sizes."""
     import torch
@@ -546,10 +783,12 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
     from ..ops.gemm import _gemm_chain_body
     from ..serving.fabric import FAB_STATS, ServingFabric
     from ..serving.gateway import IngestGateway
+    from ..serving.reconcile import RECONCILE_STATS, ShareReconciler
     from ..utils import mca
 
     mca.set("comm_thread", True)
     mca.set("device_load_balance_allow_cpu", False)
+    mca.set("tel_interval_ms", tel_interval_ms)
     serving = rank == 0
     if serving and device == "cpu":
         mca.set("device_cuda_over_cpu", True)
@@ -559,7 +798,7 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
         mca.set("device_cuda_max_bytes", 2 << 30)
     ctx_d = Context(nb_cores=1, device=device if serving else "cpu",
                     my_rank=rank, nb_ranks=ce.nb_ranks)
-    RemoteDepEngine(ctx_d, ce)
+    tel = RemoteDepEngine(ctx_d, ce).telemetry
     ctx_d.start()
     fab_before = FAB_STATS.snapshot()
     fab = ServingFabric.attach(ctx_d)
@@ -567,9 +806,33 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
         "rank": rank, "fabric": fab is not None,
         "card_context": any(d.type & DEV_CUDA
                             for d in ctx_d.devices.devices),
-        "plane": ctx_d.sched_plane is not None}
+        "plane": ctx_d.sched_plane is not None,
+        "telemetry": tel is not None}
+
+    def telemetry_settle() -> None:
+        """Both ranks, every request retired: push this rank's served
+        counts, and at rank 0 read them back out of the settled rollup and
+        run reconciler rounds off it (two barriers)."""
+        out["served_local"] = _served_counters(CARD_SERVED_KEYS,
+                                               nonzero=True)
+        tel.flush()
+        ce.sync()
+        if rank == 0:
+            rec_before = RECONCILE_STATS.snapshot()
+            rec = ShareReconciler(fab, [], {"gemm": 1.0}, period=0.05,
+                                  tel="auto")
+            for _ in range(4):
+                rec.step()
+                time.sleep(max(0.06, 2 * tel_interval_ms / 1e3))
+            out["reconcile"] = RECONCILE_STATS.delta(rec_before)
+            out["reconcile_mode"] = rec.last_mode
+            out.update(_settled_rollup(tel, ce.nb_ranks, tel_interval_ms,
+                                       CARD_SERVED_KEYS))
+        ce.sync()
+
     if fab is None:
-        for _ in range(3):            # the other rank's three barriers
+        # the other rank's barriers
+        for _ in range(5 if tel is not None else 3):
             ce.sync()
         ctx_d.fini()
         ce.fini()
@@ -647,6 +910,8 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
             "plain_max_err_rel": float((plain.float() - ref).abs().max()
                                        / ref.abs().max())})
         ce.sync()                         # every request retired
+        if tel is not None:
+            telemetry_settle()
         fab.fini()
         ctx_l.fini()
     else:
@@ -658,6 +923,8 @@ def card_serving_2rank_program(rank, ce, *, requests: int = 64,
         out["submit_s"] = round(time.perf_counter() - t0, 4)
         out["routed"] = dict(gw.routed)
         ce.sync()
+        if tel is not None:
+            telemetry_settle()
         s = fab.comm_stats()
         out["wire"] = {k: s.get(k, 0) for k in
                        ("creds_granted_rx", "creds_spent",

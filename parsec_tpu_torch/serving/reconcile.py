@@ -6,14 +6,17 @@ global share while staying exactly on-weight everywhere. This module
 closes the loop without a global lock anywhere near the hot path:
 
 * rank 0 runs a :class:`ShareReconciler` — a slow control loop (default
-  4 Hz) that reads every rank's ``ptfab.served.<tenant>`` counters by
-  scraping each rank's ``/metrics`` endpoint
-  (:func:`parsec_tpu_torch.tools.metrics_server.fetch`). A missing rank (a
-  failed fetch) does not void the round: the loop reconciles over the
-  reporting ranks (``reconcile.partial_rounds``) and skips only the
-  missing ranks' weight nudges — their cumulative counters make the next
-  delta span both rounds. (The mesh telemetry plane, whose pushed rollup
-  would spare the fetches, is not part of the port yet.)
+  4 Hz) that reads every rank's ``ptfab.served.<tenant>`` counters. With
+  the mesh telemetry plane running (:mod:`parsec_tpu_torch.comm.pttel`)
+  the readings come out of the PUSHED mesh rollup — zero HTTP fetches per
+  round, the tree already delivered every rank's counters to rank 0;
+  without it the loop falls back to scraping each rank's ``/metrics``
+  endpoint (:func:`parsec_tpu_torch.tools.metrics_server.fetch`). Either
+  way a missing rank (stale in the rollup, or a failed fetch) does not
+  void the round: the loop reconciles over the reporting ranks
+  (``reconcile.partial_rounds``) and skips only the missing ranks' weight
+  nudges — their cumulative counters make the next delta span both
+  rounds;
 * each round it computes the MEASURED global share of every tenant over
   the last window (served deltas summed across ranks), compares against
   the target share from the global weights, and nudges a per-tenant
@@ -40,7 +43,7 @@ task costs reconcile task-shares, not cpu-shares.
 from __future__ import annotations
 
 import threading
-from typing import Dict, Iterable, List, Optional, Set, Tuple
+from typing import Any, Dict, Iterable, List, Optional, Set, Tuple
 
 from ..utils import output
 from ..utils.counters import LaneStats
@@ -48,8 +51,9 @@ from .fabric import FAB_STATS, ServingFabric
 
 #: exported as ``reconcile.*`` by install_native_counters
 RECONCILE_STATS = LaneStats(
-    scrape_rounds=0,    # rounds read by per-rank HTTP
-    http_fetches=0,     # individual /metrics GETs issued
+    push_rounds=0,      # rounds fed by the pttel mesh rollup (0 fetches)
+    scrape_rounds=0,    # rounds that fell back to per-rank HTTP
+    http_fetches=0,     # individual /metrics GETs issued (fallback only)
     partial_rounds=0,   # rounds reconciled with >= 1 rank missing
     missing_ranks=0,    # cumulative missing-rank observations
 )
@@ -72,10 +76,15 @@ class ShareReconciler:
     #: runaway boost): skip the nudge, keep the baseline
     MIN_WINDOW_TASKS = 32
 
+    #: a rank whose rollup entry is staler than this many telemetry
+    #: intervals counts as missing for the round (push mode): nudging on
+    #: a frozen snapshot would mis-read a live tenant as starved
+    STALE_INTERVALS = 8.0
+
     def __init__(self, fabric: ServingFabric, endpoints: List[str],
                  weights: Dict[str, float], *, period: float = 0.25,
                  gain: float = 0.6, max_mult: float = 16.0,
-                 scale: Optional[int] = None) -> None:
+                 scale: Optional[int] = None, tel: Any = "auto") -> None:
         self.fabric = fabric
         self.endpoints = list(endpoints)   # rank-indexed /metrics addrs
         self.weights = dict(weights)       # tenant -> global weight
@@ -83,6 +92,10 @@ class ShareReconciler:
         self.gain = gain
         self.max_mult = max_mult
         self.scale = scale if scale is not None else self.SCALE
+        #: "auto" = discover the telemetry plane through fabric.rde per
+        #: round (it attaches after the reconciler in some harnesses);
+        #: None = HTTP only; a TelemetryPlane pins the push source
+        self.tel = tel
         self._mult = {t: 1.0 for t in weights}       # nudged multiplier
         #: per-rank served-at-last-round; a missing rank KEEPS its old
         #: entry so its next delta spans the gap (cumulative counters)
@@ -91,19 +104,49 @@ class ShareReconciler:
         self._thread: Optional[threading.Thread] = None
         self.rounds = 0
         self.last_err_pct: Optional[float] = None
+        self.last_mode: Optional[str] = None     # "push" | "scrape"
         self.converged_round: Optional[int] = None  # first round <= 15%
         self._prev_err: Optional[float] = None   # gain scheduling state
 
     # ------------------------------------------------------------ scraping
-    def _served_of(self, counters: Dict[str, object]) -> Dict[str, int]:
+    def _telemetry(self):
+        if self.tel == "auto":
+            return getattr(getattr(self.fabric, "rde", None),
+                           "telemetry", None)
+        return self.tel or None
+
+    def _served_of(self, counters: Dict[str, Any]) -> Dict[str, int]:
         return {t: int(counters.get(f"ptfab.served.{t}", 0) or 0)
                 for t in self.weights}
 
-    def _scrape(self) -> Optional[
+    def _from_push(self, tel) -> Optional[
             Tuple[Dict[int, Dict[str, int]], Set[int]]]:
-        """The round's readings: per-rank /metrics GETs. A failed endpoint
-        does not void the round — it joins the missing set and only its
-        nudges are skipped (the partial-round contract)."""
+        """Read the round out of the pushed mesh rollup: zero network
+        traffic here — the tree already delivered every rank's counters.
+        A rank absent from the rollup (or staler than STALE_INTERVALS
+        telemetry rounds) counts as missing for this round."""
+        roll = tel.rollup()
+        ranks = roll.get("ranks", {})
+        bound = max(0.25, self.STALE_INTERVALS * tel.interval_s)
+        per_rank: Dict[int, Dict[str, int]] = {}
+        missing: Set[int] = set()
+        for r in range(self.fabric.nb_ranks):
+            ent = ranks.get(r)
+            if ent is None or ent.get("staleness_s", bound) > bound:
+                missing.add(r)
+                continue
+            per_rank[r] = self._served_of(ent.get("counters", {}))
+        if not per_rank:
+            return None           # no subtree landed yet: let HTTP try
+        RECONCILE_STATS["push_rounds"] += 1
+        self.last_mode = "push"
+        return per_rank, missing
+
+    def _from_http(self) -> Optional[
+            Tuple[Dict[int, Dict[str, int]], Set[int]]]:
+        """Fallback: per-rank /metrics GETs. A failed endpoint does not
+        void the round — it joins the missing set and only its nudges are
+        skipped (the partial-round contract)."""
         from ..tools.metrics_server import fetch
         per_rank: Dict[int, Dict[str, int]] = {}
         missing: Set[int] = set()
@@ -116,7 +159,20 @@ class ShareReconciler:
         if not per_rank:
             return None
         RECONCILE_STATS["scrape_rounds"] += 1
+        self.last_mode = "scrape"
         return per_rank, missing
+
+    def _scrape(self):
+        """The round's readings: the pushed rollup when the telemetry
+        plane runs, per-rank HTTP otherwise. Returns ``(per_rank,
+        missing)`` — or a flat ``{tenant: total}`` dict from a
+        monkeypatched scrape, which :meth:`step` normalizes."""
+        tel = self._telemetry()
+        if tel is not None:
+            got = self._from_push(tel)
+            if got is not None:
+                return got
+        return self._from_http()
 
     # ------------------------------------------------------------- rounds
     def step(self) -> Optional[float]:
@@ -126,7 +182,14 @@ class ShareReconciler:
         if got is None:
             return None           # _last unchanged: cumulative counters
                                   # make the next delta span both rounds
-        per_rank, missing = got
+        if isinstance(got, dict):
+            # a flat {tenant: mesh total} scrape: model it as a single
+            # pseudo-rank so the math is unchanged
+            per_rank: Dict[int, Dict[str, int]] = {
+                0: {t: int(got.get(t, 0) or 0) for t in self.weights}}
+            missing: Set[int] = set()
+        else:
+            per_rank, missing = got
         if missing:
             RECONCILE_STATS["partial_rounds"] += 1
             RECONCILE_STATS["missing_ranks"] += len(missing)

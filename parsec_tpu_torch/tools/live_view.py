@@ -7,7 +7,7 @@ draws the series with matplotlib. Headless-friendly (Agg backend) — on a
 cluster the PNG lands where a dashboard can poll it, which is the
 operations shape of "live GUI".
 
-Two sources:
+Three sources:
 
 * **in-process** (default): the unified counter registry of THIS process;
 * **cross-process**: pass ``endpoints=[...]`` — one or many rank metrics
@@ -17,6 +17,12 @@ Two sources:
   reads as one dashboard. With several endpoints the series are prefixed
   ``r<rank>.``; an unreachable endpoint counts into ``poll_errors`` and
   the other ranks keep sampling.
+* **mesh**: pass ``mesh_endpoint="http://..."`` — ONE poll of rank 0's
+  ``/mesh`` (the pttel tree-aggregated rollup) replaces N per-rank
+  fetches: per-rank series (``r<rank>.``) plus the mesh sums (``mesh.``)
+  from a single GET, with each rank's push staleness surfaced in
+  :meth:`stats` (``mesh_staleness``). A poll while the telemetry plane is
+  down counts into ``plane_down``.
 
 Long runs never lose their early history: hitting ``max_samples``
 decimates the stored series in half (every other sample dropped, counted
@@ -51,9 +57,14 @@ class LiveCounterView:
 
     def __init__(self, registry=None, interval_s: float = 0.1,
                  max_samples: int = 10000,
-                 endpoints: Optional[Sequence[str]] = None) -> None:
+                 endpoints: Optional[Sequence[str]] = None,
+                 mesh_endpoint: Optional[str] = None) -> None:
         self.endpoints = list(endpoints) if endpoints else None
-        if registry is None and self.endpoints is None:
+        self.mesh_endpoint = mesh_endpoint
+        self.plane_down = 0            # /mesh polls with no plane data
+        self.mesh_staleness: Dict[int, float] = {}  # rank -> seconds
+        if registry is None and self.endpoints is None \
+                and mesh_endpoint is None:
             # default view: make the native lanes visible (ptexec.*,
             # ptdtd.*, trace.* samplers — idempotent registration)
             from ..utils.counters import install_native_counters
@@ -72,7 +83,37 @@ class LiveCounterView:
         self._t0 = None
 
     # ------------------------------------------------------------- sampling
+    def _snapshot_mesh(self) -> Dict[str, float]:
+        """One GET of rank 0's /mesh: the whole mesh's per-rank counters
+        plus the rollup sums ride a single pushed snapshot — O(1) polls
+        regardless of mesh size (the N-fetch mode stays as fallback)."""
+        from .metrics_server import fetch
+        try:
+            m = fetch(self.mesh_endpoint, path="/mesh")
+        except Exception:  # noqa: BLE001 — poll again next interval
+            self.poll_errors += 1
+            return {}
+        if m.get("ranks") is None:
+            self.plane_down += 1
+            return {}
+        snap: Dict[str, float] = {}
+        staleness: Dict[int, float] = {}
+        for r, ent in m["ranks"].items():
+            r = int(r)   # JSON object keys arrive as strings
+            staleness[r] = float(ent.get("staleness_s") or 0.0)
+            for k, v in ent.get("counters", {}).items():
+                if isinstance(v, (int, float)):
+                    snap[f"r{r}.{k}"] = v
+        for k, v in m.get("rollup", {}).items():
+            if isinstance(v, (int, float)):
+                snap[f"mesh.{k}"] = v
+        with self._lock:
+            self.mesh_staleness = staleness
+        return snap
+
     def _snapshot(self) -> Dict[str, float]:
+        if self.mesh_endpoint is not None:
+            return self._snapshot_mesh()
         if self.endpoints is None:
             return {k: v for k, v in self.registry.snapshot().items()
                     if isinstance(v, (int, float))}
@@ -145,6 +186,9 @@ class LiveCounterView:
                    "samples_dropped": self.samples_dropped,
                    "decimations": self.decimations,
                    "poll_errors": self.poll_errors}
+            if self.mesh_endpoint is not None:
+                out["plane_down"] = self.plane_down
+                out["mesh_staleness"] = dict(self.mesh_staleness)
             return out
 
     # ------------------------------------------------------------- rendering

@@ -14,6 +14,10 @@ HTTP server (TCP on 127.0.0.1, or a unix-domain socket) serving
   stall degrades it to ``ok: false`` with the attributed stall list
 * ``GET /histograms``  — raw log2 bucket arrays (non-zero entries), for
   consumers that want to merge distributions instead of percentiles
+* ``GET /mesh``        — rank 0 only in practice: the telemetry plane's
+  tree-aggregated mesh rollup (``comm/pttel.py``) — summed counters,
+  merged histogram buckets, per-rank gauges and per-rank staleness —
+  with zero per-request cross-rank traffic (the data was pushed here)
 
 Started from ``Context`` init via ``--mca metrics_port <base>`` (rank r
 binds ``base + r``, loopback only) or ``--mca metrics_uds <path>``
@@ -78,6 +82,8 @@ class _Handler(BaseHTTPRequestHandler):
                 body = srv.metrics_body()
             elif path == "/histograms":
                 body = srv.histograms_body()
+            elif path == "/mesh":
+                body = srv.mesh_body()
             else:
                 self.send_error(404, "unknown path (try /metrics)")
                 return
@@ -161,6 +167,20 @@ class MetricsServer:
             body["watchdog"] = wd
             if wd["degraded"]:
                 body["ok"] = False
+        return body
+
+    def mesh_body(self) -> Dict[str, Any]:
+        """The telemetry plane's mesh rollup — only meaningful where the
+        tree's frames land (rank 0), but any rank answers with whatever
+        subtree it has folded, attributed when the plane is off."""
+        from ..comm.pttel import current_plane
+        tel = current_plane()
+        if tel is None:
+            return {"rank": self.rank, "ts": time.time(), "mesh": None,
+                    "reason": "telemetry plane not running "
+                              "(--mca tel_interval_ms 0)"}
+        body = tel.rollup()
+        body["ts"] = time.time()
         return body
 
     def metrics_body(self) -> Dict[str, Any]:

@@ -117,11 +117,12 @@ def install_native_counters() -> None:
     the lane-side datarepo retire counter, and the in-lane trace
     drop/landed counters as samplers under canonical names (``ptexec.*``,
     ``ptdtd.*``, ``ptcomm.*``, ``ptdev.*``, ``ptfab.*``, ``sched.*``,
-    ``capture.*``, ``costmodel.*``, ``watchdog.*``, ``flight.*``,
-    ``reconcile.*``, ``trace.*``) so
+    ``capture.*``, ``costmodel.*``, ``pttel.*``, ``watchdog.*``,
+    ``flight.*``, ``reconcile.*``, ``trace.*``) so
     :mod:`parsec_tpu_torch.tools.live_view`, ``/metrics`` and the
     SDE-style snapshot export see the lanes. Idempotent."""
     from ..comm import native as _cnative         # lazy: avoid import cycles
+    from ..comm import pttel as _tel
     from ..core import costmodel as _cm
     from ..core import sched_plane as _sp
     from ..core import watchdog as _wd
@@ -150,6 +151,10 @@ def install_native_counters() -> None:
                           # the online cost model: costmodel.{keys,folds,
                           # decisions,placements_diverged,...}
                           (_cm.COSTMODEL_STATS, "costmodel"),
+                          # the mesh telemetry plane: pttel.{rounds,
+                          # frames_tx,frames_rx,folds,...} — the O(log P)
+                          # frame contract on /metrics
+                          (_tel.TEL_STATS, "pttel"),
                           # the lane stall watchdog + flight recorder
                           (_wd.WATCHDOG_STATS, "watchdog"),
                           (_fl.FLIGHT_STATS, "flight"),

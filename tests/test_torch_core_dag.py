@@ -5,7 +5,7 @@ The reference's tests/test_core_dag.py on the port's CPU context (the role
 of PaRSEC's tests/api + tests/runtime suites, e.g. multichain.jdf): chains,
 fork-join, priorities, per-task dep goals, a body's exception, ``--mca``
 argv, DTD and PTG together, scheduler policy separation and the paranoid
-tier. Its ``--help-mca`` CLI test waits for the port's ``__main__``.
+tier, and ``python -m parsec_tpu_torch --help-mca``.
 """
 
 import threading
@@ -250,6 +250,20 @@ def test_body_exception_propagates():
         tp.close()
         ctx.wait(timeout=10)
     ctx.fini()   # poisoned context still shuts down cleanly
+
+
+def test_cli_help_mca():
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    out = subprocess.run([sys.executable, "-m", "parsec_tpu_torch",
+                          "--help-mca"], capture_output=True, text=True,
+                         timeout=110, cwd=root)
+    assert out.returncode == 0
+    assert "--mca sched" in out.stdout
+    assert "dtd_window_size" in out.stdout
+    assert "tel_interval_ms" in out.stdout and "tel_fanout" in out.stdout
 
 
 def test_dtd_and_ptg_concurrently():

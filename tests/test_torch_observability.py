@@ -579,6 +579,131 @@ def test_merge_cli(tmp_path):
     assert tr.main(["--merge", out, p2, p1]) == 1
 
 
+def test_incomplete_clock_stamp_does_not_latch(tmp_path):
+    """An ok=0 stamp (dump raced the ladder) must not block the real
+    estimate from landing later, and clock_meta prefers the ok=1 record
+    over any earlier incomplete one."""
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.comm.threads import ThreadFabric, ThreadsCE
+    from parsec_tpu_torch.tools import trace_reader as tr
+    from parsec_tpu_torch.utils.trace import Profiling
+
+    fabric = ThreadFabric(2)
+    ce = ThreadsCE(fabric, 1)          # rank 1: no trivial-done shortcut
+    ctx = Context(nb_cores=1, device="cpu", my_rank=1, nb_ranks=2)
+    ctx.profiling = Profiling()
+    eng = RemoteDepEngine(ctx, ce)
+    assert not eng._clk_done
+    eng.stamp_clock_meta()             # incomplete: ok=0, must not latch
+    assert not getattr(ctx.profiling, "_clk_stamped", False)
+    with eng._clk_lock:                # ladder completes later
+        eng._clk_offset_ns, eng._clk_rtt_ns = 1234, 99
+        eng._clk_done = True
+    eng.stamp_clock_meta()
+    assert ctx.profiling._clk_stamped
+    eng.stamp_clock_meta()             # latched: no third record
+    path = str(tmp_path / "latch.pbp")
+    ctx.profiling.dump(path)
+    trace = tr.read_pbp(path)
+    meta = tr.clock_meta(trace)
+    assert meta["ok"] == 1 and meta["offset_ns"] == 1234
+    # re-stamps reuse ONE stream — no duplicate clock(rank N) rows
+    assert len([s for s in trace.streams
+                if s["name"].startswith("clock(")]) == 1
+    ctx.comm = None                    # the fake engine has no real peers
+    ctx.fini()
+
+
+# --------------------------------------------------- 2-OS-rank end-to-end
+
+def _obs_program(rank, ce, trace_dir=None):
+    """Traced+histogrammed cross-rank chain (CPU contexts): returns the
+    clock estimate, the per-rank trace path, and the rank-0 lane-aware
+    counter rollup."""
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.dsl.ptg.compiler import compile_ptg
+    from parsec_tpu_torch.utils.trace import Profiling
+
+    nt, depth = 4, 8
+    mca.set("hist_enabled", True)
+    ctx = Context(nb_cores=1, device="cpu", my_rank=rank,
+                  nb_ranks=ce.nb_ranks)
+    ctx.profiling = Profiling()
+    eng = RemoteDepEngine(ctx, ce)
+    A = TwoDimBlockCyclic("descA", depth, nt, 1, 1, P=2, Q=1,
+                          nodes=2, myrank=rank)
+    src = ("%global NT\n%global DEPTH\n%global descA\n"
+           "T(i, l)\n  i = 0 .. NT-1\n  l = 0 .. DEPTH-1\n"
+           "  : descA(l, i)\n"
+           "  CTL S <- (l > 0) ? S T(i, l-1)\n"
+           "        -> (l < DEPTH-1) ? S T(i, l+1)\nBODY\n  pass\nEND\n")
+    prog = compile_ptg(src, "obs-test-2rank")
+    ce.sync()
+    tp = prog.instantiate(ctx, globals={"NT": nt, "DEPTH": depth},
+                          collections={"descA": A}, name="obs-test-2rank")
+    ctx.add_taskpool(tp)
+    ctx.wait(timeout=300)
+    ce.sync()
+    clock_ok = eng.clock_sync_wait(timeout=30.0)
+    ce.sync()
+    table = eng.aggregate_counters(timeout=30.0)
+    engaged = tp._ptexec_state is not None and \
+        tp._ptexec_state.get("pool_id") is not None
+    stats = ctx.comm.native.comm.stats() if ctx.comm.native else None
+    ce.sync()
+    ctx.fini()
+    pbp = os.path.join(trace_dir, f"rank{rank}.pbp")
+    ctx.profiling.dump(pbp)
+    ce.fini()
+    return {"rank": rank, "engaged": engaged, "clock_ok": clock_ok,
+            "offset_ns": eng._clk_offset_ns, "rtt_ns": eng._clk_rtt_ns,
+            "trace": pbp, "table": table,
+            "frames_tx": stats["act_frames_tx"] if stats else 0}
+
+
+def test_two_rank_clock_merge_and_aggregation(tmp_path):
+    """The acceptance shape: same-host 2-rank run -> bounded clock
+    offset, merged clock-aligned timeline with every activation frame
+    paired and causally ordered, and a lane-aware fini rollup carrying
+    nonzero ptcomm wire counters."""
+    import functools
+
+    from parsec_tpu_torch.comm.tcp import run_distributed_procs
+    from parsec_tpu_torch.tools import trace_reader as tr
+
+    res = run_distributed_procs(
+        2, functools.partial(_obs_program, trace_dir=str(tmp_path)),
+        timeout=300)
+    for r in res:
+        assert r["engaged"], r
+        assert r["clock_ok"], r
+        # same host, same CLOCK_MONOTONIC: the estimate must be tiny;
+        # its error bound is min-RTT/2, so allow generous slack for a
+        # loaded container
+        assert abs(r["offset_ns"]) < 50_000_000, r["offset_ns"]
+        assert r["rtt_ns"] >= 0
+    # lane-aware aggregation: rank 0 merged both ranks incl. the native
+    # wire counters the interpreted path never saw
+    table = res[0]["table"]
+    assert res[1]["table"] is None
+    assert table["sum"].get("ptcomm.acts_tx", 0) > 0, \
+        sorted(k for k in table["sum"] if k.startswith("ptcomm"))
+    assert table["sum"].get("ptcomm.frame_errors", -1) == 0
+    assert table["sum"].get("ptexec.hist.exec_ns.count", 0) > 0
+    # merged timeline: all frames pair, rebased send precedes ingest
+    merged = tr.merge_traces([r["trace"] for r in res])
+    metas = [tr.clock_meta(tr.read_pbp(r["trace"])) for r in res]
+    assert {int(m["rank"]) for m in metas} == {0, 1}
+    flows = tr.act_flows(merged)
+    assert not flows["unmatched_tx"], flows["unmatched_tx"][:5]
+    assert not flows["unmatched_rx"], flows["unmatched_rx"][:5]
+    assert len(flows["pairs"]) == sum(r["frames_tx"] for r in res)
+    assert len(flows["pairs"]) > 0
+    for src, dst, seq, t_tx, t_rx in flows["pairs"]:
+        assert t_rx >= t_tx - 1e-3, (src, dst, seq, t_tx, t_rx)
+
+
 # ------------------------------------------------------------- watchdog
 
 @pytest.fixture()

@@ -151,6 +151,95 @@ def test_ptg_to_dtd_replay(ctx):
         A.data_of(0, 0).newest_copy().payload.numpy(), float(NT))
 
 
+def _comm_trace_gemm(tmp_path, name, N, TS, a, b, backend=None):
+    """A distributed DTD GEMM on two in-process ranks (CPU contexts), each
+    with its own tracer; returns each rank's dumped trace path."""
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.comm.threads import ThreadsCE, run_distributed
+    from parsec_tpu_torch.data.matrix import TwoDimBlockCyclic
+    from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
+
+    def program(rank, fabric):
+        ctx = Context(nb_cores=1, device="cpu", my_rank=rank, nb_ranks=2)
+        ctx.profiling = Profiling()
+        RemoteDepEngine(ctx, ThreadsCE(fabric, rank))
+        kw = dict(nodes=2, myrank=rank, P=2, Q=1)
+        A = TwoDimBlockCyclic(f"{name}A", N, N, TS, TS, **kw)
+        B = TwoDimBlockCyclic(f"{name}B", N, N, TS, TS, **kw)
+        C = TwoDimBlockCyclic(f"{name}C", N, N, TS, TS, **kw)
+        A.fill(lambda m, n: a[m*TS:(m+1)*TS, n*TS:(n+1)*TS])
+        B.fill(lambda m, n: b[m*TS:(m+1)*TS, n*TS:(n+1)*TS])
+        C.fill(lambda m, n: np.zeros((TS, TS), np.float32))
+        tp = DTDTaskpool(ctx, name)
+        insert_gemm_tasks(tp, A, B, C)
+        tp.wait(timeout=60)
+        tp.close()
+        ctx.wait(timeout=30)
+        ctx.fini()
+        if backend is None:
+            path = str(tmp_path / f"rank{rank}.pbp")
+            ctx.profiling.dump(path)
+            return path
+        return ctx.profiling.dump(str(tmp_path / f"r{rank}"),
+                                  backend=backend)
+
+    return run_distributed(2, program, timeout=120)
+
+
+def test_comm_trace_2rank_check_comms(tmp_path):
+    """Distributed run with per-rank tracers: the comm machinery writes
+    typed activate/get/put events with src/dst/bytes to its own stream, and
+    the cross-rank validator proves wire symmetry (the check-comms.py role,
+    ref: remote_dep_mpi.c:1286-1302, tests/profiling/check-comms.py)."""
+    from parsec_tpu_torch.tools.trace_reader import check_comms, comm_events
+
+    N, TS = 64, 16
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((N, N)).astype(np.float32)
+    b = rng.standard_normal((N, N)).astype(np.float32)
+    # small eager limit so large tiles exercise the rendezvous (get/put) leg
+    mca.set("comm_eager_limit", 512)
+    try:
+        paths = _comm_trace_gemm(tmp_path, "commtrace", N, TS, a, b)
+    finally:
+        mca.params.unset("comm_eager_limit")
+
+    evs0 = comm_events(read_pbp(paths[0]))
+    assert evs0, "rank 0 recorded no comm events"
+    kinds = {e["kind"] for e in evs0}
+    assert "activate_snd" in kinds and "activate_rcv" in kinds
+    # 16x16 f32 tiles (1KiB) exceed the 512B eager limit -> rendezvous legs
+    assert "put_rcv" in kinds or "put_snd" in kinds, kinds
+    summary = check_comms(paths)
+    assert summary["errors"] == [], summary
+    assert summary["counts"]["activate_snd"] > 0
+    assert summary["counts"]["put_snd"] > 0          # rendezvous exercised
+    assert summary["counts"]["activate_snd"] == \
+        summary["counts"]["activate_rcv"]
+
+    # the CLI entry point (the reference's standalone checker script)
+    from parsec_tpu_torch.tools import trace_reader
+    assert trace_reader.main(["--check-comms", *paths]) == 0
+
+
+def test_check_comms_reads_otf2_archives(tmp_path):
+    """check-comms is format-agnostic: rank traces written as PTF2 archives
+    (the port's name for the reference's OTF2-class backend) validate the
+    same as PBP files."""
+    from parsec_tpu_torch.tools.trace_reader import check_comms
+
+    N, TS = 32, 16
+    rng = np.random.default_rng(1)
+    a = rng.standard_normal((N, N)).astype(np.float32)
+    b = rng.standard_normal((N, N)).astype(np.float32)
+    paths = _comm_trace_gemm(tmp_path, "otf2comm", N, TS, a, b,
+                             backend="ptf2")
+    assert all(os.path.isdir(p) and p.endswith(".ptf2") for p in paths)
+    summary = check_comms(paths)
+    assert summary["errors"] == [], summary
+    assert summary["counts"]["activate_snd"] > 0
+
+
 def test_otf2_archive_roundtrip(ctx, tmp_path):
     """The second trace backend (profiling_otf2.c role): same tracer state
     written as a PTF2 archive (anchor + global defs + per-location event

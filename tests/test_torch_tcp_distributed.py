@@ -324,6 +324,33 @@ def test_launcher_virtual_device_binding():
     assert all(e > 0 for _, e in by_rank.values())
 
 
+def test_ep_scaling_rates_on_cpu_ranks():
+    """The EP scaling row (``launch.ep_scaling_rates``) with CPU rank
+    contexts: P OS processes of ``parsec_tpu_torch._bench_ep_worker``
+    under the port's job lock, each reporting its wall, the aggregate =
+    P·ntasks / max(wall), and the host's CPU budget beside it."""
+    import time
+
+    from parsec_tpu_torch.launch import cpu_budget, ep_scaling_rates
+    detail = {}
+    try:
+        rates = ep_scaling_rates((1, 2), ntasks=2000, device="cpu",
+                                 detail=detail)
+    finally:
+        time.sleep(0.5)   # the lock is not fair: let a waiting job in
+    assert sorted(rates) == [1, 2]
+    for p in (1, 2):
+        walls = detail[p]["walls_s"]
+        assert len(walls) == p and all(w > 0 for w in walls)
+        assert rates[p] == detail[p]["aggregate_tasks_per_sec"] > 0
+        assert abs(rates[p] - p * 2000 / max(walls)) <= \
+            0.01 * rates[p] + 1
+    assert detail["cpu_budget"] == cpu_budget()
+    assert detail["cpu_budget"]["cpus_allowed"] >= 1
+    with pytest.raises(ValueError):
+        ep_scaling_rates((1,), device="tpu")
+
+
 _JOB_SCRIPT = """
 import multiprocessing.forkserver as fs
 import multiprocessing.resource_tracker as rt
