@@ -5366,6 +5366,433 @@ def entry_points(smi, device: str = "cuda") -> dict:
     return {"ep": rates, "ep_detail": detail, "ep_turns": turns}
 
 
+# ---------------------------------------------------------------------------
+# phase 16: meshes on the one card
+# ---------------------------------------------------------------------------
+#: the phase's sizes (a CPU rehearsal cuts them; the rank jobs take them
+#: as an argument, since a rank imports this module afresh):
+#: ranks of the group, every one on cuda:0, time-sharing it; the model of
+#: (b) and (d), GPT-2 small; (a) the timed all-reduce, MiB of float32;
+#: (b) batch, sequence, AdamW rate and the steps after the first (f32)
+#: step, which is held to the single-rank step; (c) attention (B, H, S,
+#: d): Ulysses bf16 causal on ``sp_ranks`` ranks (they must divide the
+#: heads), the ring f32 causal on all; (d) the sp block step's batch (its
+#: sequence (b)'s), pp stages, microbatches and batch, the ep layer's
+#: tokens and experts (top-2); (e) the SPMD GEMMs' and POTRF's N (float32,
+#: TF32 off); one job's deadline
+MESH = dict(ranks=8, cfg=GPT2_SMALL, ar_mib=64, train_b=8, train_s=1024,
+            lr=1e-3, steps=3, attn=(8, 12, 1024, 64), sp_ranks=4, sp_b=2,
+            pp_stages=4, pp_micro=4, pp_b=8, moe_t=8192, moe_e=8, n=8192,
+            job_s=900.0)
+#: the rank-side cache of parameter trees (a rank builds GPT-2 once)
+_MESH_PARAMS: dict = {}
+
+
+def _mesh_sync(torch, device: str) -> None:
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def _timed(torch, device, fn):
+    _mesh_sync(torch, device)
+    t = time.perf_counter()
+    out = fn()
+    _mesh_sync(torch, device)
+    return out, (time.perf_counter() - t) * 1e3
+
+
+def _mesh_tree(sz: dict, seed: int):
+    from parsec_tpu_torch.parallel import model as M
+    key = (seed, tuple(sorted(sz["cfg"].items())))
+    if key not in _MESH_PARAMS:
+        _MESH_PARAMS[key] = M.init_lm_params(seed, M.ModelConfig(**sz["cfg"]))
+    return _MESH_PARAMS[key]
+
+
+def mesh_tokens(sz: dict, seed: int, B: int):
+    """(B, S + 1) int32 tokens of the seeded Markov corpus (low entropy,
+    so a few steps lower the loss)."""
+    S = sz["train_s"]
+    vocab = sz["cfg"]["vocab_size"]
+    corpus, _ = markov_corpus(seed, B * (S + 1), min(64, vocab), vocab)
+    return corpus.reshape(B, S + 1).astype(np.int32)
+
+
+def mesh_probe_job(sz: dict, device: str) -> dict:
+    """(a) on every rank: the routes compat chose from the group's probe,
+    and one ``ar_mib`` MiB float32 all-reduce over all the ranks, timed
+    (after a warm one)."""
+    import torch
+    import torch.distributed as dist
+    from parsec_tpu_torch.parallel import compat
+    x = torch.ones(sz["ar_mib"] * (1 << 20) // 4,
+                   device=compat._probe_device(device))
+    compat.all_reduce_(x, dist.group.WORLD)
+    _, ms = _timed(torch, device,
+                   lambda: compat.all_reduce_(x, dist.group.WORLD))
+    n = dist.get_world_size()
+    return {"routes": compat.routes(device), "ms": ms,
+            "ok": bool(x[0].item() == float(n * n) and
+                       x[-1].item() == float(n * n))}
+
+
+def mesh_gpt2_job(sz: dict, device: str, seed: int) -> dict:
+    """(b) on every rank: the model's clipped AdamW step over dp 2 x tp 4
+    (``make_tp_mesh(8, tp_must_divide=n_heads)``): the first step's loss
+    and block 0's w1 after it (on rank 0), then ``steps`` more steps; each
+    step's ms and loss, the rank's peak memory, the first step's
+    collectives."""
+    import torch
+    from parsec_tpu_torch.parallel import compat
+    from parsec_tpu_torch.parallel import model as M
+    from parsec_tpu_torch.parallel import optim as O
+    from parsec_tpu_torch.parallel import transformer as T
+    tree = _mesh_tree(sz, seed)
+    mesh = T.make_tp_mesh(sz["ranks"], tp_must_divide=sz["cfg"]["n_heads"],
+                          device_type=device)
+    tx = O.chain(O.clip_by_global_norm(1.0), O.adamw(sz["lr"]))
+    step, opt, place_p, place_t = M.make_lm_opt_train_step(mesh, tx, tree)
+    toks = mesh_tokens(sz, seed, sz["train_b"])
+    p = place_p(tree)
+    x, y = place_t(toks[:, :-1]), place_t(toks[:, 1:])
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    compat.reset_stats()
+    out = {"losses": [], "ms": [], "mesh": tuple(mesh.shape),
+           "embed_local": tuple(p["embed"].to_local().shape)}
+    for i in range(1 + sz["steps"]):
+        (p, opt, loss), ms = _timed(torch, device,
+                                    lambda: step(p, opt, x, y))
+        out["losses"].append(float(loss))
+        out["ms"].append(ms)
+        if i == 0:
+            out["stats"] = compat.stats_summary()
+            w1 = compat.full_tensor(p["blocks"][0]["w1"])
+            out["w1"] = w1.cpu().numpy() \
+                if torch.distributed.get_rank() == 0 else None
+            del w1
+    out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30 \
+        if device == "cuda" else None
+    return out
+
+
+def mesh_attention_job(sz: dict, device: str, seed: int) -> dict:
+    """(c) Ulysses (bf16, causal) on the first ``sp_ranks`` ranks: the
+    flash kernel's launches by route in its calls (counted from 0 before
+    the first), its output against the plain version's on the whole
+    sequence within the bf16 flash check's bound; then the ring (f32,
+    causal) on every rank against dense attention (2e-4)."""
+    import torch
+    from parsec_tpu_torch.ops import cuda_kernels as K
+    from parsec_tpu_torch.parallel import ring_attention as RA
+    K.dot_precision()
+    B, H, S, D = sz["attn"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device=device) * 0.5
+               for _ in range(3))
+    out = {}
+    sp = RA._seq_mesh(sz["sp_ranks"], device)
+    qb, kb, vb = (t.to(torch.bfloat16) for t in (q, k, v))
+    K.flash_attention.launches_by_route = dict.fromkeys(K.FLASH_ROUTES, 0)
+    o, ms = _timed(torch, device, lambda: RA.ulysses_attention(
+        qb, kb, vb, mesh=sp, causal=True))
+    if o is not None:
+        _, out["ulysses_ms2"] = _timed(torch, device, lambda: (
+            RA.ulysses_attention(qb, kb, vb, mesh=sp, causal=True)))
+        out["ulysses_launches"] = dict(K.flash_attention.launches_by_route)
+        out["ulysses_ms"] = ms
+        blk = S // sz["sp_ranks"]
+        rows = slice(sp.get_local_rank("sp") * blk,
+                     (sp.get_local_rank("sp") + 1) * blk)
+        plain = K.flash_attention_plain(qb, kb, vb, True, 1.0 / D ** 0.5)
+        tol = K.flash_attention_bf16_tolerance(qb, kb, vb, causal=True)
+        err = (o.to_local().float() - plain[:, :, rows].float()).abs()
+        out["ulysses_excess"] = float((err - tol[:, :, rows]).max())
+        out["ulysses_max_err"] = float(err.max())
+        del plain, tol, err
+    ring = RA._seq_mesh(sz["ranks"], device)
+    o, out["ring_ms"] = _timed(torch, device, lambda: RA.ring_attention(
+        q, k, v, mesh=ring, causal=True))
+    blk = S // sz["ranks"]
+    r = ring.get_local_rank("sp")
+    ref = RA.dense_attention_reference(q, k, v, causal=True)[
+        :, :, r * blk:(r + 1) * blk]
+    diff = (o.to_local() - ref).abs()
+    out["ring_ok"] = bool((diff <= 2e-4 + 2e-4 * ref.abs()).all())
+    out["ring_max_err"] = float(diff.max())
+    return out
+
+
+def mesh_models_job(sz: dict, device: str, seed: int) -> dict:
+    """(d) the sp block step at the model's width against the
+    single-device dense step (rank 0 holds it: loss 1e-5/1e-6, parameters
+    5e-4/5e-5), ``lm_pp_forward`` over ``pp_stages`` stages against
+    ``lm_apply`` (2e-4), and ``moe_forward`` on the ep mesh against the
+    dense routing (2e-4/2e-5), the reference tests' tolerances."""
+    import torch
+    from parsec_tpu_torch.ops import cuda_kernels as K
+    from parsec_tpu_torch.parallel import model as M
+    from parsec_tpu_torch.parallel import moe as MoE
+    from parsec_tpu_torch.parallel import ring_attention as RA
+    from parsec_tpu_torch.parallel import transformer as T
+    from parsec_tpu_torch.parallel.pipeline import make_pp_mesh
+    K.dot_precision()
+    rank = torch.distributed.get_rank()
+    cfg = sz["cfg"]
+    D, Fd, S = cfg["d_model"], cfg["d_ff"], sz["train_s"]
+    out = {}
+    # the sp block step: one block, the sequence over all the ranks
+    bp = T.init_block_params(seed, D, Fd, cfg["n_heads"])
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((sz["sp_b"], S, D), generator=gen, device=device)
+    y = torch.randn((sz["sp_b"], S, D), generator=gen, device=device)
+    mesh = RA._seq_mesh(sz["ranks"], device)
+    step, place_p, place_x = T.make_sp_train_step(mesh, lr=1e-2)
+    p = place_p(bp)
+    (p, loss), out["sp_ms"] = _timed(
+        torch, device, lambda: step(p, place_x(x), place_x(y)))
+    out["sp_loss"] = float(loss)
+    if rank == 0:
+        rstep, rpp, rpx = T.make_train_step(device, lr=1e-2)
+        rp, rloss = rstep(rpp(bp), rpx(x), rpx(y))
+        out["sp_ref_loss"] = float(rloss)
+        out["sp_loss_ok"] = abs(float(loss) - float(rloss)) <= \
+            1e-6 + 1e-5 * abs(float(rloss))
+        out["sp_params_excess"] = max(float(((p[k].to_local() - rp[k]).abs()
+                                             - (5e-5 + 5e-4 * rp[k].abs())
+                                             ).max()) for k in bp)
+    # lm_pp_forward: pp_stages stages of L / pp_stages layers
+    params = M.params_from_numpy(_mesh_tree(sz, seed), device=device)
+    toks = mesh_tokens(sz, seed + 1, sz["pp_b"])[:, :-1]
+    logits, out["pp_ms"] = _timed(torch, device, lambda: M.lm_pp_forward(
+        params, toks, mesh=make_pp_mesh(sz["pp_stages"], device),
+        n_micro=sz["pp_micro"]))
+    if logits is not None and rank == 0:
+        with torch.no_grad():
+            ref = M.lm_apply(params, toks)
+        d = (logits.to_local() - ref).abs()
+        out["pp_ok"] = bool((d <= 2e-4 + 2e-4 * ref.abs()).all())
+        out["pp_max_err"] = float(d.max())
+        del ref, d
+    del logits, params
+    # the ep layer: moe_e experts over the ranks, top-2, no drops
+    mp = MoE.init_moe_params(seed, sz["moe_e"], D, Fd)
+    xt = torch.randn((sz["moe_t"], D), generator=gen, device=device)
+    emesh = MoE.make_ep_mesh(sz["ranks"], device)
+    (yo, aux), out["moe_ms"] = _timed(torch, device, lambda: MoE.moe_forward(
+        mp, xt, mesh=emesh, k=2, return_aux=True))
+    blk = sz["moe_t"] // sz["ranks"]
+    r = emesh.get_local_rank("ep")
+    ref = MoE.dense_reference({k: torch.from_numpy(v).to(device)
+                               for k, v in mp.items()},
+                              xt[r * blk:(r + 1) * blk], k=2)
+    d = (yo.to_local() - ref).abs()
+    out["moe_ok"] = bool((d <= 2e-5 + 2e-4 * ref.abs()).all())
+    out["moe_max_err"] = float(d.max())
+    out["moe_dropped"] = float(aux["dropped"])
+    return out
+
+
+def mesh_spmd_job(sz: dict, device: str, seed: int) -> dict:
+    """(e) Cannon on 2 x 2 (the first 4 ranks), the all-gather GEMM on
+    2 x 4 and the blocked POTRF on 2 x 4, N = ``n`` float32: each rank's
+    block against ``torch.matmul``/``torch.linalg.cholesky`` of the whole
+    matrices (TF32 off), max err / max |ref| over the mesh."""
+    import torch
+    from parsec_tpu_torch.ops import cuda_kernels as K
+    from parsec_tpu_torch.parallel import compat, spmd
+    K.dot_precision()
+    n = sz["n"]
+    gen = torch.Generator(device=device).manual_seed(seed)
+    A = torch.randn((n, n), generator=gen, device=device)
+    B = torch.randn((n, n), generator=gen, device=device)
+    out = {}
+
+    def rel(dt, ref_fn, mesh):
+        """max |local - ref| / max |ref| over the mesh's ranks."""
+        if dt is None:
+            return None
+        local = dt.to_local()
+        p, q = mesh.get_local_rank(0), mesh.get_local_rank(1)
+        mb, nb = local.shape
+        ref = ref_fn(slice(p * mb, (p + 1) * mb), slice(q * nb, (q + 1) * nb))
+        t = torch.stack([(local - ref).abs().max(), ref.abs().max()])
+        for ax in (1, 0):
+            compat.all_reduce_(t, mesh.get_group(ax), "max")
+        return float(t[0] / t[1])
+
+    for name, fn, size in (("cannon", spmd.distributed_gemm, 4),
+                           ("allgather", spmd.distributed_gemm_allgather,
+                            sz["ranks"])):
+        mesh = spmd.make_mesh(size, device_type=device)
+        C, out[f"{name}_ms"] = _timed(torch, device, lambda: fn(A, B, mesh))
+        out[f"{name}_mesh"] = tuple(mesh.shape)
+        out[f"{name}_rel"] = rel(C, lambda r, c: A[r] @ B[:, c], mesh)
+        del C
+    spd = A @ A.T / n + torch.eye(n, device=device) * (0.05 * n)
+    del A, B
+    mesh = spmd.make_mesh(sz["ranks"], device_type=device)
+    L, out["potrf_ms"] = _timed(torch, device,
+                                lambda: spmd.distributed_potrf(spd, mesh))
+    chol = torch.linalg.cholesky(spd)
+    out["potrf_rel"] = rel(L, lambda r, c: chol[r, c], mesh)
+    out["potrf_mesh"] = tuple(mesh.shape)
+    return out
+
+
+def mesh_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"phase 16: {what}")
+
+
+def meshes(K, torch, smi, device: str = "cuda") -> dict:
+    """Phase 16: one group of ``MESH["ranks"]`` ranks (every rank on the one
+    card, joined in a gloo group: ``multihost.RankPool``) running (a) the
+    collectives' probe and a timed all-reduce, (b) GPT-2 small's AdamW
+    step over dp 2 x tp 4 held to the single-rank step, then a few steps,
+    (c) Ulysses with the flash kernel on each of 4 ranks and the ring on
+    8, (d) the sp block step, the pp LM forward and the ep layer, (e)
+    Cannon, the all-gather GEMM and the blocked POTRF at N = 8192. Returns
+    the flash launches of (c)'s Ulysses calls, by route."""
+    from parsec_tpu_torch.parallel import model as M
+    from parsec_tpu_torch.parallel import optim as O
+    from parsec_tpu_torch.parallel.multihost import RankPool
+    sz = dict(MESH)
+    t0 = time.perf_counter()
+    seed = 16
+    # the single-rank step (b) is held to, in this process, first
+    K.dot_precision()
+    tree = _mesh_tree(sz, seed)
+    toks = mesh_tokens(sz, seed, sz["train_b"])
+    tx = O.chain(O.clip_by_global_norm(1.0), O.adamw(sz["lr"]))
+    step, opt, place_p, place_t = M.make_lm_opt_train_step(device, tx, tree)
+    p = place_p(tree)
+    (p, opt, ref_loss), ref_ms = _timed(torch, device, lambda: step(
+        p, opt, place_t(toks[:, :-1]), place_t(toks[:, 1:])))
+    ref_w1 = p["blocks"][0]["w1"].cpu().numpy()
+    ref_loss = float(ref_loss)
+    del p, opt, step
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    log(f"mesh (b) single-rank reference step (f32, B={sz['train_b']}, "
+        f"S={sz['train_s']}): loss {ref_loss:.6f}, {ref_ms:.1f} ms ({smi})")
+    pool = RankPool(sz["ranks"], device, timeout=sz["job_s"])
+    try:
+        t = time.perf_counter()
+        pool.start()
+        log(f"mesh: {sz['ranks']} ranks on {device} joined a gloo group in "
+            f"{time.perf_counter() - t:.1f} s, the collectives' probe "
+            f"included")
+        # (a) the probe
+        table = pool.native.get(device, {})
+        probe = pool.run(mesh_probe_job, sz, device)
+        routes = probe[0]["routes"]
+        log(f"mesh (a) gloo on {device} tensors at {sz['ranks']} ranks: "
+            + ", ".join(f"{op} {'taken' if table.get(op) else 'refused'} "
+                        f"-> {routes[op]}" for op in routes))
+        ms = [r["ms"] for r in probe]
+        log(f"mesh (a) one {sz['ar_mib']} MiB float32 all-reduce over "
+            f"{sz['ranks']} ranks ({routes['all_reduce']}): {max(ms):.3f} "
+            f"ms (slowest rank; fastest {min(ms):.3f}) ({smi})")
+        mesh_check(all(r["ok"] for r in probe), "the timed all-reduce's sum")
+        # (b) the model over dp 2 x tp 4
+        res = pool.run(mesh_gpt2_job, sz, device, seed)
+        g0 = res[0]
+        dl = abs(g0["losses"][0] - ref_loss)
+        w1_err = np.abs(g0["w1"] - ref_w1)
+        w1_excess = float((w1_err - (2e-4 + 2e-4 * np.abs(ref_w1))).max())
+        log(f"mesh (b) AdamW + clip, dp x tp {g0['mesh']} (vocab "
+            f"{sz['cfg']['vocab_size']} split in "
+            f"{sorted({r['embed_local'][0] for r in res})} rows): first "
+            f"loss {g0['losses'][0]:.6f}, |d| {dl:.3e} against the single "
+            f"rank; block 0 w1 max err {w1_err.max():.3e}, excess over "
+            f"rtol/atol 2e-4 {w1_excess:.3e}")
+        log("mesh (b) losses " + ", ".join(f"{v:.4f}" for v in g0["losses"])
+            + "; step ms (slowest rank) " + ", ".join(
+                f"{max(r['ms'][i] for r in res):.1f}"
+                for i in range(len(g0["ms"]))) + f" ({smi})")
+        if device == "cuda":
+            log("mesh (b) peak memory a rank, GiB: " + ", ".join(
+                f"{r['peak_gib']:.2f}" for r in res))
+        log(f"mesh (b) the first step's collectives on rank 0: "
+            f"{g0['stats']}")
+        mesh_check(dl < 1e-3, f"(b) first loss off the single rank's by {dl}")
+        mesh_check(w1_excess <= 0, "(b) block 0's w1 off the single rank's")
+        mesh_check(all(r["losses"] == g0["losses"] for r in res),
+                   "(b) the ranks disagree on the losses")
+        mesh_check(g0["losses"][-1] < g0["losses"][0],
+                   "(b) the loss did not fall")
+        # (c) Ulysses with the flash kernel, the ring
+        att = pool.run(mesh_attention_job, sz, device, seed)
+        uly = [a for a in att if "ulysses_launches" in a]
+        by_route = {}
+        for a in uly:
+            for r_, n_ in a["ulysses_launches"].items():
+                by_route[r_] = by_route.get(r_, 0) + n_
+        log(f"mesh (c) Ulysses bf16 causal {sz['attn']} on {len(uly)} "
+            f"ranks, two calls: flash launches by route {by_route} (each "
+            f"rank {[a['ulysses_launches'] for a in uly]}); max |out - "
+            f"plain| {max(a['ulysses_max_err'] for a in uly):.3e}, worst "
+            f"excess over the bf16 bound "
+            f"{max(a['ulysses_excess'] for a in uly):.3e}; "
+            f"{max(a['ulysses_ms'] for a in uly):.2f} ms first call, "
+            f"{max(a['ulysses_ms2'] for a in uly):.2f} ms second ({smi})")
+        log(f"mesh (c) ring f32 causal {sz['attn']} on {sz['ranks']} "
+            f"ranks: max err {max(a['ring_max_err'] for a in att):.3e} "
+            f"against dense; {max(a['ring_ms'] for a in att):.2f} ms "
+            f"({smi})")
+        mesh_check(len(uly) == sz["sp_ranks"], "(c) Ulysses ranks")
+        if device == "cuda":
+            mesh_check(all(a["ulysses_launches"]["wgmma"] >= 1
+                           for a in uly), "(c) Ulysses did not launch the "
+                       "flash kernel's wgmma route on every rank")
+        mesh_check(all(a["ulysses_excess"] <= 0 for a in uly),
+                   "(c) Ulysses off the plain version")
+        mesh_check(all(a["ring_ok"] for a in att), "(c) ring off dense")
+        # (d) sp, pp, ep
+        mod = pool.run(mesh_models_job, sz, device, seed)
+        m0 = mod[0]
+        log(f"mesh (d) sp block step (width {sz['cfg']['d_model']}, "
+            f"B={sz['sp_b']}, S={sz['train_s']} over {sz['ranks']} ranks): "
+            f"loss {m0['sp_loss']:.6f} vs dense {m0['sp_ref_loss']:.6f}, "
+            f"parameters' excess over 5e-4/5e-5 "
+            f"{m0['sp_params_excess']:.3e}; "
+            f"{max(r['sp_ms'] for r in mod):.1f} ms ({smi})")
+        log(f"mesh (d) lm_pp_forward {sz['pp_stages']} stages x "
+            f"{sz['cfg']['n_layers'] // sz['pp_stages']} layers, B="
+            f"{sz['pp_b']}, {sz['pp_micro']} microbatches: max err "
+            f"{m0['pp_max_err']:.3e} against lm_apply; "
+            f"{max(r['pp_ms'] for r in mod):.1f} ms ({smi})")
+        log(f"mesh (d) moe_forward over {sz['ranks']} ranks, "
+            f"{sz['moe_e']} experts, d_model {sz['cfg']['d_model']}, d_ff "
+            f"{sz['cfg']['d_ff']}, {sz['moe_t']} tokens, top-2: max err "
+            f"{max(r['moe_max_err'] for r in mod):.3e}, dropped "
+            f"{m0['moe_dropped']}; {max(r['moe_ms'] for r in mod):.1f} ms "
+            f"({smi})")
+        mesh_check(m0["sp_loss_ok"] and m0["sp_params_excess"] <= 0,
+                   "(d) the sp step off the dense step")
+        mesh_check(m0["pp_ok"], "(d) lm_pp_forward off lm_apply")
+        mesh_check(all(r["moe_ok"] for r in mod) and
+                   m0["moe_dropped"] == 0, "(d) moe_forward off dense")
+        # (e) Cannon, the all-gather GEMM, POTRF
+        spmd_ = pool.run(mesh_spmd_job, sz, device, seed)
+        e0 = spmd_[0]
+        for name in ("cannon", "allgather", "potrf"):
+            what = "distributed_potrf" if name == "potrf" else \
+                f"distributed_gemm {name}"
+            log(f"mesh (e) {what} on {e0[name + '_mesh']} N={sz['n']} f32: "
+                f"max err / max |ref| {e0[name + '_rel']:.3e}; "
+                f"{max(r[name + '_ms'] for r in spmd_):.1f} ms ({smi})")
+            mesh_check(e0[name + "_rel"] < 1e-5, f"(e) {what} off its "
+                       "reference")
+    finally:
+        pool.close()
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s; the ranks time-share "
+        f"one card, so no figure here is a scaling figure ({smi})")
+    return {"launches": sum(by_route.values()), "by_route": by_route,
+            "routes": routes}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5773,6 +6200,13 @@ def main() -> int:
 
     # ---- 15. the package's entry points: the CLI, the EP scaling row ----
     entry_points(smi)
+
+    # ---- 16. meshes: a gloo group of 8 ranks on the one card ------------
+    torch.cuda.empty_cache()
+    mesh = meshes(K, torch, smi)
+    flash_launches += mesh["launches"]
+    for r, n_r in mesh["by_route"].items():
+        flash_by_route[r] += n_r
 
     # ---- the kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),

@@ -27,6 +27,7 @@ from typing import Any, Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel import compat
 from ..parallel.moe import mesh_device
 
 
@@ -49,11 +50,16 @@ class PrefetchLoader:
     ``source``: any iterable (or a zero-arg factory returning one, so the
     loader can be re-iterated). Worker threads pull items and apply
     ``fn`` (batch assembly — decode, augment, collate) off the consumer
-    thread. With ``device`` (or ``sharding``, a one-device placement:
-    meshes of more than one device raise ``NotImplementedError``), the
+    thread. With ``device`` (or ``sharding`` naming one device), the
     leaves of each finished batch (numpy arrays or tensors, in tuples,
     lists or dicts) become tensors on that device, ``ahead`` batches
-    early. On a card the workers pin the host tensors, the copies run
+    early. With ``sharding`` a
+    :class:`~parsec_tpu_torch.parallel.compat.NamedSharding` over a rank
+    mesh (every rank iterating the same source), each leaf becomes a
+    DTensor on that sharding (``P("dp", None)`` splits the batch over
+    ``dp``; a leaf with fewer dims than the spec takes its leading names):
+    only the rank's local shard takes the device copy. On a card the workers pin
+    the host tensors and, for a device stage, the copies run
     ``non_blocking`` on a side stream, and a batch is handed over only
     after the consumer's current stream has been made to wait for its
     copy's event (and its tensors recorded on that stream, so the caching
@@ -74,7 +80,12 @@ class PrefetchLoader:
         self.workers = workers
         self.prefetch = max(prefetch, workers)
         place = sharding if sharding is not None else device
-        self.place = None if place is None else mesh_device(place)
+        self.sharding = sharding if isinstance(
+            sharding, compat.NamedSharding) else None
+        if self.sharding is not None:
+            self.place = compat.mesh_device(sharding.mesh)
+        else:
+            self.place = None if place is None else mesh_device(place)
         self.ahead = max(1, ahead)
 
     # ------------------------------------------------------------------
@@ -170,30 +181,60 @@ class PrefetchLoader:
         consumer's stream wait for the event and returns the batch."""
         place = self.place
         if place.type != "cuda":
-            def put_host(b):
+            def put(b):
                 return _tree_map(lambda a: _host_tensor(a, False).to(place),
                                  b), None
-            return put_host, lambda b, _ev: b
-        side = torch.cuda.Stream(place)
 
-        def put(b):
-            # no wait for the consumer's stream: the copy overlaps the step
-            # it is running (the side stream's blocks are recorded on the
-            # consumer's stream at the hand-over, and a pinned source block
-            # is held by the host allocator until its copy is done)
-            with torch.cuda.stream(side):
-                out = _tree_map(lambda t: t.to(place, non_blocking=True), b)
-                ready = torch.cuda.Event()
-                ready.record(side)
-            return out, ready
+            def hand(b, _ev):
+                return b
+        else:
+            side = torch.cuda.Stream(place)
 
-        def hand(b, ready):
-            cur = torch.cuda.current_stream(place)
-            cur.wait_event(ready)
-            _tree_map(lambda t: t.record_stream(cur), b)
-            return b
+            def put(b):
+                # no wait for the consumer's stream: the copy overlaps the
+                # step it is running (the side stream's blocks are recorded
+                # on the consumer's stream at the hand-over, and a pinned
+                # source block is held by the host allocator until its copy
+                # is done)
+                with torch.cuda.stream(side):
+                    out = _tree_map(lambda t: t.to(place, non_blocking=True),
+                                    b)
+                    ready = torch.cuda.Event()
+                    ready.record(side)
+                return out, ready
 
-        return put, hand
+            def hand(b, ready):
+                cur = torch.cuda.current_stream(place)
+                cur.wait_event(ready)
+                _tree_map(lambda t: t.record_stream(cur), b)
+                return b
+
+        if self.sharding is None:
+            return put, hand
+        mesh, spec = self.sharding.mesh, self.sharding.spec
+
+        def put_shards(b):
+            # only this rank's shard of each leaf takes the copy above; the
+            # global shapes ride along, in the leaves' order
+            shapes = []
+
+            def cut(a):
+                t = _host_tensor(a, False)
+                shapes.append((t.shape, spec[:t.ndim]))
+                return compat.local_slice(t, mesh, spec[:t.ndim]).contiguous()
+            out, ready = put(_tree_map(cut, b))
+            return (out, shapes), ready
+
+        def hand_shards(b, ready):
+            local, shapes = b
+            it = iter(shapes)
+
+            def wrap(t):
+                shape, s = next(it)
+                return compat.from_local(t, mesh, s, shape)
+            return _tree_map(wrap, hand(local, ready))
+
+        return put_shards, hand_shards
 
     # ------------------------------------------------------------------
     def __len__(self) -> int:

@@ -28,9 +28,26 @@ parameter dict whose keys and layouts are the reference's
 * :class:`LanguageModel` — a thin ``nn.Module`` holding that dict.
 
 A ``mesh`` argument names one device (see
-:func:`~parsec_tpu_torch.parallel.moe.mesh_device`): meshes of more than
-one device, pipeline and sequence parallelism wait for the mesh slice
-(ROADMAP, queue 1, item 3b) and raise ``NotImplementedError``.
+:func:`~parsec_tpu_torch.parallel.moe.mesh_device`) or is a
+``DeviceMesh`` over ranks (the port of
+reference's ``parallel/model.py:376-570``; every rank of the group calls
+the entry point together):
+
+* ``make_lm_train_step``/``make_lm_opt_train_step`` over ``(dp, tp)``: the
+  batch over ``dp``, Megatron blocks and the vocab-parallel tied
+  embedding and head over ``tp`` (:func:`_lm_param_spec`; a vocabulary
+  the axis does not divide splits as ``torch.chunk`` does, as DTensor's
+  ``Shard(0)``), the cross-entropy computed over the vocabulary shards,
+  the optimizer moments placed like their parameters
+  (:func:`_state_spec_like`) and the global-norm clip summed across
+  shards;
+* :func:`lm_pp_forward` — the blocks split into contiguous stages over a
+  ``pp`` mesh, microbatches through the GPipe schedule;
+* ``lm_moe_apply(mesh=ep)`` / ``make_lm_moe_train_step(mesh)`` — each
+  block's experts spread over an ``ep`` mesh, dispatch and combine by
+  all-to-all;
+* ``lm_apply(..., attention=ring_attention_core(mesh))`` — attention as
+  the ring over an ``sp`` mesh.
 """
 
 from __future__ import annotations
@@ -48,11 +65,16 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import cuda_kernels as K
-from .moe import (_topk_gates, dense_reference, init_moe_params,
-                  mesh_device, moe_forward)
+from . import compat
+from .compat import NamedSharding, P
+from .moe import (_topk_gates, dense_reference, init_moe_params, is_mesh,
+                  mesh_device, moe_ep_local, moe_forward)
 from .optim import sgd, tree_leaves, tree_map, value_and_grad
-from .transformer import (block_apply, init_block_params, _ln, _placers,
-                          _run_block)
+from .transformer import (block_apply, block_apply_tp, init_block_params,
+                          _ln, _local_tree, _mesh_placers,
+                          _mesh_value_and_grad, _numel, _param_spec,
+                          _placers, _run_block, _zip_map,
+                          ring_attention_core)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,7 +233,11 @@ def lm_moe_apply(params: dict, tokens, causal: bool = True, k: int = 2,
     :func:`~parsec_tpu_torch.parallel.moe.moe_forward` on that expert
     group: dispatch into per-expert buffers of the capacity
     ``capacity_factor`` gives (no-drop by default, where both paths agree)
-    and combine. ``return_aux=True`` adds ``{"aux_loss", "dropped"}`` — the
+    and combine. An ``ep`` ``DeviceMesh`` (every rank holding the whole
+    parameter tree, calling together) spreads each block's experts and its
+    tokens over the ranks (:func:`_moe_mesh_ffn`): the rest of the model
+    runs alike on every rank, and the gradients come out whole on each.
+    ``return_aux=True`` adds ``{"aux_loss", "dropped"}`` — the
     mean Switch load-balancing loss over blocks (add ``lambda*aux`` to the
     training objective) and the total overflow drops (always 0 on the
     dense path)."""
@@ -246,6 +272,11 @@ def lm_moe_apply(params: dict, tokens, causal: bool = True, k: int = 2,
                     aux_acc.append(E * torch.sum(f * probs.float().mean(0)))
                     drop_acc.append(h2.new_zeros((), dtype=torch.float32))
                 out = dense_reference(mp, h2, k=k)
+            elif is_mesh(mesh):
+                out, aux, dropped = _moe_mesh_ffn(mp, h2, mesh, k,
+                                                  capacity_factor)
+                aux_acc.append(aux)
+                drop_acc.append(dropped)
             elif return_aux:
                 out, a = moe_forward(mp, h2, mesh=mesh, k=k,
                                      capacity_factor=capacity_factor,
@@ -266,18 +297,37 @@ def lm_moe_apply(params: dict, tokens, causal: bool = True, k: int = 2,
     return logits
 
 
+def _moe_mesh_ffn(mp, h2, mesh, k: int, capacity_factor):
+    """A block's routed FFN over an ``ep`` mesh on replicated tokens ``h2``
+    and replicated experts: each rank takes its rows of the tokens and its
+    experts (:func:`compat.scatter_to`, whose backward all-gathers the
+    gradient), runs the expert-parallel layer and the rows are gathered
+    back (:func:`compat.gather_from`). Returns (out, aux, dropped)."""
+    g = compat.group(mesh, mesh.mesh_dim_names[0])
+    nP = mesh.size(0)
+    if h2.shape[0] % nP or mp["w1"].shape[0] % nP:
+        raise ValueError(f"{h2.shape[0]} tokens and {mp['w1'].shape[0]} "
+                         f"experts must split over the {nP}-rank ep mesh")
+    lp = {"router": mp["router"], "w1": compat.scatter_to(mp["w1"], g, 0),
+          "w2": compat.scatter_to(mp["w2"], g, 0)}
+    y, aux, dropped = moe_ep_local(lp, compat.scatter_to(h2, g, 0), mesh, k,
+                                   capacity_factor=capacity_factor)
+    return compat.gather_from(y, g, 0), aux, dropped
+
+
 def make_lm_moe_train_step(mesh=None, k: int = 2, lr: float = 1e-2,
                            aux_weight: float = 0.01, causal: bool = True):
     """An SGD step for the MoE-LM: token cross-entropy plus ``aux_weight``
     x the Switch load-balancing loss, gradients through the expert dispatch
-    (:func:`moe_forward` on the one-device expert group ``mesh`` names, the
-    dense routed truth when ``mesh`` is None). Returns
-    ``step(params, tokens, targets) -> (params, loss)``: the parameters are
-    updated in place (the same dict is returned) and the loss is the
-    pre-step one, a 0-dim tensor; losses from both paths agree under
+    (:func:`moe_forward` on the one-device expert group ``mesh`` names, or
+    the experts spread over an ``ep`` ``DeviceMesh``; the dense routed
+    truth when ``mesh`` is None). Returns ``step(params, tokens, targets)
+    -> (params, loss)``: the parameters are updated in place (the same
+    dict is returned) and the loss is the pre-step one, a 0-dim tensor (a
+    replicated DTensor on a mesh); losses from both paths agree under
     no-drop capacity."""
     if mesh is not None:
-        mesh_device(mesh)                   # more than one device raises
+        mesh_device(mesh)           # a list of more than one device raises
 
     def loss_fn(p, tokens, targets):
         logits, aux = lm_moe_apply(p, tokens, causal=causal, k=k,
@@ -288,6 +338,8 @@ def make_lm_moe_train_step(mesh=None, k: int = 2, lr: float = 1e-2,
         loss, leaves, grads = value_and_grad(
             lambda p: loss_fn(p, tokens, targets), params)
         sgd(leaves, grads, lr)
+        if is_mesh(mesh):
+            loss = compat.from_local(loss, mesh, P())
         return params, loss
 
     return step
@@ -298,23 +350,39 @@ def make_lm_moe_train_step(mesh=None, k: int = 2, lr: float = 1e-2,
 def make_lm_train_step(mesh=None, dp: str = "dp", tp: str = "tp",
                        lr: float = 1e-2, causal: bool = True,
                        n_layers: Optional[int] = None, params: dict = None):
-    """An SGD LM training step on the one device ``mesh`` names (the card
-    when None; ``dp``/``tp`` name the reference's mesh axes and change
-    nothing on one device).
+    """An SGD LM training step: over a ``(dp, tp)`` ``DeviceMesh`` (the
+    batch over ``dp``, Megatron blocks and the vocab-parallel tied
+    embedding over ``tp``; the placed parameters are DTensors and the loss
+    a replicated DTensor), or on the one device ``mesh`` names (the card
+    when None).
 
     Returns ``(step, place_params, place_batch)``; ``n_layers`` is taken
     from ``params`` when given. ``step(params, tokens, targets) -> (params,
-    loss)`` updates the placed parameters in place (the same dict is
-    returned) and gives the pre-step loss as a 0-dim tensor. For a real
-    optimizer use :func:`make_lm_opt_train_step`. Usage::
+    loss)`` updates the placed parameters in place (the same tree is
+    returned) and gives the pre-step loss. For a real optimizer use
+    :func:`make_lm_opt_train_step`. Usage::
 
-        step, place_p, place_t = make_lm_train_step(device, params=params)
+        step, place_p, place_t = make_lm_train_step(mesh, params=params)
         params = place_p(params)
         params, loss = step(params, place_t(tokens), place_t(targets))
     """
+    if n_layers is None:
+        if params is None:
+            raise ValueError("pass n_layers= or params=")
+        n_layers = len(params["blocks"])
+    if is_mesh(mesh):
+        pspec = _lm_param_spec(mesh, dp, tp, n_layers)
+        tsh = NamedSharding(mesh, P(dp, None))
+
+        def step(params, tokens, targets):
+            loss, leaves, grads = _lm_mesh_grads(
+                params, pspec, tsh, tokens, targets, mesh, dp, tp,
+                dict(causal=causal))
+            sgd(leaves, grads, lr)
+            return params, loss
+
+        return (step,) + _mesh_placers(pspec, tsh)
     device = mesh_device(mesh)
-    if n_layers is None and params is None:
-        raise ValueError("pass n_layers= or params=")
 
     def step(params, tokens, targets):
         loss, leaves, grads = value_and_grad(
@@ -329,18 +397,21 @@ def make_lm_opt_train_step(mesh, tx, params: dict, dp: str = "dp",
                            tp: str = "tp", causal: bool = True,
                            remat: bool = False, compute_dtype=None,
                            attention=None):
-    """An LM training step with the optimizer transform ``tx`` on the one
-    device ``mesh`` names (the card when None).
+    """An LM training step with the optimizer transform ``tx``, over a
+    ``(dp, tp)`` ``DeviceMesh`` or on the one device ``mesh`` names (the
+    card when None).
 
     ``tx`` is a transform of :mod:`parsec_tpu_torch.parallel.optim` —
     ``adamw(lr)`` or ``chain(clip_by_global_norm(1.0), adamw(lr))``, optax's
     defaults on ``torch.optim.AdamW`` and ``clip_grad_norm_`` (the mapping
-    is in that module's docstring). ``remat``/``compute_dtype`` are
-    :func:`lm_apply`'s memory levers (bf16 compute keeps f32 master
-    parameters and f32 gradients); ``attention`` swaps the attention core
-    (the flash kernel through ``flash_attention_core``). Returns ``(step,
-    opt_state, place_params, place_batch)``, the state made by
-    ``tx.init(params)`` on the device::
+    is in that module's docstring). On a mesh the moments are DTensors
+    placed like the parameters they mirror (:func:`_state_spec_like`) and
+    the clip's global norm sums the squares across the ``tp`` shards.
+    ``remat``/``compute_dtype`` are :func:`lm_apply`'s memory levers (bf16
+    compute keeps f32 master parameters and f32 gradients); ``attention``
+    swaps the attention core (the flash kernel through
+    ``flash_attention_core``). Returns ``(step, opt_state, place_params,
+    place_batch)``, the state made by ``tx.init(params)`` and placed::
 
         step, opt_state, place_p, place_t = make_lm_opt_train_step(
             device, chain(clip_by_global_norm(1.0), adamw(3e-4)), params)
@@ -348,19 +419,231 @@ def make_lm_opt_train_step(mesh, tx, params: dict, dp: str = "dp",
         params, opt_state, loss = step(params, opt_state, tokens, targets)
 
     The step updates the parameters and the state in place (the same
-    objects are returned) and gives the pre-step loss as a 0-dim tensor."""
+    objects are returned) and gives the pre-step loss (a replicated
+    DTensor on a mesh)."""
+    kw = dict(causal=causal, attention=attention, remat=remat,
+              compute_dtype=compute_dtype)
+    if is_mesh(mesh):
+        pspec = _lm_param_spec(mesh, dp, tp, len(params["blocks"]))
+        tsh = NamedSharding(mesh, P(dp, None))
+        state = tx.init(params, "cpu")
+        ospec = _state_spec_like(mesh, pspec, params, state)
+        opt_state = _zip_map(
+            lambda a, sh: compat.distribute(a, sh.mesh, sh.spec), state,
+            ospec)
+        tpg = compat.group(mesh, tp)
+        groups = [tpg if tp in sh.spec else None for sh in tree_leaves(pspec)]
+
+        def step(params, opt_state, tokens, targets):
+            loss, leaves, grads = _lm_mesh_grads(
+                params, pspec, tsh, tokens, targets, mesh, dp, tp, kw)
+            tx.apply(leaves, grads, _local_tree(opt_state, ospec),
+                     shard_groups=groups)
+            return params, opt_state, loss
+
+        return (step, opt_state) + _mesh_placers(pspec, tsh)
     device = mesh_device(mesh)
     opt_state = tx.init(params, device)
 
     def step(params, opt_state, tokens, targets):
         loss, leaves, grads = value_and_grad(
-            lambda p: lm_loss(p, tokens, targets, causal=causal,
-                              attention=attention, remat=remat,
-                              compute_dtype=compute_dtype), params)
+            lambda p: lm_loss(p, tokens, targets, **kw), params)
         tx.apply(leaves, grads, opt_state)
         return params, opt_state, loss
 
     return (step, opt_state) + _placers(device)
+
+
+# ------------------------------------------------------------ LM on meshes
+
+def _lm_param_spec(mesh, dp: str, tp: str, n_layers: int) -> dict:
+    """Vocab-parallel embedding/head over ``tp``; Megatron block specs."""
+    return {
+        "embed": NamedSharding(mesh, P(tp, None)),   # vocab-parallel
+        "pos": NamedSharding(mesh, P()),
+        "lnf_g": NamedSharding(mesh, P()),
+        "lnf_b": NamedSharding(mesh, P()),
+        "blocks": [_param_spec(mesh, dp, tp) for _ in range(n_layers)],
+    }
+
+
+def _paths(tree, prefix=()):
+    """(path, leaf) pairs of a tree, dict keys sorted (leaf order)."""
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _paths(tree[k], prefix + (str(k),))
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _paths(v, prefix + (str(i),))
+    else:
+        yield prefix, tree
+
+
+def _state_spec_like(mesh, pspec, params, state):
+    """Shardings for an optimizer-state tree: the moment trees MIRROR the
+    parameter tree, so a state leaf whose tree path ends with a parameter's
+    full path (and matches its shape) adopts that parameter's sharding —
+    AdamW's mu/nu land distributed exactly like their parameters.
+    Everything else (the step count) replicates. Path matching (not shape
+    matching) keeps equal-shaped parameters with different specs apart
+    (the vocab-parallel ``embed`` and the replicated ``pos`` when
+    vocab_size == max_seq)."""
+    rep = NamedSharding(mesh, P())
+    by_path = {path: (tuple(np.shape(leaf)), spec) for (path, leaf), spec
+               in zip(_paths(params), tree_leaves(pspec))}
+
+    def spec_of(path, leaf):
+        for i in range(len(path)):
+            hit = by_path.get(path[i:])
+            if hit is not None and hit[0] == tuple(np.shape(leaf)):
+                return hit[1]
+        return rep
+
+    def walk(tree, prefix=()):
+        if isinstance(tree, dict):
+            return {k: walk(v, prefix + (str(k),)) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [walk(v, prefix + (str(i),)) for i, v in enumerate(tree)]
+        return spec_of(prefix, tree)
+    return walk(state)
+
+
+def _vocab_bounds(mesh, tp: str, vocab: int):
+    n = mesh.size(mesh.mesh_dim_names.index(tp))
+    return compat.chunk_bounds(vocab, n, mesh.get_local_rank(tp))
+
+
+def lm_apply_tp(lp: dict, tokens, mesh, tp: str, vocab: int,
+                causal: bool = True, attention=None, remat: bool = False,
+                compute_dtype=None):
+    """The LM forward on this rank's shards ``lp`` and its batch ``tokens``
+    (replicated over ``tp``): the vocab-parallel embedding (each rank looks
+    up the tokens in its rows, the rest summed in), the Megatron blocks
+    (:func:`~parsec_tpu_torch.parallel.transformer.block_apply_tp`), the
+    final LN and this rank's columns of the tied head's logits
+    (B, S, V_local), float32."""
+    K.dot_precision()
+    g = compat.group(mesh, tp)
+    lo, hi = _vocab_bounds(mesh, tp, vocab)
+    S = tokens.shape[1]
+    if S > lp["pos"].shape[0]:
+        raise ValueError(f"sequence length {S} exceeds the model's "
+                         f"max_seq {lp['pos'].shape[0]}")
+    tokens = tokens.long()
+    mine = (tokens >= lo) & (tokens < hi)
+    if hi > lo:
+        e = F.embedding((tokens - lo).clamp(0, hi - lo - 1), lp["embed"])
+        e = e * mine[..., None].to(e.dtype)
+    else:
+        e = lp["embed"].new_zeros(tokens.shape + (lp["pos"].shape[1],))
+    h = compat.reduce_from(e, g) + lp["pos"][:S][None, :, :]
+    blocks = lp["blocks"]
+    if compute_dtype is not None:
+        def cast(t):
+            return t.to(compute_dtype) if t.is_floating_point() else t
+        h = cast(h)
+        blocks = [tree_map(cast, bp) for bp in blocks]
+
+    def blk(bp, x):
+        return block_apply_tp(bp, x, mesh, tp, causal=causal,
+                              attention=attention)
+    for bp in blocks:
+        if remat:
+            h = torch.utils.checkpoint.checkpoint(blk, bp, h,
+                                                  use_reentrant=False)
+        else:
+            h = blk(bp, h)
+    h = _ln(h.float(), lp["lnf_g"], lp["lnf_b"])
+    return torch.einsum("bsd,vd->bsv", compat.copy_to(h, g), lp["embed"])
+
+
+def _xent_tp(logits, targets, mesh, tp: str, vocab: int):
+    """Per-token cross-entropy (B, S) of vocab-sharded logits: the max and
+    the sum of exponentials, and the gold logit, summed over ``tp``."""
+    g = compat.group(mesh, tp)
+    lo, hi = _vocab_bounds(mesh, tp, vocab)
+    if hi > lo:
+        m = logits.detach().amax(dim=-1)
+    else:
+        m = logits.new_full(logits.shape[:-1], float("-inf"))
+    compat.all_reduce_(m, g, "max")
+    se = compat.reduce_from(torch.exp(logits - m[..., None]).sum(-1), g)
+    targets = targets.long()
+    mine = (targets >= lo) & (targets < hi)
+    if hi > lo:
+        gold = torch.gather(logits, -1, (targets - lo).clamp(
+            0, hi - lo - 1)[..., None]).squeeze(-1) * mine.to(logits.dtype)
+    else:
+        gold = logits.new_zeros(targets.shape)
+    return m + torch.log(se) - compat.reduce_from(gold, g)
+
+
+def _lm_mesh_grads(params, pspec, tsh, tokens, targets, mesh, dp: str,
+                   tp: str, kw: dict):
+    """(loss, leaves, grads) of the LM's mean cross-entropy on the mesh:
+    each rank differentiates its share (its dp rows), the gradients and
+    the loss summed over ``dp``."""
+    lp = _local_tree(params, pspec)
+    tl, gl = (compat.local_of(v, mesh, tsh.spec) for v in (tokens, targets))
+    vocab = params["embed"].shape[0]
+    n = _numel(targets)
+    return _mesh_value_and_grad(
+        lambda p: _xent_tp(lm_apply_tp(p, tl, mesh, tp, vocab, **kw), gl,
+                           mesh, tp, vocab).sum() / n, lp, mesh, dp)
+
+
+def _lm_stage_fn(per: int, causal: bool):
+    """A stage of ``per`` blocks (a list of block trees)."""
+    def stage_fn(layers, act):
+        for bp in layers:
+            act = block_apply(bp, act, causal=causal)
+        return act
+    return stage_fn
+
+
+def lm_pp_forward(params: dict, tokens, mesh=None,
+                  n_micro: Optional[int] = None, causal: bool = True):
+    """Pipeline-parallel LM forward: the blocks split into P contiguous
+    stage groups (rank i of the ``pp`` mesh owns layers [i·L/P,
+    (i+1)·L/P)), microbatches of the batch stream through the GPipe
+    schedule (:func:`~parsec_tpu_torch.parallel.pipeline.pipe_local`);
+    embedding and the tied head run replicated outside the pipe.
+    ``tokens`` (B, S) with B divisible by ``n_micro``; returns logits
+    (B, S, V) matching :func:`lm_apply`, a DTensor replicated over the
+    mesh (None on a rank outside it). Every rank of the group calls it
+    together, each holding the parameter tree (numpy or tensors)."""
+    from .pipeline import make_pp_mesh, pipe_local
+    mesh = mesh if mesh is not None else make_pp_mesh()
+    nP = mesh.size(0)
+    L = len(params["blocks"])
+    if L % nP:
+        raise ValueError(f"{L} layers do not split over {nP} stages")
+    per = L // nP
+    B, S = tokens.shape
+    if S > params["pos"].shape[0]:
+        raise ValueError(f"sequence length {S} exceeds the model's "
+                         f"max_seq {params['pos'].shape[0]}")
+    m = int(n_micro) if n_micro is not None else nP
+    if B % m:
+        raise ValueError(f"batch {B} not divisible by n_micro {m}")
+    if not compat.in_mesh(mesh):
+        return None
+    K.dot_precision()
+    idx = mesh.get_local_rank(mesh.mesh_dim_names[0])
+
+    def here(a):
+        return compat.local_of(a, mesh, P())
+    layers = [tree_map(here, params["blocks"][idx * per + i])
+              for i in range(per)]
+    embed, pos = here(params["embed"]), here(params["pos"])
+    tokens = here(tokens).long()
+    x = F.embedding(tokens, embed) + pos[:S][None]
+    xs = x.reshape(m, B // m, S, x.shape[-1])
+    out = pipe_local(layers, xs, mesh, m, _lm_stage_fn(per, causal))
+    h = _ln(out.reshape(B, S, -1), here(params["lnf_g"]),
+            here(params["lnf_b"]))
+    return compat.from_local(torch.einsum("bsd,vd->bsv", h, embed), mesh,
+                             P())
 
 
 def _decode_block(bp, x, ck, cv, pos, scale: float, ffn=None):

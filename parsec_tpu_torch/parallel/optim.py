@@ -23,6 +23,12 @@ The optimizer state is a plain tree, ``{"count", "mu", "nu"}`` (optax's
 ``ScaleByAdamState`` fields): the step count as an int64 tensor and the
 first and second moments mirroring the parameter tree, on the parameters'
 device. It is what :mod:`parsec_tpu_torch.utils.model_ckpt` saves.
+
+On a mesh the state's leaves are DTensors placed like the parameters they
+mirror: :meth:`AdamW.apply` works on their local shards (the update is
+elementwise), and with ``shard_groups`` its clip takes the global norm
+across the shards: the squares of a leaf sharded over a group are summed
+over that group, a replicated leaf's counted once.
 """
 
 from __future__ import annotations
@@ -103,13 +109,20 @@ class AdamW:
                 "mu": tree_map(zeros, params),
                 "nu": tree_map(zeros, params)}
 
-    def apply(self, leaves: list, grads: list, state: dict) -> None:
+    def apply(self, leaves: list, grads: list, state: dict,
+              shard_groups: Optional[list] = None) -> None:
         """One update of ``leaves`` (leaf tensors sharing the parameters'
-        storage) in place from ``grads``, the moments of ``state`` updated
-        in place and its count advanced."""
+        storage) in place from ``grads``, the moments of ``state`` (tensors,
+        or DTensors whose local shards line up with ``leaves``) updated in
+        place and its count advanced. ``shard_groups`` (one per leaf: the
+        process group the leaf is sharded over, or None) makes the clip's
+        norm the global one across the shards."""
+        state = tree_map(_local, state)
         for p, g in zip(leaves, grads):
             p.grad = g
-        if self.max_norm is not None:
+        if self.max_norm is not None and shard_groups is not None:
+            _clip_sharded(grads, shard_groups, self.max_norm)
+        elif self.max_norm is not None:
             torch.nn.utils.clip_grad_norm_(leaves, self.max_norm)
         opt = torch.optim.AdamW(leaves, lr=self.learning_rate,
                                 betas=(self.b1, self.b2), eps=self.eps,
@@ -125,6 +138,40 @@ class AdamW:
         for p in leaves:
             p.grad = None
         state["count"] += 1
+
+
+def _local(t):
+    """A DTensor's local shard (its own storage), any other leaf itself."""
+    to_local = getattr(t, "to_local", None)
+    return to_local() if to_local is not None else t
+
+
+def global_norm(grads: list, shard_groups: list) -> torch.Tensor:
+    """The 2-norm of gradients sharded over process groups: the squares of
+    the leaves of each group summed over it, the replicated leaves' (group
+    None) added once."""
+    from . import compat
+    total = torch.zeros((), dtype=torch.float32, device=grads[0].device)
+    by_group: dict = {}
+    for g, grp in zip(grads, shard_groups):
+        sq = g.detach().float().pow(2).sum()
+        if grp is None:
+            total = total + sq
+        else:
+            by_group[grp] = by_group.get(grp, 0) + sq
+    for grp, sq in by_group.items():
+        total = total + compat.all_reduce_(sq.reshape(1).clone(), grp)[0]
+    return total.sqrt()
+
+
+def _clip_sharded(grads: list, shard_groups: list, max_norm: float) -> None:
+    """``clip_grad_norm_``'s scaling, min(1, max_norm / (‖g‖ + 1e-6)), with
+    the global norm across the shards."""
+    coef = torch.clamp(max_norm / (global_norm(grads, shard_groups) + 1e-6),
+                       max=1.0)
+    with torch.no_grad():
+        for g in grads:
+            g.mul_(coef.to(g.dtype))
 
 
 def adamw(learning_rate: float, b1: float = 0.9, b2: float = 0.999,

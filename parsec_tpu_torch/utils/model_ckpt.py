@@ -91,16 +91,21 @@ def save_train_state(path: str, params: Any, opt_state: Any = None,
     replaced when ``force``; else an existing one raises). Returns the
     absolute path."""
     import torch.distributed.checkpoint as dcp
+    import torch.distributed as dist
     path = os.path.abspath(path)
-    if os.path.exists(path):
-        if not force:
-            raise FileExistsError(path)
-        shutil.rmtree(path)
+    solo = _no_dist()
+    if solo or dist.get_rank() == 0:
+        if os.path.exists(path):
+            if not force:
+                raise FileExistsError(path)
+            shutil.rmtree(path)
+    if not solo:
+        dist.barrier()
     state = _flatten(params, "params", {})
     _flatten(opt_state, "opt_state", state)
     state["step"] = torch.tensor(int(step), dtype=torch.int64)
     with _single_process():
-        dcp.save(state, checkpoint_id=path, no_dist=_no_dist())
+        dcp.save(state, checkpoint_id=path, no_dist=solo)
     return path
 
 
@@ -109,9 +114,10 @@ def restore_train_state(path: str, like: Optional[Tuple[Any, Any]] = None
     """Restore ``(params, opt_state, step)``.
 
     ``like=(params_like, opt_state_like)`` gives the target trees: each
-    leaf is restored into a new tensor of the like leaf's device (bit for
-    bit the saved one; the like trees are not written). Without ``like``
-    the trees come back as saved, on the CPU."""
+    leaf is restored into a new tensor of the like leaf's device, a DTensor
+    leaf into a new DTensor on its mesh and placements (bit for bit the
+    saved one; the like trees are not written). Without ``like`` the trees
+    come back as saved, on the CPU."""
     import torch.distributed.checkpoint as dcp
     from torch.distributed.checkpoint import FileSystemReader
     path = os.path.abspath(path)
@@ -121,9 +127,17 @@ def restore_train_state(path: str, like: Optional[Tuple[Any, Any]] = None
         _flatten(like[0], "params", devices)
         if like[1] is not None:
             _flatten(like[1], "opt_state", devices)
+    from ..parallel.compat import DTensor
     state = {}
     for key, md in meta.items():
-        dev = devices[key].device if key in devices else "cpu"
+        lk = devices.get(key)
+        if isinstance(lk, DTensor):
+            state[key] = DTensor.from_local(
+                torch.empty_like(lk.to_local()), lk.device_mesh,
+                lk.placements, run_check=False, shape=lk.shape,
+                stride=lk.stride())
+            continue
+        dev = lk.device if lk is not None else "cpu"
         state[key] = torch.empty(tuple(md.size), dtype=md.properties.dtype,
                                  device=dev)
     missing = set(devices) - set(state)

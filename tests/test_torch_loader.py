@@ -65,10 +65,20 @@ def test_prefetch_reiterable_and_len():
     assert len(ld) == 3
 
 
-def test_device_staging_yields_device_arrays():
+@pytest.fixture(scope="module")
+def pool():
+    """A 4-rank gloo group over CPU tensors for the mesh tests here."""
+    from parsec_tpu_torch.parallel.multihost import RankPool
+    p = RankPool(4, "cpu", timeout=150.0)
+    yield p
+    p.close()
+
+
+def test_device_staging_yields_device_arrays(pool):
     """The device stage on the CPU device: tensors, in order, ``ahead``
-    batches early, the tuple structure kept; a placement of more than one
-    device raises."""
+    batches early, the tuple structure kept; a plain list of more than one
+    device raises, and a NamedSharding over a rank group's mesh places
+    every leaf as a DTensor split over dp."""
     ld = PrefetchLoader(
         lambda: iter([(np.ones((4, 4), np.float32) * i, np.int32(i))
                       for i in range(6)]),
@@ -79,8 +89,17 @@ def test_device_staging_yields_device_arrays():
                and g[0].device.type == "cpu" for g in got)
     np.testing.assert_allclose(got[3][0].numpy(), 3.0)
     assert int(got[5][1]) == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         PrefetchLoader([1], sharding=[torch.device("cpu")] * 2)
+    import _torch_mesh_jobs as J
+    corpus = np.arange(200) % 50
+    want = list(token_batches(corpus, batch=4, seq_len=8, seed=1,
+                              n_batches=3))
+    for got in pool.run(J.loader_batches, corpus, 3):
+        assert len(got) == 3
+        for (x, local, spec), (wx, _) in zip(got, want):
+            np.testing.assert_array_equal(x, wx)
+            assert local == (2, 8) and spec == ("dp", None)
 
 
 def test_token_batches_shapes_and_determinism():
@@ -137,6 +156,31 @@ def test_loader_feeds_lm_training():
         losses.append(float(loss))
     assert len(losses) == 30
     assert losses[-1] < losses[0] * 0.5, (losses[0], losses[-1])
+
+
+def test_loader_feeds_lm_training_on_a_mesh(pool):
+    """The reference's test in its mesh form: corpus -> token_batches ->
+    PrefetchLoader (staged as DTensors split over dp) -> the AdamW LM step
+    over a (dp 2, tp 2) mesh of 4 ranks; the loss falls by half, and every
+    step's loss is the one-device run's."""
+    import _torch_mesh_jobs as J
+    cfg = TM.ModelConfig(vocab_size=16, d_model=32, d_ff=64, n_heads=4,
+                         n_layers=1, max_seq=16)
+    params = TM.init_lm_params(0, cfg)
+    corpus = np.tile(np.array([3, 1, 4, 1, 5, 9, 2, 6]), 64)
+    got = pool.run(J.loader_trains, params, corpus, 30)
+    losses = got[0]
+    assert all(g == losses for g in got)
+    assert len(losses) == 30
+    assert losses[-1] < losses[0] * 0.5, (losses[0], losses[-1])
+    step, opt, place_p, _ = TM.make_lm_opt_train_step(
+        "cpu", O.adamw(1e-2), params)
+    sp, one = place_p(params), []
+    for x, y in token_batches(corpus, batch=4, seq_len=16, seed=1,
+                              n_batches=30):
+        sp, opt, loss = step(sp, opt, x, y)
+        one.append(float(loss))
+    np.testing.assert_allclose(losses, one, rtol=1e-3, atol=1e-3)
 
 
 def test_prefetch_early_exit_terminates_workers():

@@ -262,21 +262,24 @@ def test_lm_generate_sampling_reproducible_and_bounded():
         TM.lm_apply(tp, np.zeros((1, 17), np.int32))
 
 
-def test_moe_params_and_remat_raise_not_implemented():
+def test_moe_params_and_remat_raise_not_implemented(pool):
     """MoE parameters and remat=True, which raised NotImplementedError
     before the training slice, now run: lm_apply and lm_generate take MoE
     parameters (the FFNs routed top-2, as the reference's generate), and
-    remat gives the plain loss. What still raises NotImplementedError is a
-    mesh of more than one device (ROADMAP's mesh item)."""
+    remat gives the plain loss. Meshes of more than one device, which
+    raised it before the mesh slice, run too, as a DeviceMesh over a rank
+    group (here the MoE-LM's forward over a 4-rank ep mesh, against the
+    reference's dense routing); a plain list of two devices raises
+    ValueError, naming the DeviceMesh."""
     tree = JM.init_lm_moe_params(0, JM.ModelConfig(
         vocab_size=32, d_model=16, d_ff=32, n_heads=2, n_layers=1,
         max_seq=8), n_experts=4)
     tree = jax.tree_util.tree_map(np.asarray, tree)
     moe = TM.params_from_numpy(tree, device="cpu")
     toks = np.zeros((2, 8), np.int32)
-    np.testing.assert_allclose(
-        TM.lm_apply(moe, toks).numpy(),
-        np.asarray(JM.lm_moe_apply(tree, toks, k=2)), rtol=2e-4, atol=2e-5)
+    ref = np.asarray(JM.lm_moe_apply(tree, toks, k=2))
+    np.testing.assert_allclose(TM.lm_apply(moe, toks).numpy(), ref,
+                               rtol=2e-4, atol=2e-5)
     np.testing.assert_array_equal(
         TM.lm_generate(moe, toks[:, :4], 2).numpy(),
         np.asarray(JM.lm_generate(tree, toks[:, :4], 2)))
@@ -284,8 +287,21 @@ def test_moe_params_and_remat_raise_not_implemented():
     x, y = _batch(np.random.default_rng(0))
     assert float(TM.lm_loss(tp, x, y, remat=True)) == \
         float(TM.lm_loss(tp, x, y))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="DeviceMesh"):
         TM.make_lm_train_step([torch.device("cpu")] * 2, params=tree)
+    import _torch_mesh_jobs as J
+    for logits, _, dropped in pool.run(J.lm_moe_ep4, tree, toks):
+        np.testing.assert_allclose(logits, ref, rtol=2e-4, atol=2e-4)
+        assert dropped == 0.0
+
+
+@pytest.fixture(scope="module")
+def pool():
+    """A 4-rank gloo group over CPU tensors for the mesh test above."""
+    from parsec_tpu_torch.parallel.multihost import RankPool
+    p = RankPool(4, "cpu", timeout=120.0)
+    yield p
+    p.close()
 
 
 def test_language_model_module_is_the_functional_api():

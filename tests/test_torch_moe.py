@@ -268,11 +268,30 @@ def test_lm_moe_remat_matches_and_guards():
         TM.lm_moe_apply(p, toks, k=2, remat=True, return_aux=True)
 
 
-def test_moe_expert_group_of_more_than_one_device_raises():
-    p = {n: torch.from_numpy(v)
-         for n, v in TMoE.init_moe_params(0, 4, 8, 16).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+@pytest.fixture(scope="module")
+def pool():
+    """A 4-rank gloo group over CPU tensors for the mesh test below."""
+    from parsec_tpu_torch.parallel.multihost import RankPool
+    p = RankPool(4, "cpu", timeout=120.0)
+    yield p
+    p.close()
+
+
+def test_moe_expert_group_of_more_than_one_device_raises(pool):
+    """An expert group given as a plain list of two devices raises (more
+    than one device is a DeviceMesh over a rank group); over a 4-rank ep
+    mesh the layer runs, top-2, each rank its experts and its tokens,
+    equal to the reference's dense routing."""
+    import _torch_mesh_jobs as J
+    params = TMoE.init_moe_params(0, 4, 8, 16)
+    p = {n: torch.from_numpy(v) for n, v in params.items()}
+    with pytest.raises(ValueError, match="DeviceMesh over a rank group"):
         TMoE.moe_forward(p, torch.ones(4, 8), mesh=[CPU, CPU])
+    x = np.random.default_rng(3).standard_normal((16, 8)).astype(np.float32)
+    ref = np.asarray(JMoE.dense_reference(params, x, k=2))
+    for y, spec, local in pool.run(J.moe_layer, params, x, 2):
+        np.testing.assert_allclose(y, ref, rtol=2e-4, atol=2e-5)
+        assert spec == ("ep", None) and local == (4, 8)
 
 
 def test_language_model_module_holds_moe_parameters():

@@ -326,15 +326,53 @@ def test_block_train_step_matches_reference():
     assert got[-1] < got[0]
 
 
-def test_meshes_of_more_than_one_device_raise():
+@pytest.fixture(scope="module")
+def pool():
+    """A 4-rank gloo group over CPU tensors for the mesh test below."""
+    from parsec_tpu_torch.parallel.multihost import RankPool
+    p = RankPool(4, "cpu", timeout=120.0)
+    yield p
+    p.close()
+
+
+def test_meshes_of_more_than_one_device_raise(pool):
+    """More than one device is a DeviceMesh over a rank group: there every
+    training entry point runs (each pre-step loss the single-device
+    step's), while a plain list of two devices still raises, now with
+    where to get a mesh. A one-device placement, in every form, is taken
+    as before."""
+    import _torch_mesh_jobs as J
     tree = _tree(0)
     two = [torch.device("cpu"), torch.device("cpu")]
     for make in (lambda: TM.make_lm_train_step(two, params=tree),
                  lambda: TM.make_lm_opt_train_step(two, O.adamw(1e-3), tree),
                  lambda: TM.make_lm_moe_train_step(mesh=two),
                  lambda: TT.make_train_step(np.array(two).reshape(1, 2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.*3b"):
+        with pytest.raises(ValueError, match="DeviceMesh over a rank group"):
             make()
     # a one-device placement, in any of its forms, is taken
     for one in (CPU, "cpu", [CPU], np.array([CPU]).reshape(1, 1)):
         TM.make_lm_train_step(one, params=tree)
+    # the same entry points on a 4-rank group
+    rng = np.random.default_rng(10)
+    x, y = _batch(rng)
+    bp = TT.init_block_params(3, d_model=32, d_ff=64, n_heads=4)
+    bx = rng.standard_normal((4, 8, 32)).astype(np.float32)
+    by = rng.standard_normal((4, 8, 32)).astype(np.float32)
+    moe = TM.init_lm_moe_params(1, TM.ModelConfig(
+        vocab_size=32, d_model=16, d_ff=32, n_heads=2, n_layers=1,
+        max_seq=8), n_experts=4)
+    toks = rng.integers(0, 32, size=(4, 8)).astype(np.int32)
+    got = pool.run(J.entry_points, tree, moe, (bp, bx, by), x, y, toks)
+    assert all(g == got[0] for g in got)
+    lm = float(TM.lm_loss(TM.params_from_numpy(tree, device="cpu"), x, y))
+    np.testing.assert_allclose([got[0]["lm"], got[0]["lm_opt"]], [lm, lm],
+                               rtol=1e-5)
+    step, pp, px = TT.make_train_step(CPU, lr=0.05)
+    np.testing.assert_allclose(
+        got[0]["block"], float(step(pp(bp), px(bx), px(by))[1]), rtol=1e-5)
+    mstep = TM.make_lm_moe_train_step(mesh=None)
+    np.testing.assert_allclose(
+        got[0]["moe"], float(mstep(TM.params_from_numpy(moe, device="cpu"),
+                                   toks[:, :-1], toks[:, 1:])[1]),
+        rtol=1e-5)
