@@ -158,7 +158,18 @@ port's main paths through the entry points a user calls:
   (``tel_interval_ms`` listed), and the EP scaling row
   (``launch.ep_scaling_rates``) at P = 1, 2, 4 OS processes with card rank
   contexts beside ``cpu_budget()``, then P = 1 on a CPU context and on a
-  card context in turns.
+  card context in turns;
+* meshes on the one card (phase 16): a gloo group of 8 ranks, every one on
+  the card (``multihost.RankPool``), running the collectives' probe, GPT-2
+  small's AdamW step over dp 2 x tp 4, Ulysses (the flash kernel on each
+  rank) and the ring, the sp, pp and ep steps, and the SPMD GEMMs and
+  POTRF;
+* mesh capture (phase 17) on the same group over a 2 x 4 mesh: a bf16 DTD
+  GEMM window (N = 8192, TS = 256, kt = 32: every body a ``gemm_chain``
+  launch on the rank that owns its C tile) run by ``wait_mesh`` twice, the
+  first C bit for bit the window captured inline on one card, the second
+  run a cached plan; then the f32 DTD POTRF (the POTRF cell's shape) over
+  the mesh, held to its residual gate and to the one-card capture.
 
 Every phase that fails ends the run with a nonzero exit code. At its
 end, and when it fails, the script stops every process it started and
@@ -175,7 +186,7 @@ sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
 include the head-dim-80 LM's and the training steps' (its ``training``
 sub-entry); the chain's ``distributed`` lane counts the
 2-rank GEMM's launches, its ``serving`` lane phase 14 (d)'s and
-(f)'s), and last ``{"ok": true, "device":
+(f)'s, its ``mesh_capture`` lane phase 17's), and last ``{"ok": true, "device":
 {...}}``.
 
 Needs one CUDA card; exits nonzero without one.
@@ -5645,7 +5656,7 @@ def mesh_check(ok: bool, what: str) -> None:
         raise AssertionError(f"phase 16: {what}")
 
 
-def meshes(K, torch, smi, device: str = "cuda") -> dict:
+def meshes(K, torch, smi, device: str = "cuda", pool=None) -> dict:
     """Phase 16: one group of ``MESH["ranks"]`` ranks (every rank on the one
     card, joined in a gloo group: ``multihost.RankPool``) running (a) the
     collectives' probe and a timed all-reduce, (b) GPT-2 small's AdamW
@@ -5653,7 +5664,9 @@ def meshes(K, torch, smi, device: str = "cuda") -> dict:
     (c) Ulysses with the flash kernel on each of 4 ranks and the ring on
     8, (d) the sp block step, the pp LM forward and the ep layer, (e)
     Cannon, the all-gather GEMM and the blocked POTRF at N = 8192. Returns
-    the flash launches of (c)'s Ulysses calls, by route."""
+    the flash launches of (c)'s Ulysses calls, by route. A ``pool`` given
+    is used and left open (phase 17 runs on it after); else the phase
+    makes its own and closes it."""
     from parsec_tpu_torch.parallel import model as M
     from parsec_tpu_torch.parallel import optim as O
     from parsec_tpu_torch.parallel.multihost import RankPool
@@ -5676,7 +5689,9 @@ def meshes(K, torch, smi, device: str = "cuda") -> dict:
         torch.cuda.empty_cache()
     log(f"mesh (b) single-rank reference step (f32, B={sz['train_b']}, "
         f"S={sz['train_s']}): loss {ref_loss:.6f}, {ref_ms:.1f} ms ({smi})")
-    pool = RankPool(sz["ranks"], device, timeout=sz["job_s"])
+    own = pool is None
+    if own:
+        pool = RankPool(sz["ranks"], device, timeout=sz["job_s"])
     try:
         t = time.perf_counter()
         pool.start()
@@ -5786,11 +5801,343 @@ def meshes(K, torch, smi, device: str = "cuda") -> dict:
             mesh_check(e0[name + "_rel"] < 1e-5, f"(e) {what} off its "
                        "reference")
     finally:
-        pool.close()
+        if own:
+            pool.close()
     log(f"mesh phase {time.perf_counter() - t0:.1f} s; the ranks time-share "
         f"one card, so no figure here is a scaling figure ({smi})")
     return {"launches": sum(by_route.values()), "by_route": by_route,
             "routes": routes}
+
+
+# ---------------------------------------------------------------------------
+# phase 17: mesh capture on the one card
+# ---------------------------------------------------------------------------
+#: the phase's sizes (a CPU rehearsal cuts them; the rank job takes them as
+#: an argument): (a) the bf16 DTD GEMM's N and TS (kt = N / TS > 16, so
+#: every GEMM_K body is a gemm_chain launch), (b) the f32 DTD POTRF's N and
+#: TS (the POTRF cell's shape), each rank's tile budget on the card
+#: (``device_cuda_max_bytes``); the group is phase 16's, over a 2 x 4 mesh
+MCAP = dict(n=8192, ts=256, potrf_n=8192, potrf_ts=256, rank_bytes=6 << 30)
+
+
+def _digest(torch, t) -> str:
+    """sha256 of a tensor's bytes (bit-for-bit comparisons across ranks)."""
+    import hashlib
+    return hashlib.sha256(t.detach().cpu().contiguous().view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def _plan_figures(plan: dict, me: int) -> dict:
+    """This rank's side of a mesh plan: ops run, transfers sent and
+    received with their bytes, the largest transfer, the landing's bytes."""
+    sent = [t for t in plan["transfers"] if t[2] == me]
+    got = [t for t in plan["transfers"] if t[3] == me]
+    return {"ops": len(plan["ops"][me]), "sent": len(sent),
+            "sent_bytes": sum(t[4] for t in sent), "recv": len(got),
+            "recv_bytes": sum(t[4] for t in got),
+            "largest": max((t[4] for t in plan["transfers"]), default=0),
+            "transfers": len(plan["transfers"]),
+            "landing_bytes": plan["landing_bytes"]}
+
+
+def _timed_wait_mesh(torch, device, tp, mesh) -> float:
+    """ms of one ``wait_mesh`` on this rank, every rank starting together."""
+    import torch.distributed as dist
+    _mesh_sync(torch, device)
+    dist.barrier()
+    t = time.perf_counter()
+    tp.wait_mesh(mesh)
+    _mesh_sync(torch, device)
+    return (time.perf_counter() - t) * 1e3
+
+
+def mesh_capture_job(sz: dict, device: str, seed: int) -> dict:
+    """Phase 17 on one rank of the group, on its own single-rank context:
+    (a) the bf16 GEMM window over the 2 x 4 mesh, twice (the plan built,
+    then cached), this rank's C digest after the first, one C tile it owns
+    held against the plain chain; rank 0 also runs the window captured
+    inline on the card alone and holds C to ``torch.matmul`` in f32; (b)
+    the f32 POTRF window over the mesh; rank 0 also captures it on the
+    card alone and checks the residual gate and the two factors."""
+    import torch
+    import torch.distributed as dist
+    import parsec_tpu_torch as ptt
+    from parsec_tpu_torch.data.matrix import collection_from_numpy
+    from parsec_tpu_torch.ops import cuda_kernels as K
+    from parsec_tpu_torch.ops.gemm import insert_gemm_tasks
+    from parsec_tpu_torch.ops.potrf import insert_potrf_tasks
+    from parsec_tpu_torch.parallel import compat
+    from parsec_tpu_torch.parallel.multihost import device_mesh
+    K.dot_precision()
+    me = dist.get_rank()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    ptt.mca.set("device_cuda_max_bytes", sz["rank_bytes"])
+    ptt.mca.set("device_load_balance_allow_cpu", False)
+    mesh = device_mesh((2, 4), ("x", "y"), device)
+    ctx = ptt.Context(nb_cores=1) if device == "cuda" else \
+        ptt.Context(nb_cores=1, device="cpu")
+    bf = torch.bfloat16
+    out = {"rank": me}
+    try:
+        # (a) the GEMM window, twice
+        n, ts = sz["n"], sz["ts"]
+        kt = n // ts
+        rng = np.random.default_rng(seed)
+        a = rng.standard_normal((n, n), dtype=np.float32)
+        b = rng.standard_normal((n, n), dtype=np.float32)
+        A = collection_from_numpy("mcA", a, ts, ts, dtype=bf)
+        B = collection_from_numpy("mcB", b, ts, ts, dtype=bf)
+        C = collection_from_numpy("mcC", np.zeros((n, n), np.float32), ts,
+                                  ts, dtype=bf)
+        tp = ptt.DTDTaskpool(ctx, "mesh-gemm", capture=True)
+        runs = []
+        for i in range(2):
+            nops = insert_gemm_tasks(tp, A, B, C, batch_k=True)
+            compat.reset_stats()
+            l0 = K.gemm_chain.launches
+            r0 = dict(K.gemm_chain.launches_by_route)
+            ms = _timed_wait_mesh(torch, device, tp, mesh)
+            runs.append({
+                "ms": ms, "hit": tp._capture.cache_hit,
+                "launches": K.gemm_chain.launches - l0,
+                "by_route": {r: K.gemm_chain.launches_by_route[r] - r0[r]
+                             for r in r0},
+                "stats": compat.stats_summary()})
+            if i == 0:
+                plan = tp._capture.mesh_plan()
+                cm = tiles_of(torch, C, "cpu")
+                out["c_digest"] = _digest(torch, cm)
+        tp.close()
+        ctx.wait()
+        out.update(gemm=runs, nops=nops, gemm_plan=_plan_figures(plan, me),
+                   tile_bytes=ts * ts * 2)
+        # one C tile this rank owns (its first op), against the plain chain
+        mine = plan["ops"][me]
+        out["tile_checked"] = None
+        if mine:
+            m, nn = divmod(mine[0], n // ts)
+            c0 = torch.zeros(ts, ts, dtype=bf, device=device)
+            a_st = torch.from_numpy(a[m * ts:(m + 1) * ts]).to(device, bf) \
+                .reshape(ts, kt, ts).permute(1, 0, 2).contiguous()
+            b_st = torch.from_numpy(b[:, nn * ts:(nn + 1) * ts]).to(
+                device, bf).reshape(kt, ts, ts)
+            want = K.gemm_chain_plain(c0, a_st, b_st)
+            got = cm[m * ts:(m + 1) * ts, nn * ts:(nn + 1) * ts].to(device)
+            err = (got.float() - want.float()).abs()
+            bad = int((err > K.gemm_chain_bf16_tolerance(c0, a_st, b_st))
+                      .sum())
+            out["tile_checked"] = (m, nn, float(err.max()), bad,
+                                   bad <= 1e-3 * err.numel())
+        if me == 0:
+            # the same window captured inline on the card alone
+            A1 = collection_from_numpy("scA", a, ts, ts, dtype=bf)
+            B1 = collection_from_numpy("scB", b, ts, ts, dtype=bf)
+            C1 = collection_from_numpy("scC", np.zeros((n, n), np.float32),
+                                       ts, ts, dtype=bf)
+            tp1 = ptt.DTDTaskpool(ctx, "single-gemm", capture="inline")
+            single = []
+            for i in range(2):
+                insert_gemm_tasks(tp1, A1, B1, C1, batch_k=True)
+                _mesh_sync(torch, device)
+                t = time.perf_counter()
+                tp1.wait()
+                _mesh_sync(torch, device)
+                single.append((time.perf_counter() - t) * 1e3)
+                if i == 0:
+                    c1 = tiles_of(torch, C1, "cpu")
+                    out["single_digest"] = _digest(torch, c1)
+                    out["bit_equal"] = bool(torch.equal(c1, cm))
+            tp1.close()
+            ctx.wait()
+            out["single_ms"] = single
+            ref = torch.from_numpy(a).to(device, bf).float() @ \
+                torch.from_numpy(b).to(device, bf).float()
+            out["rel"] = float((cm.to(device).float() - ref).norm()
+                               / ref.norm())
+            del ref, A1, B1, C1, c1
+        del A, B, C, cm
+        dist.barrier()
+        # (b) the POTRF window
+        pn, pts = sz["potrf_n"], sz["potrf_ts"]
+        g = torch.randn(pn, pn, generator=torch.Generator().manual_seed(
+            seed)).to(device)
+        spd = (g @ g.T / pn + torch.eye(pn, device=device) * (0.05 * pn)
+               ).cpu()
+        del g
+        out["spd_digest"] = _digest(torch, spd)
+        P = collection_from_numpy("mcP", spd.numpy(), pts, pts)
+        tp2 = ptt.DTDTaskpool(ctx, "mesh-potrf", capture=True)
+        out["potrf_tasks"] = insert_potrf_tasks(tp2, P)
+        compat.reset_stats()
+        out["potrf_ms"] = _timed_wait_mesh(torch, device, tp2, mesh)
+        out["potrf_stats"] = compat.stats_summary()
+        out["potrf_plan"] = _plan_figures(tp2._capture.mesh_plan(), me)
+        tp2.close()
+        ctx.wait()
+        lm = tiles_of(torch, P, device).tril()
+        out["l_digest"] = _digest(torch, lm)
+        if me == 0:
+            # the first execution (warm-up and capture), then a replay on
+            # the matrix filled anew
+            P1 = collection_from_numpy("scP", spd.numpy(), pts, pts)
+            tp3 = ptt.DTDTaskpool(ctx, "single-potrf", capture=True)
+            out["potrf_single_ms"] = []
+            for i in range(2):
+                if i:
+                    l1 = tiles_of(torch, P1, device).tril()
+                    P1.fill(lambda m, k: spd[m * pts:(m + 1) * pts,
+                                             k * pts:(k + 1) * pts])
+                insert_potrf_tasks(tp3, P1)
+                _mesh_sync(torch, device)
+                t = time.perf_counter()
+                tp3.wait()
+                _mesh_sync(torch, device)
+                out["potrf_single_ms"].append(
+                    (time.perf_counter() - t) * 1e3)
+            tp3.close()
+            ctx.wait()
+            out["potrf_vs_single"] = float(
+                ((lm - l1).abs() - (1e-5 + 1e-5 * l1.abs())).max())
+            a64 = spd.to(device, torch.float64)
+            l64 = lm.double()
+            out["potrf_resid"] = float((l64 @ l64.mT - a64).abs().max()
+                                       / a64.abs().max())
+            del a64, l64, l1, P1
+        del P, lm
+        dist.barrier()
+        if device == "cuda":
+            out["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        return out
+    finally:
+        ctx.fini()
+        ptt.mca.params.unset("device_cuda_max_bytes")
+        ptt.mca.params.unset("device_load_balance_allow_cpu")
+
+
+def cap_check(ok: bool, what: str) -> None:
+    if not ok:
+        raise AssertionError(f"phase 17: {what}")
+
+
+def mesh_capture(K, torch, smi, pool, device: str = "cuda") -> dict:
+    """Phase 17: mesh capture over a 2 x 4 mesh of phase 16's group (every
+    rank on the one card): (a) the bf16 DTD GEMM window run by
+    ``wait_mesh`` twice, C after the first bit for bit the window captured
+    inline on the card alone and within 1e-2 of ``torch.matmul`` in f32
+    norm-wise, one ``gemm_chain`` launch a C tile over the ranks in each
+    run, the second run a cache hit, one owned C tile on every rank held
+    against the plain chain; (b) the f32 DTD POTRF window over the mesh,
+    its residual < 1e-5 (the cell's gate) and its factor within rtol/atol
+    1e-5 of the window captured on the card alone; (c) the figures.
+    Returns the chain's launches over the ranks, by route."""
+    sz = dict(MCAP)
+    t0 = time.perf_counter()
+    res = pool.run(mesh_capture_job, sz, device, 17)
+    r0 = res[0]
+    n, ts = sz["n"], sz["ts"]
+    tiles = (n // ts) ** 2
+    # (a)
+    for i, what in enumerate(("builds the plan", "cache hit")):
+        run = [r["gemm"][i] for r in res]
+        launches = sum(x["launches"] for x in run)
+        routes = {}
+        for x in run:
+            for k, v in x["by_route"].items():
+                routes[k] = routes.get(k, 0) + v
+        ms = [x["ms"] for x in run]
+        hits = sorted({x["hit"] for x in run})
+        used = {k: v for k, v in routes.items() if v}
+        log(f"mesh capture (a) bf16 DTD GEMM N={n} TS={ts} kt={n // ts} "
+            f"over 2 x 4 ranks, wait_mesh {i + 1} ({what}: cache_hit "
+            f"{hits}): {max(ms):.1f} ms (slowest rank; fastest "
+            f"{min(ms):.1f}), gemm_chain launches {launches} over the ranks "
+            f"({[x['launches'] for x in run]}; by route {used}) ({smi})")
+        ops = sum(r["gemm_plan"]["ops"] for r in res)
+        cap_check(ops == tiles, f"(a) {ops} ops over the ranks, want {tiles}")
+        # on the CPU the wrapper takes the plain version and counts nothing
+        want = tiles if device == "cuda" else 0
+        cap_check(launches == want, f"(a) run {i + 1}: {launches} chain "
+                  f"launches over the ranks, want {want}")
+        cap_check(all(x["hit"] == (i == 1) for x in run),
+                  f"(a) run {i + 1}: cache_hit not {i == 1} on every rank")
+    owners = [r for r in res if r["gemm_plan"]["ops"]]
+    if device == "cuda":
+        cap_check(all(r["gemm"][0]["launches"] >= 1 for r in owners),
+                  "(a) a rank that owns C tiles launched no chain")
+    single = r0["single_ms"]
+    log(f"mesh capture (a) the window captured inline on the card alone: "
+        f"{single[0]:.1f} ms first execution (warm-up + capture), "
+        f"{single[1]:.1f} ms replay ({smi})")
+    same = {r["c_digest"] for r in res}
+    agree = "the same on every rank and" if len(same) == 1 else \
+        "DIFFERS between ranks;"
+    log(f"mesh capture (a) C after the first wait_mesh: {agree} "
+        f"{'bit for bit' if r0['bit_equal'] else 'NOT bit for bit'} the "
+        f"inline single-card DAG's; |C - ref| / |ref| {r0['rel']:.3e} "
+        f"against torch.matmul in f32")
+    cap_check(len(same) == 1 and same == {r0["single_digest"]}
+              and r0["bit_equal"], "(a) C is not the single-card DAG's bit "
+              "for bit on every rank")
+    cap_check(r0["rel"] < 1e-2, f"(a) |C - ref| / |ref| {r0['rel']}")
+    for r in owners:
+        m, nn, err, bad, ok = r["tile_checked"]
+        cap_check(ok, f"(a) rank {r['rank']}'s C tile ({m}, {nn}) off the "
+                  f"plain chain ({bad} elements)")
+    log("mesh capture (a) one owned C tile a rank against the plain chain: "
+        + ", ".join(f"r{r['rank']} ({r['tile_checked'][0]},"
+                    f"{r['tile_checked'][1]}) max err "
+                    f"{r['tile_checked'][2]:.3e}, {r['tile_checked'][3]} "
+                    f"beyond the bound" for r in owners))
+    # (b)
+    pl = [r["potrf_plan"] for r in res]
+    log(f"mesh capture (b) f32 DTD POTRF N={sz['potrf_n']} "
+        f"TS={sz['potrf_ts']} ({r0['potrf_tasks']} tasks) over 2 x 4 ranks: "
+        f"{max(r['potrf_ms'] for r in res):.1f} ms (slowest rank), the "
+        f"window captured on the card alone {r0['potrf_single_ms'][0]:.1f} "
+        f"ms first execution, {r0['potrf_single_ms'][1]:.1f} ms replay; "
+        f"max|LL^T - A| / max|A| {r0['potrf_resid']:.3e}; L's worst excess "
+        f"over rtol/atol 1e-5 from the single-card factor "
+        f"{r0['potrf_vs_single']:.3e} ({smi})")
+    cap_check(len({r["spd_digest"] for r in res}) == 1,
+              "(b) the ranks built different matrices")
+    cap_check(len({r["l_digest"] for r in res}) == 1,
+              "(b) the ranks landed different factors")
+    cap_check(r0["potrf_resid"] < 1e-5, f"(b) residual {r0['potrf_resid']}")
+    cap_check(r0["potrf_vs_single"] <= 0, "(b) L off the single-card factor")
+    # (c)
+    for what, key in (("(a) GEMM", "gemm_plan"), ("(b) POTRF", "potrf_plan")):
+        f0 = res[0][key]
+        tb = r0["tile_bytes"] if key == "gemm_plan" else \
+            sz["potrf_ts"] ** 2 * 4
+        log(f"mesh capture {what} plan: ops a rank "
+            f"{[r[key]['ops'] for r in res]}; transfers {f0['transfers']} "
+            f"({sum(r[key]['sent_bytes'] for r in res)} B), received a rank "
+            f"{[r[key]['recv'] for r in res]} "
+            f"({[r[key]['recv_bytes'] for r in res]} B), the largest "
+            f"{f0['largest']} B against a tile's {tb} B; landing "
+            f"{f0['landing_bytes']} B a rank")
+        cap_check(0 < f0["largest"] <= tb, f"{what}: a transfer of "
+                  f"{f0['largest']} B, above one tile")
+    log("mesh capture compat.STATS, rank 0: (a) first run "
+        f"{r0['gemm'][0]['stats']}; (b) {r0['potrf_stats']}")
+    if device == "cuda":
+        cap_check(all("send_recv/staged" in r["gemm"][0]["stats"]
+                      for r in res if r["gemm_plan"]["recv"]),
+                  "(a) no transfer took the staged route")
+        log("mesh capture peak memory a rank, GiB: " + ", ".join(
+            f"{r['peak_gib']:.2f}" for r in res))
+    log(f"mesh capture phase {time.perf_counter() - t0:.1f} s; the ranks "
+        f"time-share one card, so no figure here is a scaling figure "
+        f"({smi})")
+    by_route = {}
+    for r in res:
+        for x in r["gemm"]:
+            for k, v in x["by_route"].items():
+                by_route[k] = by_route.get(k, 0) + v
+    return {"launches": sum(x["launches"] for r in res for x in r["gemm"]),
+            "by_route": by_route}
 
 
 def main() -> int:
@@ -6202,11 +6549,22 @@ def main() -> int:
     entry_points(smi)
 
     # ---- 16. meshes: a gloo group of 8 ranks on the one card ------------
+    # ---- 17. mesh capture on the same group -----------------------------
+    from parsec_tpu_torch.parallel.multihost import RankPool
     torch.cuda.empty_cache()
-    mesh = meshes(K, torch, smi)
+    pool = RankPool(MESH["ranks"], "cuda", timeout=MESH["job_s"])
+    try:
+        mesh = meshes(K, torch, smi, pool=pool)
+        cap = mesh_capture(K, torch, smi, pool)
+    finally:
+        pool.close()
     flash_launches += mesh["launches"]
     for r, n_r in mesh["by_route"].items():
         flash_by_route[r] += n_r
+    launches += cap["launches"]
+    lane_launches["mesh_capture"] = cap["launches"]
+    for r, n_r in cap["by_route"].items():
+        gemm_by_route[r] += n_r
 
     # ---- the kernel line at the main paths' shapes ----------------------
     kernels = [gemm_chain_entry(K, torch, gen, launches, gemm_by_route),

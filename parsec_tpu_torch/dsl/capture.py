@@ -241,6 +241,14 @@ class _Program:
 _KERNEL_NODE = re.compile(r'label="\{KERNEL\s*\|\s*\{ID \|[^|]*\|\s*([^\\<|}]+)')
 
 
+def _unpin(dev, copies) -> None:
+    """Unpin the staged ``copies`` (None entries: tiles not staged)."""
+    if dev is not None:
+        for c in copies:
+            if c is not None:
+                dev.unpin_copy(c)
+
+
 def _release_programs_of(dev) -> None:
     """Release every cached program captured on ``dev`` (its ``fini()``)."""
     for key, prog in _program_cache.oldest_first():
@@ -447,6 +455,110 @@ class _ScanProgram(_Program):
         return self.stores
 
 
+class _MeshPlan:
+    """The owner-computes program of one captured window over a 2-D rank
+    mesh: what :meth:`GraphCapture.execute_mesh` caches where the reference
+    caches its GSPMD executable.
+
+    Each collection is a global laid out ``PartitionSpec(x, y)``: its rows
+    split over the first axis and its columns over the second in equal
+    blocks, and a tile belongs to the rank whose block holds the tile's
+    first element (``owner``; None for a scratch tile). An op runs on the
+    owner of the first collection tile it writes, or on every rank when it
+    writes scratch tiles only (scratch rides replicated). Before an op, each
+    runner that lacks the current version of one of the op's tiles receives
+    it from a rank that holds it (the tile's owner where that one does);
+    after it, each written tile of another owner goes to that owner. So a
+    rank reads a tile it does not own only as a transfer, and each (tile,
+    version) reaches a rank at most once. Every rank computes the same plan
+    from the same recording, so the transfers' tags (their order in the
+    plan) pair each send with its receive.
+
+    ``steps[i]`` is op i's ``(runners, pre, post)``, a move
+    ``(tile, src, dst, tag)``; ``land_cols`` maps each written collection
+    to the written tiles each rank owns (the landing's all-gather layout)
+    and ``land_moves`` are the moves that bring a written scratch tile to
+    the ranks that lack its last version."""
+
+    def __init__(self, ops, placement, owner, ranks, metas) -> None:
+        from .dtd import WRITE
+        self.ranks = tuple(ranks)
+        self.owner = owner
+        self.metas = metas
+        self.placement = placement
+        everyone = frozenset(ranks)
+        holders = [{o} if o is not None else set(everyone) for o in owner]
+        self.steps: List[Tuple] = []
+        self.transfers: List[Tuple] = []    # (op, tile, src, dst, bytes)
+        tag = 0
+
+        def move(i, ti, src, dst, into):
+            nonlocal tag
+            into.append((ti, src, dst, tag))
+            tag += 1
+            if i is not None:
+                self.transfers.append((i, placement[ti], src, dst,
+                                       self.nbytes(ti)))
+            holders[ti].add(dst)
+
+        for i, (_fn, spec) in enumerate(ops):
+            flows = [(e[1], e[2]) for e in spec if e[0] == "flow"]
+            wcol = [ti for ti, acc in flows
+                    if acc & WRITE and owner[ti] is not None]
+            runners = (owner[wcol[0]],) if wcol else self.ranks
+            pre: List[Tuple] = []
+            post: List[Tuple] = []
+            for ti in dict.fromkeys(ti for ti, _ in flows):
+                for r in runners:
+                    if r not in holders[ti]:
+                        o = owner[ti]
+                        src = o if o in holders[ti] else min(holders[ti])
+                        move(i, ti, src, r, pre)
+            for ti in dict.fromkeys(ti for ti, acc in flows if acc & WRITE):
+                holders[ti] = set(runners)
+                if owner[ti] is not None and owner[ti] not in holders[ti]:
+                    move(i, ti, runners[0], owner[ti], post)
+            self.steps.append((frozenset(runners), pre, post))
+        self.written = sorted({e[1] for _, spec in ops for e in spec
+                               if e[0] == "flow" and e[2] & WRITE})
+        self.land_cols: Dict[str, Dict[int, List[int]]] = {}
+        self.land_moves: List[Tuple] = []
+        for ti in self.written:
+            if owner[ti] is not None:
+                by_rank = self.land_cols.setdefault(
+                    placement[ti][1], {r: [] for r in self.ranks})
+                by_rank[owner[ti]].append(ti)
+                continue
+            src = min(holders[ti])
+            for r in self.ranks:
+                if r not in holders[ti]:
+                    move(None, ti, src, r, self.land_moves)
+
+    def nbytes(self, ti: int) -> int:
+        shape, dtype = self.metas[ti]
+        return int(np.prod(shape)) * dtype.itemsize
+
+    def landing_bytes(self) -> Dict[str, int]:
+        """Bytes each rank holds after the landing's all-gather, by written
+        collection (every rank's padded share), and the scratch moves'."""
+        out = {}
+        for name, by_rank in self.land_cols.items():
+            ti = next(t for ts in by_rank.values() for t in ts)
+            most = max(len(ts) for ts in by_rank.values())
+            out[name] = len(self.ranks) * most * self.nbytes(ti)
+        out["scratch"] = sum(self.nbytes(m[0]) for m in self.land_moves)
+        return out
+
+    def describe(self, cache_hit: bool) -> Dict[str, Any]:
+        land = self.landing_bytes()
+        return {"ranks": list(self.ranks),
+                "ops": {r: [i for i, st in enumerate(self.steps)
+                            if r in st[0]] for r in self.ranks},
+                "transfers": list(self.transfers),
+                "landing": land, "landing_bytes": sum(land.values()),
+                "cache_hit": cache_hit}
+
+
 class GraphCapture:
     """Recorder + executor for a captured DTD taskpool.
 
@@ -496,6 +608,8 @@ class GraphCapture:
         self.last_capture_s: Optional[float] = None
         #: the program of the last execution (its ``graph`` on a card)
         self.last_program: Optional[_Program] = None
+        #: :meth:`mesh_plan`'s answer: the plan of the last mesh execution
+        self._last_mesh: Optional[Dict[str, Any]] = None
 
     def _clear_recording(self) -> None:
         """Consume the recorded batch (execute, take_ops)."""
@@ -885,16 +999,21 @@ class GraphCapture:
         return next(d for d in ctx.devices.devices
                     if isinstance(d, CUDADevice))
 
-    def _stage(self, dev) -> List[Any]:
+    def _stage(self, dev, which=None) -> List[Any]:
         """The copy each tile executes on: its host copy (a CPU context;
         array payloads become tensors, persisted), or its CUDA device copy,
         staged from the newest copy where that is not it (persisted: the
         tile crosses to the card once across repeated executions) and
-        pinned against eviction until :meth:`execute` unpins it."""
+        pinned against eviction until the caller unpins it. With ``which``
+        (a set of tile indices) the other tiles are left where they are
+        and their entries are None."""
         from .dtd import RW
         copies = []
         try:
-            for t in self._tiles:
+            for i, t in enumerate(self._tiles):
+                if which is not None and i not in which:
+                    copies.append(None)
+                    continue
                 newest = t.data.newest_copy()
                 if newest is None or newest.payload is None:
                     output.fatal(f"graph capture: tile {t!r} has no data")
@@ -905,9 +1024,7 @@ class GraphCapture:
                     newest.payload = torch.as_tensor(newest.payload)
                 copies.append(newest)
         except BaseException:
-            if dev is not None:
-                for c in copies:
-                    dev.unpin_copy(c)
+            _unpin(dev, copies)
             raise
         return copies
 
@@ -935,9 +1052,7 @@ class GraphCapture:
         try:
             prog = self._execute_staged(copies, dev)
         finally:
-            if dev is not None:
-                for c in copies:
-                    dev.unpin_copy(c)
+            _unpin(dev, copies)
         if dev is not None and self._capture_error is None \
                 and not self.cache_hit:
             _fit(dev, prog)
@@ -994,6 +1109,214 @@ class GraphCapture:
         # capture (wait() executes each batch exactly once)
         self._clear_recording()
         return prog
+
+    # ------------------------------------------------------- mesh execution
+    def mesh_plan(self) -> Dict[str, Any]:
+        """The plan of the last mesh execution: the port's counterpart of
+        the reference's ``mesh_hlo`` (which returns the compiled GSPMD
+        program's HLO; the port compiles no HLO, and its communication is
+        the plan's). Keys: ``ranks``; ``ops``, the op indices each rank
+        ran; ``transfers``, every point-to-point move of the plan as
+        ``(op index, tile, source rank, destination rank, bytes)`` with a
+        tile as ``("c", collection, m, n)`` or ``("l", scratch index)``;
+        ``landing`` and ``landing_bytes``, the result's assembly on every
+        rank, kept apart from the transfers; ``cache_hit``."""
+        if self._last_mesh is None:
+            output.fatal("mesh_plan: no mesh execution recorded")
+        return self._last_mesh
+
+    def execute_mesh(self, mesh, axis_names=None) -> None:
+        """Run the captured window as one owner-computes program over a
+        2-D ``DeviceMesh`` of the process group's ranks: every rank of the
+        mesh calls this on its own single-rank context, with the same
+        recording (the multi-controller form), and every rank ends with
+        the whole result landed. The reference compiles the window into one
+        GSPMD program; here each rank replays the ops it owns
+        (:class:`_MeshPlan`) eagerly on its device and moves tiles to the
+        ranks that read them point to point (``compat.isend``/``recv``:
+        counted in ``compat.STATS`` under ``send_recv``, through host
+        copies where gloo refuses CUDA tensors). Sends are posted without
+        waiting (their buffers kept until the window ends) and only
+        receives block, so ranks walking the ops in recorded order never
+        wait on each other in a cycle.
+
+        The reference's contract: collection tiles come from collections
+        with uniform full tiles (partial edge tiles are refused), every
+        global dimension divides by its mesh axis, scratch (``tile_new``)
+        tiles need data, and a failed validation DISCARDS the recorded
+        batch (``close()`` must not run it on one device behind the
+        caller's back). The mesh must hold every rank of the group. Results
+        land on the tile copies as task completions do (one version bump
+        per written tile), on every rank: each written collection's tiles
+        are assembled through one all-gather of the owners' shares,
+        counted under its own op key (``mesh_land``). Plans are cached on
+        the window's signature, the tile placement, the collections'
+        geometry, the mesh's shape, axis names and ranks, and the axes
+        chosen (``cache_hit``)."""
+        if not self.ops:
+            return
+        import torch.distributed as dist
+        try:
+            names = tuple(getattr(mesh, "mesh_dim_names", None) or ())
+            axes = tuple(axis_names) if axis_names is not None else names
+            if len(axes) != 2:
+                output.fatal(f"execute_mesh needs a 2D mesh, got axes {axes}")
+            if len(names) != 2 or set(axes) != set(names):
+                output.fatal(f"execute_mesh: axes {axes} are not the two "
+                             f"axes of the mesh {names}")
+            colls: Dict[str, Any] = {}
+            placement: List[Tuple] = []    # ("c", name, m, n) | ("l", li)
+            metas: List[Tuple] = []        # (shape, dtype) of each tile
+            for t in self._tiles:
+                dc = t.dc
+                if dc is not None and hasattr(dc, "lnt") and \
+                        hasattr(dc, "mb"):
+                    if dc.lm % dc.mb or dc.ln % dc.nb:
+                        output.fatal(f"execute_mesh: collection {dc.name} "
+                                     f"has partial edge tiles")
+                    colls.setdefault(dc.name, dc)
+                    m, n = divmod(t.key[1], dc.lnt)
+                    placement.append(("c", dc.name, m, n))
+                    metas.append(((dc.mb, dc.nb), dc.dtype))
+                else:
+                    copy = t.data.newest_copy()
+                    if copy is None or copy.payload is None:
+                        output.fatal(f"execute_mesh: tile {t!r} has no data")
+                    v = copy.payload
+                    placement.append(("l", sum(p[0] == "l"
+                                               for p in placement)))
+                    metas.append((tuple(v.shape), torch.as_tensor(v).dtype))
+            dims = [names.index(a) for a in axes]
+            mx, my = (mesh.size(d) for d in dims)
+            for dc in colls.values():
+                if dc.lm % mx or dc.ln % my:
+                    output.fatal(f"execute_mesh: {dc.name} {dc.lm}x{dc.ln} "
+                                 f"not divisible by mesh {mx}x{my}")
+            if not dist.is_initialized() or \
+                    mesh.size() != dist.get_world_size():
+                output.fatal("execute_mesh: the mesh must hold every rank "
+                             "of the process group")
+        except Exception:
+            # a batch the mesh path rejected must not linger: close()/wait()
+            # would otherwise execute it on one device behind the caller's
+            # back
+            self._clear_recording()
+            raise
+
+        grid = mesh.mesh.permute(dims)
+        owner: List[Optional[int]] = []
+        for p in placement:
+            if p[0] == "l":
+                owner.append(None)
+                continue
+            dc = colls[p[1]]
+            owner.append(int(grid[p[2] * dc.mb // (dc.lm // mx),
+                                  p[3] * dc.nb // (dc.ln // my)]))
+        ranks = [int(r) for r in mesh.mesh.flatten()]
+        dev = self._cuda_device()
+        device = dev.torch_device if dev is not None else torch.device("cpu")
+        sig = ("mesh", self._signature(
+                   [torch.empty(s, dtype=d, device="meta")
+                    for s, d in metas], device),
+               tuple(placement),
+               tuple((n, colls[n].lm, colls[n].ln, colls[n].mb, colls[n].nb)
+                     for n in sorted(colls)),
+               tuple(mesh.mesh.shape), names, axes, tuple(ranks))
+        plan, self.cache_hit = _program_cache.get_or_build(
+            sig, lambda: _MeshPlan(self.ops, placement, owner, ranks, metas))
+        me = dist.get_rank()
+        if dev is None:
+            self._mesh_run(plan, me, None, device)
+        else:
+            caller = torch.cuda.current_stream(device)
+            dev.stream.wait_stream(caller)
+            with dev._on_stream():
+                self._mesh_run(plan, me, dev, device)
+            caller.wait_stream(dev.stream)
+        self.last_mode = "mesh"
+        self._last_mesh = plan.describe(self.cache_hit)
+        self.executions += 1
+        self._clear_recording()
+
+    def _mesh_run(self, plan: _MeshPlan, me: int, dev, device) -> None:
+        """This rank's part of ``plan``: stage the tiles it owns, the
+        scratch tiles and the written ones, walk the ops, land."""
+        which = {i for i, o in enumerate(plan.owner) if o in (None, me)}
+        copies = self._stage(dev, which | set(plan.written))
+        try:
+            env = [None if c is None else torch.as_tensor(c.payload)
+                   for c in copies]
+            arr_vals = [torch.as_tensor(e[1]).to(device)
+                        for _, spec in self.ops for e in spec
+                        if e[0] == "array"]
+            sent: List[Any] = []
+            ai = 0
+            for op, (runners, pre, post) in zip(self.ops, plan.steps):
+                n_arr = sum(e[0] == "array" for e in op[1])
+                self._mesh_moves(plan, pre, env, me, device, sent)
+                if me in runners:
+                    self._replay([op], env.__getitem__,
+                                 lambda ti, v: self._mesh_write(
+                                     plan, env, ti, v),
+                                 arr_vals[ai:ai + n_arr])
+                ai += n_arr
+                self._mesh_moves(plan, post, env, me, device, sent)
+            results = self._mesh_landing(plan, env, me, device, sent)
+            for s in sent:
+                s.wait()
+            self._land(plan.written, results, copies, dev)
+        finally:
+            _unpin(dev, copies)
+
+    @staticmethod
+    def _mesh_write(plan: _MeshPlan, env, ti: int, v) -> None:
+        """A body's output for tile ``ti``: a collection tile keeps its
+        collection's dtype, as the reference's update-slice casts."""
+        if plan.owner[ti] is not None:
+            v = v.to(plan.metas[ti][1])
+        env[ti] = v
+
+    @staticmethod
+    def _mesh_moves(plan: _MeshPlan, moves, env, me: int, device, sent,
+                    op: str = "send_recv") -> None:
+        from ..parallel import compat
+        for ti, src, dst, tag in moves:
+            shape, dtype = plan.metas[ti]
+            if src == me:
+                v = env[ti]
+                if tuple(v.shape) != tuple(shape) or v.dtype != dtype:
+                    output.fatal(f"execute_mesh: tile {plan.placement[ti]} "
+                                 f"became {tuple(v.shape)} {v.dtype}; a "
+                                 f"tile that moves between ranks keeps its "
+                                 f"{tuple(shape)} {dtype}")
+                sent.append(compat.isend(v, dst, tag, op=op))
+            elif dst == me:
+                env[ti] = compat.recv(shape, dtype, device, src, tag)
+
+    def _mesh_landing(self, plan: _MeshPlan, env, me: int, device,
+                      sent) -> List[Any]:
+        """The last version of every written tile on this rank: each
+        written collection's tiles through one all-gather of the owners'
+        shares (padded to the largest), a scratch tile from a rank that
+        holds it where this one does not."""
+        from ..parallel import compat
+        got: Dict[int, Any] = {}
+        for name, by_rank in plan.land_cols.items():
+            most = max(len(ts) for ts in by_rank.values())
+            shape, dtype = plan.metas[next(t for ts in by_rank.values()
+                                           for t in ts)]
+            share = torch.zeros((most,) + tuple(shape), dtype=dtype)
+            mine = by_rank[me]
+            if mine:
+                share[:len(mine)] = torch.stack([env[ti] for ti in mine]).cpu()
+            every = compat.gather_bytes(share, "mesh_land")
+            for r, ts in by_rank.items():
+                for k, ti in enumerate(ts):
+                    got[ti] = env[ti] if r == me else \
+                        every[r, k].to(device, copy=True)
+        self._mesh_moves(plan, plan.land_moves, env, me, device, sent,
+                         op="mesh_land")
+        return [got[ti] if ti in got else env[ti] for ti in plan.written]
 
     def _land(self, written, results, copies, dev) -> None:
         """Land results exactly like task completions: the host copy on a

@@ -1498,6 +1498,17 @@ class DTDTaskpool(Taskpool):
         for t in tiles:
             self.data_flush(t)
 
+    def wait_mesh(self, mesh, axis_names=None) -> bool:
+        """Capture-mode only: execute the recorded window as one
+        owner-computes program over ``mesh``, a 2-D ``DeviceMesh`` of the
+        process group's ranks, each of which calls this on its own
+        single-rank context with the same recording (see
+        :meth:`~parsec_tpu_torch.dsl.capture.GraphCapture.execute_mesh`)."""
+        if self._capture is None:
+            output.fatal("wait_mesh requires DTDTaskpool(capture=True)")
+        self._capture.execute_mesh(mesh, axis_names)
+        return True
+
     def wait(self, timeout: Optional[float] = None) -> bool:
         """parsec_dtd_taskpool_wait: drain everything this rank executes
         (a captured pool: execute the recorded window as one program)."""

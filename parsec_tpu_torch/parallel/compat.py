@@ -22,7 +22,9 @@ never by version string:
   all-to-all call gloo, and raise naming the op where the probe found it
   refused; send/recv, which gloo refuses on CUDA tensors (torch 2.11's
   aborts the process), is staged through host copies onto the CPU, where
-  gloo takes it. :data:`STATS`
+  gloo takes it (:func:`isend` posts one tensor to a rank without waiting
+  and :func:`recv` blocks for one: the transfers of mesh capture's plans;
+  :func:`gather_bytes` gathers host tensors of any dtype). :data:`STATS`
   counts every call and its bytes by ``(op, route)``, route ``"gloo"`` or
   ``"staged"``.
 * **``shard_map``.** :func:`shard_map` runs a per-rank body on local shards
@@ -284,6 +286,69 @@ def _p2p(sends, recvs, group) -> None:
     if ops:
         for w in dist.batch_isend_irecv(ops):
             w.wait()
+
+
+class Sent:
+    """A posted send (:func:`isend`): its work and the buffer it reads,
+    kept alive until :meth:`wait` returns."""
+
+    __slots__ = ("work", "buf")
+
+    def __init__(self, work, buf: torch.Tensor) -> None:
+        self.work, self.buf = work, buf
+
+    def wait(self) -> None:
+        self.work.wait()
+        self.buf = None
+
+
+def _staged(device: torch.device) -> bool:
+    """True where send/recv on ``device`` tensors goes through host copies
+    (gloo refused it there in the group's probe)."""
+    return device.type != "cpu" and not native("send_recv", device.type)
+
+
+def isend(t: torch.Tensor, dst: int, tag: int = 0,
+          op: str = "send_recv") -> Sent:
+    """Post a send of ``t`` to global rank ``dst`` and return at once; the
+    caller waits on the returned :class:`Sent` (which holds the buffer,
+    a host copy on the ``staged`` route) before it may reuse ``t``'s
+    storage. Counted in :data:`STATS` under ``(op, route)``."""
+    x = t.detach().contiguous()
+    route = "gloo"
+    if _staged(x.device):
+        route, x = "staged", x.to("cpu")
+    _count(op, route, x)
+    return Sent(dist.isend(x, dst, tag=tag), x)
+
+
+def recv(shape, dtype: torch.dtype, device, src: int,
+         tag: int = 0) -> torch.Tensor:
+    """Block until the tensor global rank ``src`` sent with ``tag``
+    arrives; returned on ``device`` (received into a host buffer on the
+    ``staged`` route). The sender's :func:`isend` counts the transfer."""
+    dev = torch.device(device)
+    staged = _staged(dev)
+    buf = torch.empty(tuple(shape), dtype=dtype,
+                      device="cpu" if staged else dev)
+    dist.recv(buf, src, tag=tag)
+    return buf.to(dev) if staged else buf
+
+
+def gather_bytes(t: torch.Tensor, op: str) -> torch.Tensor:
+    """Every rank's ``t`` (each the same shape) stacked in rank order on
+    the host, moved as bytes (any dtype, bit for bit) by one gloo
+    all-gather of CPU tensors over the whole group, counted under ``(op,
+    "gloo")``."""
+    x = t.detach().contiguous().cpu()
+    raw = x.reshape(-1).view(torch.uint8)
+    if not native("all_gather", "cpu"):
+        raise RuntimeError("all_gather: gloo refused it on cpu tensors in "
+                           "the group's probe, and nothing replaces it")
+    _count(op, "gloo", raw)
+    out = torch.empty(dist.get_world_size() * raw.numel(), dtype=torch.uint8)
+    _all_gather_tensor(out, raw)
+    return out.view(x.dtype).reshape((-1,) + tuple(x.shape))
 
 
 def all_to_all(t: torch.Tensor, group, split_dim: int,

@@ -213,8 +213,7 @@ def test_capture_program_cache_across_pools(ctx):
         np.testing.assert_allclose(C.to_dense(), want, rtol=1e-5, atol=1e-5)
 
 
-def test_capture_rejects_nonjit(ctx, ref_ctx):
-    """With auto-defer off, a jit=False insert is a hard error in both."""
+def _rejects_nonjit(ctx, ref_ctx):
     import parsec_tpu.utils.mca as ref_mca
     mca.set("capture_auto_defer", False)
     ref_mca.set("capture_auto_defer", False)
@@ -229,6 +228,44 @@ def test_capture_rejects_nonjit(ctx, ref_ctx):
     finally:
         mca.unset("capture_auto_defer")
         ref_mca.params.unset("capture_auto_defer")
+
+
+def test_capture_rejects_nonjit(ctx, ref_ctx):
+    """With auto-defer off, a jit=False insert is a hard error in both."""
+    _rejects_nonjit(ctx, ref_ctx)
+
+
+def test_capture_rejects_nonjit_and_multirank(ctx, ref_ctx):
+    """The reference's test whole: the jit=False refusal, and a captured
+    pool on a context of two ranks (in-process ranks over the threads comm
+    engine) refused as single-rank in both."""
+    _rejects_nonjit(ctx, ref_ctx)
+    from parsec_tpu.comm.remote_dep import RemoteDepEngine as RefRDE
+    from parsec_tpu.comm.threads import ThreadsCE as RefCE
+    from parsec_tpu.comm.threads import run_distributed as ref_run
+    from parsec_tpu_torch.comm.remote_dep import RemoteDepEngine
+    from parsec_tpu_torch.comm.threads import ThreadsCE, run_distributed
+
+    def program(make_ctx, rde, ce, pool):
+        def run(rank, fabric):
+            c = make_ctx(rank)
+            rde(c, ce(fabric, rank))
+            try:
+                pool(c, "cap2", capture=True)
+                return "accepted"
+            except RuntimeError as e:
+                return str(e)
+            finally:
+                c.fini(timeout=5)
+        return run
+
+    port = run_distributed(2, program(
+        lambda r: Context(nb_cores=1, device="cpu", my_rank=r, nb_ranks=2),
+        RemoteDepEngine, ThreadsCE, DTDTaskpool), timeout=30)
+    ref = ref_run(2, program(
+        lambda r: pt.Context(nb_cores=1, my_rank=r, nb_ranks=2),
+        RefRDE, RefCE, RefPool), timeout=30)
+    assert all("single-rank" in r for r in port + ref), (port, ref)
 
 
 def test_capture_close_executes_pending(ctx):

@@ -3,11 +3,13 @@ world, ex02, ex04, ex05 and ex06 (PTG), ex07 (DTD POTRF), ex11 (graph
 capture), ex16 (redistribution), and the distributed ex03 (a chain across
 ranks), ex08 (PTG GEMM on 4 ranks), ex09 (the TCP launcher), ex14
 (device payloads across processes), ex17 (the serving fabric) and the
-mesh examples ex10 (the five parallelism modes), ex13 (LM training over
-dp x tp with a checkpoint) and ex15 (two "hosts" of four ranks)) run
+mesh examples ex10 (the five parallelism modes), ex12 (mesh capture and
+the data bridge), ex13 (LM training over dp x tp with a checkpoint) and
+ex15 (two "hosts" of four ranks)) run
 green on the CPU, each in its own interpreter (ex09 and ex14 as 2
 processes through ``python -m parsec_tpu_torch.launch --cpu``, ex17 as
-the 2 processes it starts, ex10 and ex13 as the 8-rank group they start,
+the 2 processes it starts, ex10, ex12 and ex13 as the 8-rank group they
+start,
 ex15 as its 8 rank interpreters), and none of them imports JAX or the
 reference package."""
 
@@ -28,7 +30,7 @@ LAUNCHED = {"ex09": [], "ex14": ["--mca", "comm_device_mem", "1"]}
 SELF_LAUNCHED = ["ex17"]
 #: the examples that start a rank group of their own (a ``RankPool`` of 8
 #: ranks, or ``run_multicontroller``'s 2 x 4 rank interpreters)
-MESHES = ["ex10", "ex13", "ex15"]
+MESHES = ["ex10", "ex12", "ex13", "ex15"]
 
 
 def _script(ex: str) -> pathlib.Path:

@@ -4,7 +4,10 @@ the route the group's probe chose) give the CPU's answers; Ulysses
 launches the flash kernel's wgmma route on every rank and holds its plain
 version; the LM's AdamW step over (dp 2, tp 2) and the MoE-LM's steps over
 a 4-rank ep mesh hold their one-device steps on the card; the loader
-stages each rank's shard of a batch on the card.
+stages each rank's shard of a batch on the card; a captured bf16 GEMM
+window run over a 2 x 4 mesh of 8 card ranks (``wait_mesh``) launches the
+chain kernel on every rank that owns C tiles and lands C bit for bit as
+the window captured inline on the card alone.
 
 Every test here carries the ``cuda`` marker and skips without a CUDA card.
 The file imports neither JAX nor the reference package:
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import _torch_capture_mesh_jobs as CJ
 import _torch_mesh_jobs as J
 from parsec_tpu_torch.parallel import model as TM
 from parsec_tpu_torch.parallel import optim as O
@@ -31,6 +35,30 @@ def pool():
     p = RankPool(4, "cuda", timeout=300.0)
     yield p
     p.close()
+
+
+@pytest.fixture(scope="module")
+def pool8():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the ranks run on it")
+    p = RankPool(8, "cuda", timeout=300.0)
+    yield p
+    p.close()
+
+
+def test_mesh_capture_on_cuda_ranks_matches_one_card(pool8):
+    """bf16, N = 1088, TS = 64: kt = 17 takes the chain kernel, and column
+    tiles straddle the y-blocks (272 columns each)."""
+    n, ts = 1088, 64
+    rng = np.random.default_rng(29)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, n)).astype(np.float32)
+    res = pool8.run(CJ.cuda_gemm, n, ts, a, b)
+    assert {r["C"] for r in res} == {res[0]["inline"]}
+    assert sum(r["ops"] for r in res) == (n // ts) ** 2
+    for r in res:
+        assert r["launches"] == r["ops"] > 0
+    assert any("send_recv/staged" in r["stats"] for r in res)
 
 
 def test_collectives_on_cuda_tensors_match_the_cpus(pool):
