@@ -5,9 +5,13 @@
 
 Builds the hand-written kernels from ``parsec_tpu_torch/csrc`` with nvcc (one
 nvcc per source, all started together; a build whose wgmmas ptxas
-serialised fails the run), checks with ``cuobjdump -sass`` that the chain's
-bf16 kernel and the flash kernel's wgmma route run on Hopper's tensor-core
-and TMA instructions (HGMMA, UTMALDG), holds each kernel against its plain
+serialised fails the run), checks with ``cuobjdump -sass`` that the
+chain's bf16 kernel and the flash kernel's wgmma route run on Hopper's
+tensor-core and TMA instructions (HGMMA, UTMALDG) and the float32 kernels
+on cp.async (LDGSTS), reads with ``cuobjdump -res-usage`` the registers and
+spills of the flash kernels built at 256 (wgmma, which must hold 168
+registers without spills) and of the float32 kernel, holds each kernel
+against its plain
 PyTorch version (``gemm_chain`` on its tile, split and general routes,
 ``flash_attention`` on its wgmma, mma, simt and chunked routes, at head
 dims from 1 to 1000), then drives the
@@ -104,8 +108,9 @@ port's main paths through the entry points a user calls:
   pass, and ``diag_band_to_rect`` of the factor; a checkpoint of the
   factor restored onto the card bit for bit; the backend probe, from its
   subprocess and then cached; and ``flash_attention`` at head dims 80,
-  256 and 512 (the chunked route; also f32 at (16, 1024, 512)) timed
-  beside SDPA, with a 2-layer LM at head dim 80 (n_embd 1280, 16 heads)
+  256 and 512 (the chunked route; also f32 at (16, 1024, 512) and (96,
+  1024, 64)) timed beside SDPA (d = 256 bf16 also in turns with the
+  kernel it replaced, the mma route), with a 2-layer LM at head dim 80 (n_embd 1280, 16 heads)
   through the flash core against the dense core;
 * distribution on the task path (phase 12), every rank on the one card
   with a tile budget of its own: the DTD GEMM of phase 3 on two in-process
@@ -182,7 +187,9 @@ and bound; the chain's entry counts the native lane's scheduled DAGs and
 the replays, with each engine's count, PINS on and off, beside it under
 ``launches_by_lane``; flash's entry also its profiled device time, its
 launches by route, the mma route's times in turns with it, a float32
-sub-entry and the ``head_dims`` rows at d = 80, 256 and 512; its launches
+sub-entry, the ``head_dims`` rows at d = 80, 256 and 512 (and float32 64),
+the mma route's times at d = 256 in turns under ``in_turns``, and the new
+kernels' ptxas ``resources``; its launches
 include the head-dim-80 LM's and the training steps' (its ``training``
 sub-entry); the chain's ``distributed`` lane counts the
 2-rank GEMM's launches, its ``serving`` lane phase 14 (d)'s and
@@ -199,6 +206,7 @@ import gc
 import json
 import math
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -573,8 +581,9 @@ def check_gemm_chain(K, torch, dtype, kt, m, k, n, gen) -> float:
 
 
 # (q shape, kv shape, causal, q_offset, k_offset, rows that see no key);
-# bf16 takes the wgmma route at head dims 33-128 that are multiples of 8,
-# the mma route at the others (up to 256), float32 the simt route, and
+# bf16 takes the wgmma route at head dims 33-256 that are multiples of 8
+# (past 128 the kernel built at 256), the mma route at the others (up to
+# 256), float32 the simt route (the tiled kernel, built up to 1024), and
 # either dtype the chunked route past 256; a head dim between built sizes
 # runs the next one's instantiation, its extra columns zero-filled as they
 # load
@@ -608,6 +617,12 @@ FLASH_CASES = {
     "d=200 causal": ((2, 150, 200), (2, 150, 200), True, 0, 0, 0),
     "d=256 causal": ((4, 512, 256), (4, 512, 256), True, 0, 0, 0),
     "d=256 offsets": ((2, 129, 256), (2, 300, 256), True, 171, 0, 0),
+    "d=136 ragged": ((2, 200, 136), (2, 333, 136), False, 0, 0, 0),
+    "d=256 all-masked block": ((1, 128, 256), (1, 128, 256), True, 0, 128,
+                               128),
+    "d=256 offsets and sq != sk": ((2, 257, 256), (2, 190, 256), True, 40,
+                                   72, 32),
+    "d=250 causal offsets": ((2, 100, 250), (2, 130, 250), True, 30, 0, 0),
     # past one 256-column step: the chunked route
     "d=257 causal offsets": ((2, 130, 257), (2, 150, 257), True, 20, 0, 0),
     "d=320 all-masked block": ((1, 128, 320), (1, 128, 320), True, 0, 64,
@@ -616,23 +631,32 @@ FLASH_CASES = {
     "d=512 ragged": ((1, 64, 512), (1, 100, 512), False, 0, 0, 0),
     "d=1000 causal offsets": ((1, 70, 1000), (1, 90, 1000), True, 20, 0,
                               0),
+    # past 1024: float32 reloads its q tile a 1024-column step
+    "d=1100 causal offsets": ((1, 40, 1100), (1, 60, 1100), True, 20, 0,
+                              0),
 }
 #: the timing rows beside the LM path's head dim 64, (dtype, bh, d) at
 #: sequence 1024, causal: Phi-2's 80 and Gemma's 256 at the LM path's bh
-#: in bf16, and d = 512 (the chunked route) in bf16 at that bh and in
-#: float32 at bh 16
+#: in bf16, d = 512 (the chunked route) in bf16 at that bh and in float32
+#: at bh 16, and the LM path's float32 shape
 FLASH_TIMED = (("bfloat16", 96, 80), ("bfloat16", 96, 256),
-               ("bfloat16", 96, 512), ("float32", 16, 512))
+               ("bfloat16", 96, 512), ("float32", 16, 512),
+               ("float32", 96, 64))
+#: the rows timed in turns with the kernel their route replaced: d = 256
+#: bf16 with the mma route of the same library (``flash_variants.py`` times
+#: the float32 rows in turns with the float32 kernel the tiled one replaced)
+FLASH_TURNED = (("bfloat16", 96, 256),)
 
 
-def flash_kernel_name(route: str, dtype: str) -> str:
+def flash_kernel_name(route: str, dtype: str, d: int) -> str:
     """The device kernel's name prefix on a flash route (torch.profiler)."""
+    if dtype == "float32":
+        return "flash_f32_tiled<"
     if route == "chunked":
-        return "flash_bf16<256, true>" if dtype == "bfloat16" \
-            else "flash_f32<256, true>"
+        return "flash_bf16<256, true>"
     if route == "wgmma":
-        return "flash_bf16_wgmma"
-    return "flash_bf16<" if dtype == "bfloat16" else "flash_f32<"
+        return "flash_bf16_wgmma256" if d > 128 else "flash_bf16_wgmma<"
+    return "flash_bf16<"
 
 
 def sdpa_view(t, bh: int):
@@ -1115,15 +1139,17 @@ def gemm_chain_entry(K, torch, gen, launches: int, by_route: dict) -> dict:
 SASS_NEEDS = {
     "gemm_chain": {"chain_bf16_wgmma": ("HGMMA", "UTMALDG"),
                    "chain_f32_tiled": ("LDGSTS",)},
-    "flash_attention": {"flash_bf16_wgmma": ("HGMMA", "UTMALDG")},
+    "flash_attention": {"flash_bf16_wgmma": ("HGMMA", "UTMALDG"),
+                        "flash_bf16_wgmma256": ("HGMMA", "UTMALDG"),
+                        "flash_f32_tiled": ("LDGSTS",)},
 }
 
 
 def sass_check(K) -> dict:
     """The SASS of the libraries that the wrappers load, by kernel: the
-    chain's bf16 tile/split kernel and the flash wgmma kernel must hold
-    HGMMA and UTMALDG, the chain's float32 kernel LDGSTS. Returns the
-    counts; raises when one is missing."""
+    chain's bf16 tile/split kernel and the flash wgmma kernels must hold
+    HGMMA and UTMALDG, the chain's and flash's float32 kernels LDGSTS.
+    Returns the counts; raises when one is missing."""
     tool = os.path.join(os.path.dirname(K.nvcc_path()), "cuobjdump")
     counts = {}
     for lib, needs in SASS_NEEDS.items():
@@ -1152,6 +1178,41 @@ def sass_check(K) -> dict:
                     raise AssertionError(f"the {lib} library has no {op} in "
                                          f"{kernel}")
     return counts
+
+
+def flash_resources(K) -> dict:
+    """ptxas's resources of flash_bf16_wgmma256 and flash_f32_tiled, from
+    ``cuobjdump -res-usage`` of the built library: registers a thread and
+    the stack frame (where ptxas puts spilled registers: a kernel that
+    spills has one, and none otherwise) of flash_bf16_wgmma256 and of each
+    flash_f32_tiled<D>. Raises when the wgmma256 kernel spills or holds
+    other than the 168 registers a thread that its setmaxnreg transfer is
+    sized for (its launcher refuses it then)."""
+    tool = os.path.join(os.path.dirname(K.nvcc_path()), "cuobjdump")
+    text = subprocess.run([tool, "-res-usage", K.build("flash_attention")],
+                          capture_output=True, text=True, check=True).stdout
+    rows, name = {}, None
+    for line in text.splitlines():
+        if "Function" in line:
+            name = line.split("Function", 1)[1].strip().rstrip(":")
+        elif "REG:" in line and name:
+            fields = dict(f.split(":", 1) for f in line.split() if ":" in f)
+            tiled = re.search(r"flash_f32_tiledILi(\d+)E", name)
+            key = ("flash_bf16_wgmma256" if "flash_bf16_wgmma256" in name
+                   else f"flash_f32_tiled<{tiled.group(1)}>" if tiled
+                   else None)
+            if key:
+                rows[key] = {"registers": int(fields["REG"]),
+                             "stack_bytes": int(fields.get("STACK", 0))}
+            name = None
+    log("ptxas resources of the new flash kernels (cuobjdump -res-usage): "
+        + "; ".join(f"{k} {v['registers']} registers, a {v['stack_bytes']} B "
+                    f"stack frame (spills)" for k, v in sorted(rows.items())))
+    w = rows.get("flash_bf16_wgmma256")
+    if w is None or w["stack_bytes"] or w["registers"] != 168:
+        raise AssertionError(f"flash_bf16_wgmma256's resources {w}: not 168 "
+                             f"registers without spills")
+    return rows
 
 
 def flash_on_route(K, torch, q, k, v, route: str):
@@ -1239,8 +1300,11 @@ def flash_device_times(K, torch) -> dict:
     script's large traces: after those the tracer loses most short
     sessions' device events (:func:`profiler_probe`). For bf16 and float32:
     the kernel's device ms on its route and SDPA's kernel (its backend);
-    for bf16 also the mma route's device ms. These launches come before the
-    main path's counts are set to 0."""
+    for bf16 also the mma route's device ms. Then the FLASH_TIMED rows, and
+    for the FLASH_TURNED ones the kernel in turns with the mma route and
+    SDPA: kernel line and device ms of each, and each one's max abs err
+    against the plain version. These launches come before the main path's
+    counts are set to 0."""
     import torch.nn.functional as F
     bh, s, d = LM_BATCH * GPT2_SMALL["n_heads"], LM_SEQ, 64
     gen = torch.Generator(device="cuda").manual_seed(11)
@@ -1253,7 +1317,7 @@ def flash_device_times(K, torch) -> dict:
         q4, k4, v4 = (t.view(LM_BATCH, GPT2_SMALL["n_heads"], s, d)
                       for t in (q, k, v))
         route = K.flash_route(dtype, d, True)
-        kernel = "flash_bf16_wgmma" if route == "wgmma" else "flash_f32"
+        kernel = flash_kernel_name(route, name, d)
         sdpa_kernels = profiled_kernels(
             torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                           is_causal=True))
@@ -1281,7 +1345,7 @@ def flash_device_times(K, torch) -> dict:
                                ).to(dt) for _ in range(3))
         q4, k4, v4 = (sdpa_view(t, bh_) for t in (q, k, v))
         route = K.flash_route(dt, hd, True)
-        kernel = flash_kernel_name(route, name)
+        kernel = flash_kernel_name(route, name, hd)
         sdpa_kernels = profiled_kernels(
             torch, lambda: F.scaled_dot_product_attention(q4, k4, v4,
                                                           is_causal=True))
@@ -1299,8 +1363,51 @@ def flash_device_times(K, torch) -> dict:
             f"{fmt_ms(row['device_ms'])}; scaled_dot_product_attention "
             f"device {fmt_ms(row['library_device_ms'])} (kernel "
             f"{row['library_kernel']})")
+        if (name, bh_, hd) in FLASH_TURNED:
+            row.update(flash_turns(K, torch, q, k, v, q4, k4, v4, route))
         del q, k, v, q4, k4, v4
     return out
+
+
+def flash_turns(K, torch, q, k, v, q4, k4, v4, route) -> dict:
+    """The kernel in turns with the one it replaced (the mma route of the
+    same library) and SDPA on the same inputs: the kernel line of each
+    (new, old, old, new, SDPA, SDPA), the device ms of each (new, old, new,
+    old), and each one's max abs err against the plain version."""
+    import torch.nn.functional as F
+    name = str(q.dtype).replace("torch.", "")
+    d = q.shape[-1]
+
+    def new_fn():
+        return K.flash_attention(q, k, v, causal=True)
+
+    def old_fn():
+        return flash_on_route(K, torch, q, k, v, "mma")
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    want = K.flash_attention_plain(q, k, v, causal=True).float()
+    errs = [(fn().float().reshape(want.shape) - want).abs().max().item()
+            for fn in (new_fn, old_fn, sdpa)]
+    line = [cuda_time_ms(fn) for fn in (new_fn, old_fn, old_fn, new_fn,
+                                        sdpa, sdpa)]
+    dev = [profiled_ms(torch, fn, kern) for fn, kern in (
+        (new_fn, flash_kernel_name(route, name, d)), (old_fn, "flash_bf16<"),
+        (new_fn, flash_kernel_name(route, name, d)), (old_fn, "flash_bf16<"))]
+    label = "the mma route (flash_bf16<256, false>)"
+    log(f"flash_attention {name} {tuple(q.shape)} causal in turns with "
+        f"{label}: kernel line new {line[0]:.4f}, old {line[1]:.4f}, old "
+        f"{line[2]:.4f}, new {line[3]:.4f}, SDPA {line[4]:.4f}, "
+        f"{line[5]:.4f} ms; device new {fmt_ms(dev[0])}, old "
+        f"{fmt_ms(dev[1])}, new {fmt_ms(dev[2])}, old {fmt_ms(dev[3])}; max "
+        f"abs err against plain new {errs[0]:.3e}, old {errs[1]:.3e}, SDPA "
+        f"{errs[2]:.3e}")
+    return {"in_turns": {"replaced": label, "ms": line[0:4:3],
+                         "replaced_ms": line[1:3], "library_ms": line[4:6],
+                         "device_ms": dev[0::2], "replaced_device_ms":
+                         dev[1::2], "max_abs_err": errs[0],
+                         "replaced_max_abs_err": errs[1],
+                         "library_max_abs_err": errs[2]}}
 
 
 def flash_entry(K, torch, gen, launches: int, by_route: dict,
@@ -3660,10 +3767,12 @@ def substrate_probe(torch) -> None:
 def flash_head_dim_rows(K, torch, device_times: dict) -> list:
     """(g) The flash kernel at the FLASH_TIMED rows (head dims 80 and 256
     at the LM path's (96, 1024) causal bf16 shape; d = 512 on the chunked
-    route at that shape in bf16 and at (16, 1024) in float32): every
-    element within the tolerance of its plain version (bf16's bound;
-    float32 rtol/atol 2e-4), the kernel line's time, plain's, SDPA's, and
-    the bound; the profiled device times from ``device_times``."""
+    route at that shape in bf16 and at (16, 1024) in float32; the LM path's
+    float32 shape): every element within the tolerance of its plain
+    version (bf16's bound; float32 rtol/atol 2e-4), the kernel line's time,
+    plain's, SDPA's, and the bound; the profiled device times, and the
+    FLASH_TURNED row's times in turns with the mma route, from
+    ``device_times``."""
     import torch.nn.functional as F
     s = LM_SEQ
     gen = torch.Generator(device="cuda").manual_seed(12)
@@ -3700,6 +3809,8 @@ def flash_head_dim_rows(K, torch, device_times: dict) -> list:
                "library_ms": library_ms,
                "library_device_ms": dt["library_device_ms"],
                "library_kernel": dt["library_kernel"]}
+        if "in_turns" in dt:
+            row["in_turns"] = dt["in_turns"]
         rows.append(row)
         log(f"flash_attention {name} ({bh}, {s}, {d}) causal, "
             f"{row['route']} route: kernel {kernel_ms:.4f} ms (device "
@@ -6184,7 +6295,7 @@ def main() -> int:
         build(name)
         build_s[name] = time.perf_counter() - t
 
-    with ThreadPoolExecutor(len(names) + len(lanes)) as pool:
+    with ThreadPoolExecutor(len(names) + len(lanes) + 1) as pool:
         jobs = [pool.submit(timed, K.build, n) for n in names] + \
             [pool.submit(timed, NATIVE.build, s) for s in lanes]
         for job in jobs:
@@ -6204,6 +6315,7 @@ def main() -> int:
         if any(w in K.build_log.get(name, "") for w in ("C7518", "C7508")):
             raise AssertionError(f"ptxas serialised {name}'s wgmmas")
     sass_check(K)
+    flash_res = flash_resources(K)
     gen = torch.Generator(device="cuda").manual_seed(0)
     # the split route (C 512^2 and 256 x 512), the tile route (36 output
     # tiles) and the general route (a 36-byte bf16 / 72-byte float32 pitch)
@@ -6574,6 +6686,7 @@ def main() -> int:
                matmul]
     kernels[0]["launches_by_lane"] = lane_launches
     kernels[1]["head_dims"] = flash_rows
+    kernels[1]["resources"] = flash_res
     kernels[1]["training"] = {k: train[k] for k in (
         "launches", "launches_per_step", "step_ms", "tokens_per_s",
         "busy_ms", "window_ms", "peak_gib", "loss_first_last")}

@@ -17,12 +17,15 @@ on the CPU; it never falls back from one to the other.
 * :func:`flash_attention` — softmax(q·kᵀ·scale)·v as ONE kernel
   (``csrc/flash_attention.cu``): a thread block owns a q tile and streams
   k/v tiles past an online softmax held in registers, on the route
-  :func:`flash_route` picks: ``wgmma`` (bf16 at head dims 33-128 that are
-  multiples of 8: a TMA ring fed by a producer warp, two consumer
-  warpgroups on ``wgmma``), ``mma`` (other bf16: ``mma.sync``) or ``simt``
-  (float32). Any head dim up to 256 runs, on the instantiation at the next
-  built size, its extra columns zero-filled as they load. It replaces the
-  TPU kernel ``_flash_attn_call`` of the same module.
+  :func:`flash_route` picks: ``wgmma`` (bf16 at head dims 33-256 that are
+  multiples of 8: a TMA ring fed by a producer, two consumer warpgroups on
+  ``wgmma``; past 128 a producer warpgroup that hands its registers to the
+  consumers with ``setmaxnreg``), ``mma`` (other bf16: ``mma.sync``),
+  ``simt`` (float32: register-tiled FMA, the q tile held in shared memory,
+  K and V through a ``cp.async`` ring) or, past 256, ``chunked``. Any head
+  dim runs, on the instantiation at the next built size, its extra columns
+  zero-filled as they load. It replaces the TPU kernel ``_flash_attn_call``
+  of the same module.
 * :func:`matmul` — blocked A·B with the output accumulated in its own dtype
   per k block, a second entry point of ``csrc/gemm_chain.cu`` that runs the
   chain's routes with C = 0 over the k blocks of A. It replaces
@@ -696,18 +699,20 @@ FLASH_ROUTES = {"simt": 0, "mma": 1, "wgmma": 2, "chunked": 3}
 
 def flash_route(dtype, d: int, aligned: bool) -> str:
     """The route of a flash launch: a pure function of the dtype, the head
-    dim and the operands' 16-byte alignment. ``simt`` for float32 (no TF32,
-    so the SIMT cores); ``wgmma`` (TMA and ``wgmma``, built at 64 and 128)
-    for bf16 at 32 < d <= 128 with d % 8 == 0 on 16-byte aligned bases, as
-    TMA needs 16-byte aligned rows; ``mma`` (``mma.sync``) for the other
-    bf16 launches up to d = 256, d <= 32 included; ``chunked`` for either
-    dtype at d > 256 (a grid axis over the output's 256-column chunks, S
-    recomputed over all d in 256-column steps in each)."""
+    dim and the operands' 16-byte alignment. ``simt`` for float32 up to
+    d = 256 (no TF32, so the SIMT cores); ``wgmma`` (TMA and ``wgmma``,
+    built at 64, 128 and 256) for bf16 at 32 < d <= 256 with d % 8 == 0 on
+    16-byte aligned bases, as TMA needs 16-byte aligned rows; ``mma``
+    (``mma.sync``) for the other bf16 launches up to d = 256, d <= 32
+    included; ``chunked`` for either dtype at d > 256 (bf16: a grid axis
+    over the output's 256-column chunks, S recomputed over all d in
+    256-column steps in each; float32: the ``simt`` kernel built at 512 and
+    1024, which computes S once for all of a row's columns up to 1024)."""
     if d > FLASH_MAX_HEAD_DIM:
         return "chunked"
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if 32 < d <= 128 and d % 8 == 0 and aligned else "mma"
+    return "wgmma" if 32 < d <= 256 and d % 8 == 0 and aligned else "mma"
 
 
 def _check_flash(q, k, v) -> None:

@@ -383,9 +383,10 @@ def test_stage_in_once_then_eviction_writes_back(gctx):
 
 
 # (q shape, kv shape, causal, q_offset, k_offset, rows that see no key).
-# Head dims 33-128 that are multiples of 8 take the wgmma route in bf16
-# (128-row q blocks, 128-key tiles), the others the mma route (up to 256);
-# the d = 64 cases reach every kind
+# Head dims 33-256 that are multiples of 8 take the wgmma route in bf16
+# (128-row q blocks; 128-key tiles up to 128, 64-key tiles on the kernel
+# built at 256), the others the mma route (up to 256); float32 runs the
+# tiled SIMT kernel at every head dim; the d = 64 cases reach every kind
 # of key tile: wholly visible, crossing the diagonal (offsets equal or not,
 # sq = sk or not), wholly masked, and the ragged end of k.
 FLASH_CASES = [
@@ -408,8 +409,8 @@ FLASH_CASES = [
     ((3, 1, 64), (3, 1, 64), True, 0, 0, 0),
     # head dims between and up to the built sizes: d runs the instantiation
     # at the next built size with its extra columns zero-filled as they
-    # load (48, 80, 96: wgmma in bf16 with TMA's out-of-bounds fill; 1, 8,
-    # 200, 256: mma), ragged and causal
+    # load (48, 80, 96, 136, 200: wgmma in bf16 with TMA's out-of-bounds
+    # fill; 1, 8, 250: mma), ragged and causal
     ((2, 70, 1), (2, 90, 1), True, 20, 0, 0),
     ((2, 100, 8), (2, 100, 8), False, 0, 0, 0),
     ((2, 200, 48), (2, 260, 48), True, 60, 0, 0),
@@ -418,6 +419,16 @@ FLASH_CASES = [
     ((2, 130, 96), (2, 190, 96), False, 0, 0, 0),
     ((2, 150, 200), (2, 150, 200), True, 0, 0, 0),
     ((2, 129, 256), (2, 300, 256), True, 171, 0, 0),
+    # past 128 on the kernel built at 256: ragged sq and sk, offsets, a
+    # block that sees nothing, sq = sk = 1, and zero-filled columns (136:
+    # the last 64-column box wholly past d)
+    ((2, 200, 136), (2, 333, 136), False, 0, 0, 0),
+    ((2, 130, 200), (2, 70, 200), False, 0, 0, 0),
+    ((1, 128, 256), (1, 128, 256), True, 0, 128, 128),
+    ((2, 257, 256), (2, 190, 256), True, 40, 72, 32),
+    ((3, 1, 256), (3, 1, 256), True, 0, 0, 0),
+    ((4, 512, 256), (4, 512, 256), True, 0, 0, 0),
+    ((2, 100, 250), (2, 130, 250), True, 30, 0, 0),
     ((2, 200, 64), (2, 300, 64), True, 100, 0, 0),
     ((1, 192, 64), (1, 160, 64), True, 40, 72, 32),
     ((2, 512, 64), (2, 512, 64), True, 0, 0, 0),
@@ -433,18 +444,20 @@ FLASH_CASES = [
     ((1, 64, 512), (1, 100, 512), False, 0, 0, 0),
     ((1, 70, 1000), (1, 90, 1000), True, 20, 0, 0),
     ((1, 65, 1000), (1, 65, 1000), False, 0, 0, 0),
+    # past 1024: float32 reloads its q tile a 1024-column step
+    ((1, 40, 1100), (1, 60, 1100), True, 20, 0, 0),
 ]
 
 
 def _flash_route_of(dtype, d):
     """The route each case must take: past 256 the chunked route, float32
-    on the SIMT cores, bf16 on wgmma at head dims 33-128 that are multiples
+    on the SIMT cores, bf16 on wgmma at head dims 33-256 that are multiples
     of 8 (every case here is 16-byte aligned), else on mma.sync."""
     if d > 256:
         return "chunked"
     if dtype == torch.float32:
         return "simt"
-    return "wgmma" if 32 < d <= 128 and d % 8 == 0 else "mma"
+    return "wgmma" if 32 < d <= 256 and d % 8 == 0 else "mma"
 
 
 def _flash_inputs(qs, ks, dtype):
@@ -489,7 +502,7 @@ def test_flash_cases_cover_every_route():
     assert routes == set(K.FLASH_ROUTES)
 
 
-@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("d", [64, 128, 200, 256])
 def test_flash_bf16_on_unaligned_bases_takes_the_mma_route(d):
     """TMA needs 16-byte aligned bases: q, k and v that start 2 bytes into
     their buffers go to the mma route and still agree with the plain
@@ -507,8 +520,9 @@ def test_flash_bf16_on_unaligned_bases_takes_the_mma_route(d):
 
 def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
     """The C entry point checks the route's preconditions and refuses the
-    launch (no silent change of route): wgmma at d = 32, on float32 and on
-    an unaligned base; mma on float32; simt on bf16."""
+    launch (no silent change of route): wgmma at d = 32, at d = 130 (rows
+    not a 16-byte multiple), on float32 and on an unaligned base; mma on
+    float32; simt on bf16."""
     _need_card()
     lib = K._library("flash_attention")
     st = torch.cuda.current_stream().cuda_stream
@@ -526,6 +540,11 @@ def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
     assert launch(bf, 32, 1, R["wgmma"]) != 0
     assert launch(f32, 64, 0, R["wgmma"]) != 0
     assert launch(bf[1:], 64, 1, R["wgmma"]) != 0
+    wide_bf = torch.zeros(64 * 256 + 8, device="cuda", dtype=torch.bfloat16)
+    assert launch(wide_bf, 256, 1, R["wgmma"]) == 0
+    torch.cuda.synchronize()
+    assert launch(wide_bf, 130, 1, R["wgmma"]) != 0
+    assert launch(wide_bf[1:], 256, 1, R["wgmma"]) != 0
     assert launch(f32, 64, 0, R["mma"]) != 0
     assert launch(bf, 64, 1, R["simt"]) != 0
     # the chunked route takes head dims past 256 only, and they no other
@@ -537,10 +556,15 @@ def test_flash_kernel_refuses_a_route_the_operands_do_not_allow():
 
 @pytest.mark.parametrize("dtype,d", [(torch.bfloat16, 48),
                                      (torch.bfloat16, 80),
+                                     (torch.bfloat16, 136),
                                      (torch.bfloat16, 200),
+                                     (torch.bfloat16, 250),
+                                     (torch.float32, 1),
                                      (torch.float32, 80),
+                                     (torch.float32, 250),
                                      (torch.float32, 256),
-                                     *((dt, d) for d in (257, 320, 512, 1000)
+                                     *((dt, d) for d in (257, 320, 512, 1000,
+                                                         1100)
                                        for dt in (torch.float32,
                                                   torch.bfloat16))])
 def test_flash_pads_columns_in_its_loads_not_in_memory(dtype, d):
@@ -576,19 +600,29 @@ def test_flash_pads_columns_in_its_loads_not_in_memory(dtype, d):
     assert torch.isnan(out_buf[n:]).all()
 
 
-# planted faults in the wgmma kernel: (name, source text, its replacement)
+# planted faults in the wgmma kernels: (name, source text, its
+# replacement, the head dims of the cases that must reject it: 64 for the
+# kernel built at 64 and 128, 256 for the one built at 256; the softmax and
+# the correction are shared)
 FLASH_FAULTS = [
     ("skip the last key tile",
      "return kend > 0 ? (kend + W_BK - 1) / W_BK : 0;",
-     "return kend > 0 ? (kend + W_BK - 1) / W_BK - 1 : 0;"),
+     "return kend > 0 ? (kend + W_BK - 1) / W_BK - 1 : 0;", (64,)),
     ("no correction of the accumulator",
      "      o[4 * n + 2 * h] *= corr[h];\n"
-     "      o[4 * n + 2 * h + 1] *= corr[h];\n", ""),
+     "      o[4 * n + 2 * h + 1] *= corr[h];\n", "", (64, 256)),
     ("drop the last key of every tile",
      "const float p = ex2(",
-     "const float p = jj == 15 && t == 3 && e == 1 ? 0.f : ex2("),
+     "const float p = jj == N / 4 - 1 && t == 3 && e == 1 ? 0.f : ex2(",
+     (64, 256)),
     ("a diagonal tile taken as wholly visible",
-     "(!causal || k_off + k0 + W_BK - 1 <= q_off + wg_row0)", "true"),
+     "(!causal || k_off + k0 + W_BK - 1 <= q_off + wg_row0)", "true", (64,)),
+    ("skip the last key tile at d = 256",
+     "return kend > 0 ? (kend + X_BK - 1) / X_BK : 0;",
+     "return kend > 0 ? (kend + X_BK - 1) / X_BK - 1 : 0;", (256,)),
+    ("a diagonal tile taken as wholly visible at d = 256",
+     "(!causal || k_off + k0 + X_BK - 1 <= q_off + wg_row0)", "true",
+     (256,)),
 ]
 
 
@@ -602,7 +636,7 @@ def flash_mutants(tmp_path_factory):
     out = tmp_path_factory.mktemp("flash_mutants")
 
     def build(i):
-        _, old, new = FLASH_FAULTS[i]
+        _, old, new, _ = FLASH_FAULTS[i]
         assert src.count(old) == 1
         cu, so = out / f"fault{i}.cu", out / f"fault{i}.so"
         cu.write_text(src.replace(old, new))
@@ -620,13 +654,15 @@ def flash_mutants(tmp_path_factory):
 def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
                                                  monkeypatch):
     """The bf16 check of the test above must fail a wgmma kernel with a
-    planted fault on the d = 64 cases. Prints, per case on the wgmma route,
-    the fault's largest error and whether the bound and the reference's
-    looser 0.05 see it (``-s`` shows them)."""
+    planted fault on the cases at the head dims the fault names (d = 64 for
+    the kernel built at 64 and 128, d = 256 for the one built at 256).
+    Prints, per case on the wgmma route, the fault's largest error and
+    whether the bound and the reference's looser 0.05 see it (``-s`` shows
+    them)."""
     monkeypatch.setitem(K._libs, "flash_attention", flash_mutants[fault])
-    rejected = []
+    rejected = {d: [] for d in FLASH_FAULTS[fault][3]}
     for qs, ks, causal, q_off, k_off, _ in FLASH_CASES:
-        if qs[-1] not in (64, 128):
+        if qs[-1] not in (64, 128, 256):
             continue
         q, k, v = _flash_inputs(qs, ks, torch.bfloat16)
         kw = dict(causal=causal, q_offset=q_off, k_offset=k_off)
@@ -641,9 +677,9 @@ def test_flash_bf16_check_rejects_planted_faults(fault, flash_mutants,
               f"offsets ({q_off}, {k_off}): max abs err "
               f"{err.max().item():.3e}; rejected by the bound {bound}, by "
               f"rtol/atol 0.05 {loose}")
-        if qs[-1] == 64:
-            rejected.append(bound)
-    assert any(rejected)
+        if qs[-1] in rejected:
+            rejected[qs[-1]].append(bound)
+    assert all(any(seen) for seen in rejected.values())
 
 
 def test_flash_kernel_raises_instead_of_falling_back():
@@ -1039,15 +1075,19 @@ def test_stencil1d_replays_in_a_cuda_graph():
 
 
 def test_flash_attention_replays_in_a_cuda_graph():
-    """bf16 on the wgmma route, each element within
-    ``flash_attention_bf16_tolerance``; float32 within 2e-4."""
+    """bf16 on the wgmma route (the kernels built at 64 and at 256), each
+    element within ``flash_attention_bf16_tolerance``; float32 on the simt
+    route within 2e-4; each route counted once outside the graph."""
     _need_card()
     kw = dict(causal=True, q_offset=0, k_offset=0)
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype, d in ((torch.bfloat16, 64), (torch.bfloat16, 256),
+                     (torch.float32, 64), (torch.float32, 200)):
         def inputs(i):
             return tuple((t.float() * (1 + 0.25 * i)).to(dtype)
-                         for t in _flash_inputs((2, 512, 64), (2, 512, 64),
+                         for t in _flash_inputs((2, 512, d), (2, 512, d),
                                                 dtype))
+        with _counted_on(K.flash_attention, _flash_route_of(dtype, d)):
+            K.flash_attention(*inputs(0), causal=True)
         _replays_hold(lambda q, k, v: K.flash_attention(q, k, v, causal=True),
                       inputs, lambda out, x: _flash_holds(out, *x, kw, 0))
 

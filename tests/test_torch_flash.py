@@ -159,8 +159,9 @@ def test_flash_attention_scale_and_offsets_match_float64():
 
 def _tiled_bf16(q, k, v, causal, q_off, k_off, fault=None, route="mma"):
     """The card kernel's bf16 arithmetic on ``route``, written out densely:
-    q blocks of 64 rows (mma) or 128 (wgmma), each visiting key tiles of as
-    many keys up to the last key its last row sees; per tile the online
+    q blocks of 64 rows (mma) or 128 (wgmma), each visiting key tiles of 64
+    keys (mma, and wgmma past head dim 128) or 128 (wgmma up to 128) up to
+    the last key its last row sees; per tile the online
     softmax in float32, P rounded to bf16 for P·V, l summing the unrounded
     weights. The mma route scores in base e (scores times the scale, exp);
     the wgmma route keeps the scores unscaled and weighs them by
@@ -176,7 +177,7 @@ def _tiled_bf16(q, k, v, causal, q_off, k_off, fault=None, route="mma"):
         s_all = torch.matmul(qf, kf.transpose(1, 2)) / np.sqrt(d)
         exp = torch.exp
     else:
-        bq = bk = 128
+        bq, bk = 128, 128 if d <= 128 else 64
         c = torch.tensor(np.log2(np.e) / np.sqrt(d), dtype=torch.float32)
         s_all = torch.matmul(qf, kf.transpose(1, 2))
     keep = torch.ones(sq, sk, dtype=torch.bool)
@@ -231,6 +232,10 @@ _BOUND_CASES = {
     "small_seq": ((1, 4, 16), (1, 4, 16), False, 0, 0),
     "head_dim_128_offsets": ((2, 300, 128), (2, 333, 128), True, 100, 60),
     "head_dim_80": ((2, 200, 80), (2, 260, 80), True, 60, 0),
+    # past 128: the wgmma kernel built at 256, on 64-key tiles
+    "head_dim_136": ((2, 200, 136), (2, 333, 136), False, 0, 0),
+    "head_dim_200": ((2, 150, 200), (2, 260, 200), True, 60, 0),
+    "head_dim_256_offsets": ((2, 300, 256), (2, 333, 256), True, 100, 60),
 }
 
 
@@ -276,7 +281,8 @@ def test_flash_bf16_tolerance_sees_planted_faults(case, fault):
 @pytest.mark.parametrize("fault", ["skip_last_tile", "no_correction",
                                    "drop_key", "diagonal_unmasked"])
 @pytest.mark.parametrize("case", ["causal", "ring_later_shard",
-                                  "head_dim_128_offsets"])
+                                  "head_dim_128_offsets",
+                                  "head_dim_256_offsets"])
 def test_flash_bf16_tolerance_sees_planted_faults_on_the_wgmma_route(case,
                                                                      fault):
     got, want, bound = _bound_case(case, fault, route="wgmma")

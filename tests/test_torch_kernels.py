@@ -243,14 +243,19 @@ FLASH_ROUTE_CASES = [
     *(((torch.bfloat16, d, True), "wgmma") for d in (40, 48, 64, 80, 96,
                                                      120, 128)),
     *(((torch.bfloat16, d, False), "mma") for d in (48, 64, 80, 96, 128)),
-    # off the wgmma route: d <= 32, rows that are not a 16-byte multiple
-    # (d % 8 != 0), and d > 128 (built at 256 on mma.sync only)
+    # off the wgmma route: d <= 32 and rows that are not a 16-byte multiple
+    # (d % 8 != 0: 129 and 130 past 128 as well), up to 256 on mma.sync
     *(((torch.bfloat16, d, a), "mma") for d in (1, 8, 16, 32, 33, 44, 81,
-                                                 136, 200, 256)
+                                                 129, 130, 250)
       for a in (True, False)),
+    # past 128 the wgmma kernel built at 256 (TMA zero-fills the columns
+    # past d), on aligned bases only
+    *(((torch.bfloat16, d, True), "wgmma") for d in (136, 144, 200, 248,
+                                                     256)),
+    *(((torch.bfloat16, d, False), "mma") for d in (136, 200, 256)),
     # past one 256-column step, either dtype, ragged or not
     *(((dt, d, a), "chunked") for dt in (torch.float32, torch.bfloat16)
-      for d in (257, 320, 512, 1000, 1001) for a in (True, False)),
+      for d in (257, 320, 512, 1000, 1001, 1100) for a in (True, False)),
 ]
 
 
